@@ -1,0 +1,35 @@
+"""Vector database engine on PyTorch and CUDA (NVIDIA Hopper).
+
+The port of ``cuda_acceleratedvectordatabaseengine_tpu`` (JAX on a TPU),
+which stays beside it as the reference. This package imports ``torch`` and
+numpy, never JAX. It runs the IVF-Flat main path: k-means training, a
+chunked int8 / bf16 / fp32 build into a packed list arena, and batched
+search whose probed-list scan is a hand-written CUDA kernel for ``sm_90a``
+(``csrc/grouped_scan.cu``, built with ``nvcc`` at first use). On CPU
+tensors every op takes its plain PyTorch version; on CUDA tensors a kernel
+path launches its kernel or raises.
+
+    import numpy as np, cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+    x = np.random.default_rng(0).standard_normal((100_000, 128), np.float32)
+    idx = vdb.IVFFlatIndex(vdb.IVFFlatConfig(dimension=128, nlist=256),
+                           device="cuda")
+    idx.train(x); idx.add(x)
+    d, ids = idx.search(x[:8], vdb.SearchParams(nprobe=32, k=10))
+"""
+
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import Metric
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
+    IVFFlatConfig,
+    IVFFlatIndex,
+    SearchParams,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Metric",
+    "IVFFlatIndex",
+    "IVFFlatConfig",
+    "SearchParams",
+    "__version__",
+]

@@ -1,0 +1,567 @@
+// Grouped probed-list scan with a fused per-(query, list) top-k, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel K1,
+// cuda_acceleratedvectordatabaseengine_tpu/ops/pallas_scan.py::
+// scan_probed_lists_pallas_grouped (kernel body _grouped_kernel, row top-k
+// _emit_row_topk / _emit_row_topk_t4). The torch wrapper is
+// cuda_acceleratedvectordatabaseengine_tpu_torch/ops/grouped_scan.py, which
+// also holds the plain PyTorch version of the same function.
+//
+// What it computes. The (query, probed list) pairs of a batch are packed by
+// the wrapper into list-rows of at most M queries that probe the same list.
+// One CTA handles one list-row: for each of its queries and each occupied
+// slot s < min(count_l, cap_s) of list l it forms
+//     qx = scale[l,s] * (q . code[l,s]) + q . anchor[l]
+// (scale 1 and anchor 0 when absent) and the distance
+//     L2: max(|q|^2 - 2 qx + arena_sq[l,s], 0)   IP: -qx   cosine: 1 - qx,
+// and keeps the k smallest (distance, slot) pairs per query, ties broken by
+// the smaller slot (the order _emit_row_topk produces). Output is
+// [n_rows, M, k] distances and slots, +inf / -1 where a list has fewer than
+// k rows, for sentinel rows (list id >= nlist) and for empty query slots.
+//
+// Design. The CTA loads its own list id and query indices and reads its M
+// query rows straight from q [B, D] into shared memory (no pre-gather), with
+// |q|^2 and q . anchor once per query. It then walks the list in tiles of
+// TS = 32 * SPL slots: each tile's rows are staged in shared memory in the
+// arena dtype with coalesced 16-byte loads, and widened to fp32 in the dot
+// loop. Query stays fp32, accumulation is fp32: the exact contract of the
+// reference gather scan (no tensor cores, no bf16 rounding of the query in
+// this version). Warp w owns queries w, w+8, ...; lane t owns slots t and
+// t+32 of the tile, so each warp ends a tile holding the tile's candidate
+// distances of its queries in registers. A real cross-lane top-k follows:
+// each query's running top-k lives spread over the lanes of its warp (entry
+// r at lane r % 32), a tile whose best candidate cannot beat the current
+// k-th is skipped with one ballot, and otherwise k rounds of shuffle argmin
+// over running + tile candidates rebuild the list.
+//
+// What bounds it on the H100. Each list-row reads its list's cap_s * D
+// arena bytes once (plus norms and scales) and does 2 * M * cap_s * D fp32
+// FLOPs on them: arithmetic intensity 2M FLOP per int8 byte, so on paper
+// HBM reads bind below ~10 queries per row and the fp32 FMA pipes above.
+// Rows of one list are separate CTAs, so a list with several rows is read
+// several times (mostly from L2). Measured on an H100 80GB HBM3 at 700 W,
+// the kernel reaches neither bound: about 1 TB/s of list reads at 1-4
+// queries per row, about 3 TFLOP/s of fp32 at 48 queries per row. What
+// limits it has not been measured (no hardware-counter profile yet). The
+// candidates: idle warps when a row holds fewer than 8 queries (warp w owns
+// queries w, w+8, ...), the shared-memory loads of the dot loop, the
+// shuffle rounds of the top-k, and occupancy.
+//
+// What later versions change: wgmma on int8 codes widened to bf16 (exact)
+// against a hi/lo bf16 split of the query, which keeps near-fp32 accuracy
+// at tensor-core rate; TMA loads into a multi-stage ring with mbarriers; and
+// one list tile shared by all rows of the list (a persistent CTA per list),
+// so that a list is read from HBM once per batch.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include <cfloat>
+#include <climits>
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSmemLimit = 232448;  // 227 KB opt-in dynamic shared memory
+
+enum Dtype { kInt8 = 0, kBf16 = 1, kF32 = 2 };
+enum MetricId { kL2 = 0, kIP = 1, kCosine = 2 };
+
+// Four consecutive arena elements in shared memory, widened to fp32.
+template <typename T>
+struct Vec4;
+
+template <>
+struct Vec4<int8_t> {
+  static __device__ __forceinline__ float4 load(const int8_t* p) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    return make_float4(c.x, c.y, c.z, c.w);
+  }
+  static __device__ __forceinline__ int8_t zero() { return 0; }
+};
+
+template <>
+struct Vec4<__nv_bfloat16> {
+  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    // bf16 -> fp32 is exact: the bf16 bits are the high half of the fp32.
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 zero() {
+    return __ushort_as_bfloat16(0);
+  }
+};
+
+template <>
+struct Vec4<float> {
+  static __device__ __forceinline__ float4 load(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ float zero() { return 0.f; }
+};
+
+__host__ __device__ inline int padded_dim(int dim) { return (dim + 3) & ~3; }
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+
+// Shared memory: queries [m][dp] fp32, |q|^2 [m], q.anchor [m], query
+// index [m], then the slot tile [TS][dp + 4] in the arena dtype. The +4
+// element row pad puts the 32 rows a warp reads at one column in distinct
+// banks.
+__host__ __device__ inline size_t query_smem_bytes(int m, int dim) {
+  return align16(sizeof(float) * (static_cast<size_t>(m) * padded_dim(dim) +
+                                  3 * static_cast<size_t>(m)));
+}
+
+__host__ __device__ inline size_t tile_smem_bytes(int dim, int elem, int ts) {
+  return static_cast<size_t>(ts) * (padded_dim(dim) + 4) * elem;
+}
+
+__host__ inline int slots_per_lane(int dtype) { return dtype == kF32 ? 1 : 2; }
+
+__host__ inline int elem_size(int dtype) {
+  return dtype == kInt8 ? 1 : (dtype == kBf16 ? 2 : 4);
+}
+
+__host__ inline size_t smem_bytes(int m, int dim, int dtype) {
+  return query_smem_bytes(m, dim) +
+         tile_smem_bytes(dim, elem_size(dtype), 32 * slots_per_lane(dtype));
+}
+
+__device__ __forceinline__ bool lex_less(float ad, int as, float bd, int bs) {
+  return ad < bd || (ad == bd && as < bs);
+}
+
+// Merge one tile's candidates into a query's running top-k, held by one
+// warp: entry r of the sorted list lives at lane r % 32, register r / 32.
+// Candidates are (distance, slot) pairs ordered lexicographically; slots
+// are unique, so the lane that owns the warp-wide minimum is the one whose
+// local minimum carries that slot.
+template <int SPL, int KPL>
+__device__ __forceinline__ void warp_merge(float (&bd)[KPL], int (&bs)[KPL],
+                                           float& kth, const float (&cd)[SPL],
+                                           int slot0, int k) {
+  bool better = false;
+#pragma unroll
+  for (int j = 0; j < SPL; ++j) better |= cd[j] < kth;
+  // A tile slot equal to the k-th distance loses the tie: its slot is
+  // larger than every slot already in the list.
+  if (!__any_sync(kFull, better)) return;
+
+  constexpr int C = KPL + SPL;
+  float ld[C];
+  int ls[C];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    ld[j] = bd[j];
+    ls[j] = bs[j];
+  }
+#pragma unroll
+  for (int j = 0; j < SPL; ++j) {
+    const bool in = cd[j] < kth;
+    ld[KPL + j] = in ? cd[j] : INFINITY;
+    ls[KPL + j] = in ? slot0 + 32 * j : INT_MAX;
+  }
+  float nd[KPL];
+  int ns[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    nd[j] = INFINITY;
+    ns[j] = INT_MAX;
+  }
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < k; ++r) {
+    float v = INFINITY;
+    int s = INT_MAX;
+    int w = -1;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (lex_less(ld[c], ls[c], v, s)) {
+        v = ld[c];
+        s = ls[c];
+        w = c;
+      }
+    }
+    float gv = v;
+    int gs = s;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, gv, off);
+      const int os = __shfl_xor_sync(kFull, gs, off);
+      if (lex_less(ov, os, gv, gs)) {
+        gv = ov;
+        gs = os;
+      }
+    }
+    if (gv == INFINITY) break;  // warp-uniform: only empties remain
+    if (w >= 0 && s == gs) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (c == w) {
+          ld[c] = INFINITY;
+          ls[c] = INT_MAX;
+        }
+      }
+    }
+    if ((r & 31) == lane) {
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        if (j == (r >> 5)) {
+          nd[j] = gv;
+          ns[j] = gs;
+        }
+      }
+    }
+  }
+  float t = INFINITY;
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    bd[j] = nd[j];
+    bs[j] = ns[j];
+    if (j == ((k - 1) >> 5)) t = nd[j];
+  }
+  kth = __shfl_sync(kFull, t, (k - 1) & 31);
+}
+
+template <typename T, int MPT, int SPL, int KPL>
+__global__ void __launch_bounds__(kThreads)
+grouped_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
+                    const float* __restrict__ arena_sq,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ anchors,
+                    const int* __restrict__ counts,
+                    const int* __restrict__ row_list,
+                    const int* __restrict__ qrow_table,
+                    float* __restrict__ out_d, int* __restrict__ out_s, int m,
+                    int dim, int nlist, int cap, int cap_s, int k,
+                    int metric) {
+  constexpr int TS = 32 * SPL;
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int dp = padded_dim(dim);
+  const int tstride = dp + 4;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [m][dp]
+  float* qsq = qs + static_cast<size_t>(m) * dp;
+  float* qa = qsq + m;
+  int* qi = reinterpret_cast<int*>(qa + m);
+  T* tile = reinterpret_cast<T*>(smem + query_smem_bytes(m, dim));
+
+  float* od = out_d + static_cast<size_t>(row) * m * k;
+  int* os = out_s + static_cast<size_t>(row) * m * k;
+  const int list = row_list[row];
+  if (list < 0 || list >= nlist) {  // sentinel row: nothing to scan
+    for (int i = tid; i < m * k; i += kThreads) {
+      od[i] = INFINITY;
+      os[i] = -1;
+    }
+    return;
+  }
+
+  // --- this row's queries, straight from q [B, D] --------------------------
+  const int* qrow = qrow_table + static_cast<size_t>(row) * m;
+  for (int i = tid; i < m; i += kThreads) qi[i] = qrow[i];
+  __syncthreads();
+  for (int e = tid; e < m * dp; e += kThreads) {
+    const int mm = e / dp;
+    const int d = e - mm * dp;
+    const int b = qi[mm];
+    qs[e] = (b >= 0 && d < dim) ? q[static_cast<size_t>(b) * dim + d] : 0.f;
+  }
+  if (dp != dim) {  // zero the pad columns of the tile once
+    const int pw = dp - dim;
+    for (int e = tid; e < TS * pw; e += kThreads) {
+      tile[(e / pw) * tstride + dim + e % pw] = Vec4<T>::zero();
+    }
+  }
+  __syncthreads();
+  const float* anc =
+      anchors != nullptr ? anchors + static_cast<size_t>(list) * dim : nullptr;
+  for (int mm = warp; mm < m; mm += kWarps) {
+    float s = 0.f;
+    float a = 0.f;
+    for (int d = lane; d < dim; d += 32) {
+      const float v = qs[mm * dp + d];
+      s = fmaf(v, v, s);
+      if (anc != nullptr) a = fmaf(v, anc[d], a);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(kFull, s, off);
+      a += __shfl_xor_sync(kFull, a, off);
+    }
+    if (lane == 0) {
+      qsq[mm] = s;
+      qa[mm] = a;
+    }
+  }
+  // (the first tile's __syncthreads publishes qsq / qa)
+
+  // --- walk the occupied slot prefix in tiles of TS slots ------------------
+  const int lim = min(counts[list], cap_s);
+  const T* lbase = arena + static_cast<size_t>(list) * cap * dim;
+  const float* sq_l = arena_sq + static_cast<size_t>(list) * cap;
+  const float* sc_l =
+      scale != nullptr ? scale + static_cast<size_t>(list) * cap : nullptr;
+  const int nq = (m - warp + kWarps - 1) / kWarps;  // queries of this warp
+  const size_t row_bytes = static_cast<size_t>(dim) * sizeof(T);
+  const bool vec16 = (row_bytes % 16 == 0) &&
+                     (reinterpret_cast<uintptr_t>(arena) % 16 == 0);
+  const int tstride_bytes = tstride * static_cast<int>(sizeof(T));
+
+  float bd[MPT][KPL];
+  int bs[MPT][KPL];
+  float kth[MPT];
+#pragma unroll
+  for (int i = 0; i < MPT; ++i) {
+    kth[i] = INFINITY;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      bd[i][j] = INFINITY;
+      bs[i][j] = INT_MAX;
+    }
+  }
+
+  for (int s0 = 0; s0 < lim; s0 += TS) {
+    const int nt = min(TS, lim - s0);
+    __syncthreads();  // the previous tile is consumed
+    if (vec16) {
+      const int per_row = static_cast<int>(row_bytes / 16);
+      const uint4* src = reinterpret_cast<const uint4*>(
+          lbase + static_cast<size_t>(s0) * dim);
+      unsigned char* dst = reinterpret_cast<unsigned char*>(tile);
+      for (int c = tid; c < nt * per_row; c += kThreads) {
+        const int r = c / per_row;
+        const uint4 v = __ldg(src + c);
+        uint32_t* o = reinterpret_cast<uint32_t*>(dst + r * tstride_bytes +
+                                                  (c - r * per_row) * 16);
+        o[0] = v.x;
+        o[1] = v.y;
+        o[2] = v.z;
+        o[3] = v.w;
+      }
+    } else {
+      const T* src = lbase + static_cast<size_t>(s0) * dim;
+      for (int e = tid; e < nt * dim; e += kThreads) {
+        const int r = e / dim;
+        tile[r * tstride + (e - r * dim)] = src[e];
+      }
+    }
+    __syncthreads();
+
+    float acc[MPT][SPL];
+#pragma unroll
+    for (int i = 0; i < MPT; ++i)
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) acc[i][j] = 0.f;
+
+    for (int d = 0; d < dp; d += 4) {
+      float4 xv[SPL];
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        xv[j] = Vec4<T>::load(tile + (lane + 32 * j) * tstride + d);
+      }
+#pragma unroll
+      for (int i = 0; i < MPT; ++i) {
+        if (i < nq) {
+          const float4 qv = *reinterpret_cast<const float4*>(
+              qs + (warp + kWarps * i) * dp + d);
+#pragma unroll
+          for (int j = 0; j < SPL; ++j) {
+            acc[i][j] = fmaf(qv.x, xv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(qv.y, xv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(qv.z, xv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(qv.w, xv[j].w, acc[i][j]);
+          }
+        }
+      }
+    }
+
+    float xsq[SPL];
+    float sc[SPL];
+    bool valid[SPL];
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) {
+      const int t = lane + 32 * j;
+      valid[j] = t < nt;
+      xsq[j] = valid[j] ? sq_l[s0 + t] : 0.f;
+      sc[j] = (valid[j] && sc_l != nullptr) ? sc_l[s0 + t] : 1.f;
+    }
+#pragma unroll
+    for (int i = 0; i < MPT; ++i) {
+      if (i < nq) {
+        const int mm = warp + kWarps * i;
+        float cd[SPL];
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const float qx = acc[i][j] * sc[j] + qa[mm];
+          float dist;
+          if (metric == kL2) {
+            dist = fmaxf(qsq[mm] - 2.f * qx + xsq[j], 0.f);
+          } else if (metric == kIP) {
+            dist = -qx;
+          } else {
+            dist = 1.f - qx;
+          }
+          cd[j] = valid[j] ? dist : INFINITY;
+        }
+        warp_merge<SPL, KPL>(bd[i], bs[i], kth[i], cd, s0 + lane, k);
+      }
+    }
+  }
+
+  // --- write the per-query top-k -------------------------------------------
+  __syncthreads();  // qi / qsq visible even when the list is empty
+#pragma unroll
+  for (int i = 0; i < MPT; ++i) {
+    if (i < nq) {
+      const int mm = warp + kWarps * i;
+      const bool live = qi[mm] >= 0;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int r = lane + 32 * j;
+        if (r < k) {
+          const bool hit = live && bd[i][j] != INFINITY;
+          od[mm * k + r] = hit ? bd[i][j] : INFINITY;
+          os[mm * k + r] = hit ? bs[i][j] : -1;
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int MPT, int SPL, int KPL>
+cudaError_t launch(const float* q, const void* arena, const float* arena_sq,
+                   const float* scale, const float* anchors, const int* counts,
+                   const int* row_list, const int* qrow_table, float* out_d,
+                   int* out_s, int n_rows, int m, int dim, int nlist, int cap,
+                   int cap_s, int k, int metric, int dtype,
+                   cudaStream_t stream) {
+  auto kernel = grouped_scan_kernel<T, MPT, SPL, KPL>;
+  const size_t smem = smem_bytes(m, dim, dtype);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<n_rows, kThreads, smem, stream>>>(
+      q, static_cast<const T*>(arena), arena_sq, scale, anchors, counts,
+      row_list, qrow_table, out_d, out_s, m, dim, nlist, cap, cap_s, k,
+      metric);
+  return cudaGetLastError();
+}
+
+template <typename T, int SPL, int KPL>
+cudaError_t dispatch_m(int mpt, const float* q, const void* arena,
+                       const float* arena_sq, const float* scale,
+                       const float* anchors, const int* counts,
+                       const int* row_list, const int* qrow_table,
+                       float* out_d, int* out_s, int n_rows, int m, int dim,
+                       int nlist, int cap, int cap_s, int k, int metric,
+                       int dtype, cudaStream_t stream) {
+#define VDB_LAUNCH(MPT)                                                      \
+  return launch<T, MPT, SPL, KPL>(q, arena, arena_sq, scale, anchors, counts, \
+                                  row_list, qrow_table, out_d, out_s, n_rows, \
+                                  m, dim, nlist, cap, cap_s, k, metric, dtype, \
+                                  stream)
+  if (mpt <= 1) VDB_LAUNCH(1);
+  if (mpt <= 2) VDB_LAUNCH(2);
+  if (mpt <= 4) VDB_LAUNCH(4);
+  VDB_LAUNCH(8);
+#undef VDB_LAUNCH
+}
+
+template <typename T, int SPL>
+cudaError_t dispatch_k(int mpt, const float* q, const void* arena,
+                       const float* arena_sq, const float* scale,
+                       const float* anchors, const int* counts,
+                       const int* row_list, const int* qrow_table,
+                       float* out_d, int* out_s, int n_rows, int m, int dim,
+                       int nlist, int cap, int cap_s, int k, int metric,
+                       int dtype, cudaStream_t stream) {
+  if (k <= 32) {
+    return dispatch_m<T, SPL, 1>(mpt, q, arena, arena_sq, scale, anchors,
+                                 counts, row_list, qrow_table, out_d, out_s,
+                                 n_rows, m, dim, nlist, cap, cap_s, k, metric,
+                                 dtype, stream);
+  }
+  return dispatch_m<T, SPL, 2>(mpt, q, arena, arena_sq, scale, anchors, counts,
+                               row_list, qrow_table, out_d, out_s, n_rows, m,
+                               dim, nlist, cap, cap_s, k, metric, dtype,
+                               stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest list-row width M whose queries and slot tile fit the shared memory
+// of one CTA at this dimension and arena dtype (0: none fits).
+int vdb_grouped_scan_max_m(int dim, int dtype) {
+  if (dim <= 0 || dtype < kInt8 || dtype > kF32) return 0;
+  int m = 0;
+  while (m < 64 && smem_bytes(m + 1, dim, dtype) <= kSmemLimit) ++m;
+  return m;
+}
+
+// Launch the grouped scan on `stream`. Returns a cudaError_t (0 = launched).
+// Pointers: q [B, dim] f32; arena [nlist, cap, dim] of `dtype` (0 int8,
+// 1 bf16, 2 f32); arena_sq [nlist, cap] f32; scale [nlist, cap] f32 or null;
+// anchors [nlist, dim] f32 or null; counts [nlist] i32; row_list [n_rows]
+// i32; qrow_table [n_rows, m] i32; out_d / out_s [n_rows, m, k].
+int vdb_grouped_scan(const void* q, const void* arena, const void* arena_sq,
+                     const void* scale, const void* anchors,
+                     const void* counts, const void* row_list,
+                     const void* qrow_table, void* out_d, void* out_s,
+                     int n_rows, int m, int dim, int nlist, int cap, int cap_s,
+                     int k, int metric, int dtype, void* stream) {
+  if (n_rows <= 0 || m <= 0 || m > vdb_grouped_scan_max_m(dim, dtype) ||
+      k <= 0 || k > 64 || cap_s <= 0 || cap_s > cap || nlist <= 0 ||
+      metric < kL2 || metric > kCosine) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int mpt = (m + kWarps - 1) / kWarps;
+  const float* qf = static_cast<const float*>(q);
+  const float* sq = static_cast<const float*>(arena_sq);
+  const float* sc = static_cast<const float*>(scale);
+  const float* an = static_cast<const float*>(anchors);
+  const int* cn = static_cast<const int*>(counts);
+  const int* rl = static_cast<const int*>(row_list);
+  const int* qt = static_cast<const int*>(qrow_table);
+  float* od = static_cast<float*>(out_d);
+  int* os = static_cast<int*>(out_s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (dtype) {
+    case kInt8:
+      err = dispatch_k<int8_t, 2>(mpt, qf, arena, sq, sc, an, cn, rl, qt, od,
+                                  os, n_rows, m, dim, nlist, cap, cap_s, k,
+                                  metric, dtype, st);
+      break;
+    case kBf16:
+      err = dispatch_k<__nv_bfloat16, 2>(mpt, qf, arena, sq, sc, an, cn, rl,
+                                         qt, od, os, n_rows, m, dim, nlist,
+                                         cap, cap_s, k, metric, dtype, st);
+      break;
+    default:
+      err = dispatch_k<float, 1>(mpt, qf, arena, sq, sc, an, cn, rl, qt, od,
+                                 os, n_rows, m, dim, nlist, cap, cap_s, k,
+                                 metric, dtype, st);
+      break;
+  }
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

@@ -1,0 +1,341 @@
+"""Packed, padded inverted-list arena on torch tensors (PyTorch port of
+``cuda_acceleratedvectordatabaseengine_tpu/models/arena.py``).
+
+Layout, identical to the JAX package so state carries across:
+
+    arena     [nlist, capacity, dim]   int8 / bfloat16 / float32
+    arena_sq  [nlist, capacity]        fp32 squared norms of the stored point
+    counts    [nlist]                  int32 live rows
+    ids       [nlist, capacity]        uint64, host numpy (user ids)
+
+A vector's identity on the device is its int32 global position
+``list_id * capacity + slot``; the host maps positions back to user ids.
+
+Mutation rule. JAX arrays are immutable; here an append writes the new
+rows in place, into slots at or beyond the old ``counts``, and returns a
+handle with a NEW ``counts`` tensor (and a copied id table). ``grow``
+allocates new tensors. A search that snapshotted the old handle masks by
+the old counts, so it never reads a half-written slot.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+INVALID_ID = np.uint64(0xFFFFFFFFFFFFFFFF)  # UINT64_MAX sentinel
+
+DTYPES = {
+    "int8": torch.int8,
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """Map a config dtype name ("int8" | "bfloat16" | "float32") to torch."""
+    if isinstance(name, torch.dtype):
+        return name
+    try:
+        return DTYPES[str(name)]
+    except KeyError:
+        raise ValueError(
+            f"unsupported arena dtype {name!r}; expected one of {list(DTYPES)}"
+        ) from None
+
+
+def _append_device(arena, arena_sq, arena_scale, anchors, lists, slots,
+                   vec_f32):
+    """Write a batch of rows into their pre-assigned ``(lists, slots)`` in
+    place. int8 arenas use per-row symmetric scales (``arena_scale``);
+    with ``anchors`` (residual mode) the row encodes ``x − anchor[list]``.
+    ``arena_sq`` holds the squared norm of the STORED (dequantized) point,
+    so scan distances are distances to what the arena holds."""
+    if arena.dtype == torch.int8:
+        a_rows = anchors[lists] if anchors is not None else 0.0
+        res = vec_f32 - a_rows
+        row_scale = res.abs().amax(-1).clamp_min(1e-12) / 127.0
+        hi_f = torch.round(res / row_scale[:, None]).clamp(-127, 127)
+        hi = hi_f.to(torch.int8)
+        deq = a_rows + hi_f * row_scale[:, None]
+        arena_scale[lists, slots] = row_scale
+    else:
+        hi = vec_f32.to(arena.dtype)
+        deq = hi.float()
+    arena[lists, slots] = hi
+    arena_sq[lists, slots] = (deq * deq).sum(-1)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def compute_append_slots(
+    counts: np.ndarray, assignments: np.ndarray
+) -> np.ndarray:
+    """Destination slot for each appended row: current list fill + stable rank
+    among same-list rows in the batch (copied from the JAX package)."""
+    n = assignments.shape[0]
+    if n == 0:
+        return np.zeros(0, np.int64)
+    order = np.argsort(assignments, kind="stable")
+    sorted_lists = assignments[order]
+    boundaries = np.flatnonzero(np.diff(sorted_lists)) + 1
+    starts = np.concatenate([[0], boundaries])
+    sizes = np.diff(np.concatenate([starts, [n]]))
+    group_start_of_row = np.repeat(starts, sizes)
+    ranks_sorted = np.arange(n) - group_start_of_row
+    slots = np.empty(n, np.int64)
+    slots[order] = counts[sorted_lists] + ranks_sorted
+    return slots
+
+
+@dataclasses.dataclass
+class PackedListArena:
+    """Device-resident packed inverted lists + host-side id table."""
+
+    nlist: int
+    dim: int
+    dtype: torch.dtype
+    capacity: int
+    arena: torch.Tensor       # [nlist, capacity, dim]
+    arena_sq: torch.Tensor    # [nlist, capacity] fp32
+    counts: torch.Tensor      # [nlist] int32
+    ids: np.ndarray           # [nlist, capacity] uint64 host
+    # int8 arenas: per-row symmetric dequant scales [nlist, capacity]
+    # (stored point = anchor[l] + scale[l, slot] · code).
+    arena_scale: torch.Tensor | None = None
+    # Residual anchors [nlist, dim] fp32 (the coarse centroids): int8 codes
+    # encode x − anchor[list].
+    anchors: torch.Tensor | None = None
+    # Host-tracked max(counts): lets searches scan only the occupied slot
+    # prefix (``scan_capacity_hint``). None = unknown.
+    counts_max: int | None = None
+
+    # Slot granularity for capacity growth.
+    SLOT_ALIGN = 128
+    # Rows per device append step: bounds the fp32 staging transients
+    # (residual, rounding and norm planes are each [rows, dim] fp32).
+    APPEND_DEVICE_ROWS = 262_144
+
+    @property
+    def device(self) -> torch.device:
+        return self.arena.device
+
+    @classmethod
+    def create(
+        cls, nlist: int, dim: int, dtype=torch.bfloat16, capacity: int = 128,
+        device: torch.device | str = "cpu",
+    ) -> "PackedListArena":
+        dtype = torch_dtype(dtype)
+        capacity = _round_up(max(capacity, cls.SLOT_ALIGN), cls.SLOT_ALIGN)
+        scale = (
+            torch.zeros((nlist, capacity), dtype=torch.float32, device=device)
+            if dtype == torch.int8 else None
+        )
+        return cls(
+            nlist=nlist,
+            dim=dim,
+            dtype=dtype,
+            capacity=capacity,
+            arena=torch.zeros((nlist, capacity, dim), dtype=dtype,
+                              device=device),
+            arena_sq=torch.zeros((nlist, capacity), dtype=torch.float32,
+                                 device=device),
+            counts=torch.zeros((nlist,), dtype=torch.int32, device=device),
+            ids=np.full((nlist, capacity), INVALID_ID, np.uint64),
+            arena_scale=scale,
+            counts_max=0,
+        )
+
+    @property
+    def total_vectors(self) -> int:
+        return int(self.counts.sum().item())
+
+    def scan_capacity_hint(self) -> int | None:
+        """Slot-prefix bound for the scans: the 128-rounded occupancy when
+        it is known AND smaller than the allocation, else None (scan the
+        full capacity)."""
+        if self.counts_max is None:
+            return None
+        occ = _round_up(max(int(self.counts_max), 1), self.SLOT_ALIGN)
+        return occ if occ < self.capacity else None
+
+    def nbytes_device(self) -> int:
+        n = (
+            self.arena.numel() * self.arena.element_size()
+            + self.arena_sq.numel() * 4
+            + self.counts.numel() * 4
+        )
+        if self.arena_scale is not None:
+            n += self.arena_scale.numel() * 4
+        return n
+
+    # ------------------------------------------------------------------ #
+    # ingest
+    # ------------------------------------------------------------------ #
+
+    def append(
+        self,
+        vectors: np.ndarray | torch.Tensor,
+        ids: np.ndarray,
+        assignments: np.ndarray,
+    ) -> "PackedListArena":
+        """Append ``vectors [n, dim]`` with user ``ids [n]`` into the lists
+        given by ``assignments [n]`` (host int array). Returns the updated
+        handle; see the module docstring for what is written in place."""
+        n = vectors.shape[0]
+        if n == 0:
+            return self
+        assignments = np.asarray(assignments, np.int64)
+        counts_h = self.counts.cpu().numpy().astype(np.int64)
+        per_list = np.bincount(assignments, minlength=self.nlist)
+        needed = counts_h + per_list
+        out = self
+        max_needed = int(needed.max())
+        if max_needed > self.capacity:
+            out = out.grow(_round_up(max(max_needed, int(self.capacity * 1.5)),
+                                     self.SLOT_ALIGN))
+        slots = compute_append_slots(counts_h, assignments)
+
+        dev = out.device
+        lists_d = torch.from_numpy(assignments).to(dev)
+        slots_d = torch.from_numpy(slots).to(dev)
+        step = self.APPEND_DEVICE_ROWS
+        for s0 in range(0, n, step):
+            s1 = min(s0 + step, n)
+            if isinstance(vectors, torch.Tensor):
+                vec = vectors[s0:s1].to(device=dev, dtype=torch.float32)
+            else:
+                vec = torch.from_numpy(
+                    np.ascontiguousarray(vectors[s0:s1], np.float32)
+                ).to(dev)
+            _append_device(
+                out.arena, out.arena_sq, out.arena_scale, out.anchors,
+                lists_d[s0:s1], slots_d[s0:s1], vec,
+            )
+        new_counts = torch.from_numpy(needed.astype(np.int32)).to(dev)
+        new_ids = out.ids.copy()
+        new_ids[assignments, slots] = np.asarray(ids).astype(np.uint64)
+        return dataclasses.replace(
+            out, counts=new_counts, ids=new_ids, counts_max=max_needed,
+        )
+
+    def grow(self, new_capacity: int) -> "PackedListArena":
+        """Reallocate with a larger per-list capacity (new tensors; the old
+        handle stays valid for readers that hold it)."""
+        if new_capacity <= self.capacity:
+            raise ValueError(
+                f"grow needs a larger capacity: {new_capacity} <= "
+                f"{self.capacity}"
+            )
+        pad = new_capacity - self.capacity
+
+        def _pad_slots(t):
+            if t is None:
+                return None
+            shape = (t.shape[0], pad) + tuple(t.shape[2:])
+            return torch.cat(
+                [t, torch.zeros(shape, dtype=t.dtype, device=t.device)], dim=1
+            )
+
+        ids = np.full((self.nlist, new_capacity), INVALID_ID, np.uint64)
+        ids[:, : self.capacity] = self.ids
+        return dataclasses.replace(
+            self, capacity=new_capacity, arena=_pad_slots(self.arena),
+            arena_sq=_pad_slots(self.arena_sq), ids=ids,
+            arena_scale=_pad_slots(self.arena_scale),
+        )
+
+    # ------------------------------------------------------------------ #
+    # id mapping
+    # ------------------------------------------------------------------ #
+
+    def positions_to_ids(self, pos: np.ndarray) -> np.ndarray:
+        """Map global positions (int32, -1 = empty) to user uint64 ids
+        (UINT64_MAX for empties)."""
+        flat = self.ids.reshape(-1)
+        safe = np.clip(pos, 0, flat.size - 1)
+        out = flat[safe]
+        out[pos < 0] = INVALID_ID
+        return out
+
+    # ------------------------------------------------------------------ #
+    # (de)serialization
+    # ------------------------------------------------------------------ #
+
+    def to_host(self) -> dict:
+        """Dequantized fp32 view of the stored vectors (snapshots persist
+        values, not codes). Padded slots stay exactly zero. Dequantization
+        happens on the host, like the JAX package's."""
+        arena_np = self.arena.float().cpu().numpy()
+        counts = self.counts.cpu().numpy()
+        if self.dtype == torch.int8 and self.arena_scale is not None:
+            arena_np *= self.arena_scale.cpu().numpy()[:, :, None]
+            if self.anchors is not None:
+                anchors = self.anchors.cpu().numpy()
+                for l in range(arena_np.shape[0]):   # in place, no 3-D temp
+                    arena_np[l, : int(counts[l])] += anchors[l]
+        return {"arena": arena_np, "counts": counts, "ids": self.ids}
+
+    @classmethod
+    def from_host(
+        cls, arena: np.ndarray, counts: np.ndarray, ids: np.ndarray, dtype,
+        anchors: np.ndarray | None = None,
+        device: torch.device | str = "cpu",
+    ) -> "PackedListArena":
+        """Rebuild from a ``to_host`` view (int8 requantizes on the host with
+        the same per-row math as the append path)."""
+        dtype = torch_dtype(dtype)
+        nlist, capacity, dim = arena.shape
+        arena_f = arena.astype(np.float32)
+        arena_scale = None
+        anchors_d = None
+        if dtype == torch.int8:
+            live = (
+                np.arange(capacity)[None, :]
+                < counts.astype(np.int64)[:, None]
+            )
+            if anchors is not None:
+                anchors_f = anchors.astype(np.float32)
+                res = np.where(
+                    live[:, :, None], arena_f - anchors_f[:, None, :], 0.0
+                )
+                anchors_d = torch.from_numpy(anchors_f).to(device)
+            else:
+                res = arena_f
+            scale_h = np.maximum(np.abs(res).max(axis=-1), 1e-12) / 127.0
+            codes = np.clip(
+                np.round(res / scale_h[:, :, None]), -127, 127
+            ).astype(np.int8)
+            deq = codes.astype(np.float32) * scale_h[:, :, None]
+            if anchors is not None:
+                deq = np.where(
+                    live[:, :, None], deq + anchors_f[:, None, :], 0.0
+                )
+            sq_h = np.einsum("lcd,lcd->lc", deq, deq, dtype=np.float32)
+            dev = torch.from_numpy(codes).to(device)
+            arena_scale = torch.from_numpy(
+                scale_h.astype(np.float32)
+            ).to(device)
+        else:
+            dev = torch.from_numpy(arena_f).to(device=device, dtype=dtype)
+            stored = dev.float()
+            sq_h = (stored * stored).sum(-1).cpu().numpy()
+        return cls(
+            nlist=nlist,
+            dim=dim,
+            dtype=dtype,
+            capacity=capacity,
+            arena=dev,
+            arena_sq=torch.from_numpy(
+                np.ascontiguousarray(sq_h, np.float32)
+            ).to(device),
+            counts=torch.from_numpy(counts.astype(np.int32)).to(device),
+            ids=ids.astype(np.uint64),
+            arena_scale=arena_scale,
+            anchors=anchors_d,
+            counts_max=int(counts.max()) if counts.size else 0,
+        )

@@ -1,0 +1,122 @@
+"""Probe-coverage calibration (PyTorch port of
+``cuda_acceleratedvectordatabaseengine_tpu/models/calibrate.py``).
+
+Coverage(P) = the fraction of exact top-``k`` neighbours whose inverted list
+is among a query's first ``P`` coarse probes: the quantization-independent
+part of recall. The smallest ``nprobe`` meeting a coverage target is the
+cheapest operating point that can reach that recall on the caller's data.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
+    INVALID_ID,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+    Metric,
+    pairwise_distance,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.normalize import (
+    l2_normalize,
+)
+
+
+def sample_stored_rows(arena, sample: int, seed: int = 0) -> np.ndarray:
+    """``sample`` dequantized stored rows of a ``PackedListArena`` as
+    stand-in queries (slightly optimistic for coverage: a stored row sits at
+    the heart of its own list)."""
+    rng = np.random.default_rng(seed)
+    counts_h = arena.counts.cpu().numpy()
+    lists_h = np.flatnonzero(counts_h > 0)
+    lists_s = rng.choice(lists_h, size=sample)
+    slots_s = (rng.random(sample) * counts_h[lists_s]).astype(np.int64)
+    dev = arena.device
+    li = torch.from_numpy(lists_s).to(dev)
+    si = torch.from_numpy(slots_s).to(dev)
+    rows = arena.arena[li, si].float()
+    if arena.arena_scale is not None:
+        rows = rows * arena.arena_scale[li, si][:, None]
+    if arena.anchors is not None:
+        rows = rows + arena.anchors[li]
+    return rows.cpu().numpy()
+
+
+def probe_coverage_calibrate(
+    *,
+    centroids: torch.Tensor,
+    metric: Metric,
+    ids_table: np.ndarray,
+    queries: np.ndarray,
+    exact_search_fn,
+    target_coverage: float = 0.99,
+    k: int = 10,
+    candidates: tuple = (4, 8, 12, 16, 24, 32, 48, 64, 96, 128),
+) -> dict:
+    """Measure the coverage curve and pick the smallest candidate meeting
+    ``target_coverage``.
+
+    ``ids_table`` is the ``[nlist, capacity]`` id layout; ``exact_search_fn
+    (queries, k)`` returns the full-probe top-``k`` ``(dists, ids)`` on the
+    index's stored representation. When coverage plateaus below target on
+    every candidate, the knee (smallest candidate within 1% absolute of the
+    best) is chosen and ``coverage_limited`` is set, rather than silently
+    escalating to a full scan.
+    """
+    nlist, cap = ids_table.shape
+    queries = np.ascontiguousarray(queries, np.float32)
+
+    _, ids_true = exact_search_fn(queries, k)
+    ids_true = np.asarray(ids_true)
+
+    # true list of each ground-truth id via the id table
+    flat = np.asarray(ids_table).reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    sflat = flat[order]
+    locs = np.clip(
+        np.searchsorted(sflat, ids_true.astype(np.uint64)),
+        0, max(sflat.size - 1, 0),
+    )
+    matched = sflat[locs] == ids_true.astype(np.uint64)
+    true_list = (order[locs] // cap).astype(np.int64)
+
+    # coarse rank of each true list per query
+    q = torch.from_numpy(queries).to(centroids.device)
+    if metric == Metric.COSINE:
+        q = l2_normalize(q)
+    coarse_metric = (
+        Metric.INNER_PRODUCT if metric == Metric.INNER_PRODUCT else Metric.L2
+    )
+    coarse = pairwise_distance(q, centroids, coarse_metric).cpu().numpy()
+    ranks = np.argsort(np.argsort(coarse, axis=1), axis=1)
+    rank_of_true = np.take_along_axis(
+        ranks, np.clip(true_list, 0, nlist - 1), axis=1
+    )
+    valid = matched & (ids_true != INVALID_ID)
+    n_valid = max(int(valid.sum()), 1)
+    curve = {}
+    for p in sorted(set(int(c) for c in candidates) | {nlist}):
+        if p > nlist:
+            continue
+        curve[p] = float((rank_of_true[valid] < p).sum() / n_valid)
+    cand_curve = {p: c for p, c in curve.items() if p < nlist}
+    chosen = next(
+        (p for p in sorted(cand_curve) if cand_curve[p] >= target_coverage),
+        None,
+    )
+    coverage_limited = chosen is None and bool(cand_curve)
+    if coverage_limited:
+        best = max(cand_curve.values())
+        chosen = min(p for p, c in cand_curve.items() if c >= best - 0.01)
+    elif chosen is None:
+        chosen = nlist
+    return {
+        "nprobe": int(chosen),
+        "coverage": curve.get(chosen, 1.0),
+        "coverage_limited": coverage_limited,
+        "curve": curve,
+        "target": target_coverage,
+        "sample": queries.shape[0],
+    }

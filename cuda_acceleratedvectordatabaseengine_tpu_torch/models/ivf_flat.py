@@ -1,0 +1,689 @@
+"""IVF-Flat index on torch tensors (PyTorch port of
+``cuda_acceleratedvectordatabaseengine_tpu/models/ivf_flat.py``).
+
+k-means coarse quantizer + packed inverted-list arena. A search batch runs
+on the index's device as: coarse ``[B, nlist]`` fp32 distance matmul +
+top-nprobe, then the probed-list scan (the hand-written grouped kernel on
+CUDA, the gather scan on the CPU), then the host maps positions to user ids.
+
+Not ported yet (a later slice): ``remove_ids``, the exact rerank over a
+stored residual plane (``store_residuals`` / ``use_exact_rerank``),
+``save`` / ``load``, and the relay-era knobs ``stage_bf16`` and
+``query_upload_dtype="bfloat16"``. Setting one of those raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
+    INVALID_ID,
+    PackedListArena,
+    _append_device,
+    compute_append_slots,
+    torch_dtype,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+    Metric,
+    pairwise_distance,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_scan import (
+    scan_probed_lists_grouped,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.kmeans import (
+    kmeans_assign,
+    kmeans_assign_topk,
+    kmeans_assign_topk_vals,
+    kmeans_fit,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.normalize import (
+    l2_normalize,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.scan import (
+    scan_probed_lists,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
+    topk_smallest,
+)
+
+FLT_MAX = np.float32(np.finfo(np.float32).max)
+
+# scan_impl names this package runs; "pallas_grouped" is the JAX package's
+# name for the same list-centric scan.
+_SCAN_IMPLS = {
+    "auto": "auto", "gather": "gather", "grouped": "grouped",
+    "pallas_grouped": "grouped",
+}
+
+
+@dataclasses.dataclass
+class IVFFlatConfig:
+    """The JAX package's ``IVFFlatConfig``: same fields, same defaults (see
+    that class for the measurements behind each default)."""
+
+    dimension: int = 768
+    nlist: int = 1024
+    metric: Metric = Metric.L2
+    dtype: str = "bfloat16"          # arena dtype: bfloat16 | int8 | float32
+    train_iters: int = 40            # Lloyd iterations
+    train_sample_per_list: int = 128 # train on min(n, nlist * this) rows
+    split_threshold: float = 1.5     # overfull-list clone trigger (× mean)
+    assign_choices: int = 4          # balanced-assignment spill depth
+    seed: int = 42                   # k-means / subsample seed
+    max_capacity_factor: float = 8.0 # bulk-build capacity clamp (× mean)
+    scan_impl: str = "auto"          # "auto": the grouped kernel on CUDA,
+                                     # the gather scan on the CPU; or
+                                     # "grouped" (alias "pallas_grouped") |
+                                     # "gather"
+    m_budget: int | None = None      # grouped scan: queries per list-row
+                                     # (None = auto from batch and nlist)
+    approx_topk: bool = False        # accepted; selection is always exact
+    stage_bf16: bool = False         # not ported (must stay False)
+    store_residuals: bool = False    # not ported yet (must stay False)
+    int8_residual: bool = True       # int8: encode x − centroid[l]
+    multi_assign_eps: float = 0.0    # >0: second copy of rows whose 2nd
+                                     # centroid passes d2 ≤ (1+ε)²·d1
+    multi_assign_budget: float = 1.0 # replicas per append ≤ this × rows
+    query_upload_dtype: str = "float32"  # only float32 is ported
+
+    def __post_init__(self):
+        if isinstance(self.metric, str):
+            self.metric = Metric.parse(self.metric)
+        torch_dtype(self.dtype)
+        if self.scan_impl not in _SCAN_IMPLS:
+            raise ValueError(
+                f"scan_impl {self.scan_impl!r} is not available in this "
+                f"package; expected one of {sorted(_SCAN_IMPLS)}"
+            )
+        if self.stage_bf16 or self.store_residuals:
+            raise NotImplementedError(
+                "stage_bf16 and store_residuals are not ported"
+            )
+        if self.query_upload_dtype != "float32":
+            raise NotImplementedError(
+                "only query_upload_dtype='float32' is ported"
+            )
+
+
+@dataclasses.dataclass
+class SearchParams:
+    """``nprobe=0`` resolves to the index's measured-coverage calibration
+    (:meth:`IVFFlatIndex.calibrate_nprobe`), else the default."""
+
+    nprobe: int = 10
+    k: int = 10
+    use_exact_rerank: bool = False  # IVF-Flat distances are already exact
+
+
+def _choose_capacity(
+    counts: np.ndarray, align: int, max_factor: float = 8.0,
+    spill_budget: float = 0.01,
+) -> int:
+    """Per-list arena capacity for a bulk build: the smallest clamp that
+    keeps the spill fraction ≤ ``spill_budget``, clipped to
+    ``[1.5, max_factor] × mean`` (copied from the JAX package)."""
+    n = int(counts.sum())
+    if n == 0:
+        return align
+    mean = max(counts.mean(), 1.0)
+    lo, hi = 1, int(counts.max())
+    while lo < hi:                      # binary search on the clamp
+        mid = (lo + hi) // 2
+        spill = n - int(np.minimum(counts, mid).sum())
+        if spill <= spill_budget * n:
+            hi = mid
+        else:
+            lo = mid + 1
+    cap = int(np.clip(lo, mean * 1.5 + 1, mean * max_factor))
+    return max(-(-cap // align) * align, align)
+
+
+def _balance_assignments(
+    choices: np.ndarray, cap: int, nlist: int,
+    initial_counts: np.ndarray | None = None,
+) -> np.ndarray:
+    """Greedy capacity-respecting placement over ranked centroid choices
+    ``[n, t]``: rank-0 lists fill first; rows that would overflow a full
+    list fall to their next choice; anything still unplaced lands in the
+    least-full list with room (copied from the JAX package)."""
+    n, t = choices.shape
+    placed = np.full(n, -1, np.int64)
+    counts = (
+        initial_counts.astype(np.int64).copy()
+        if initial_counts is not None else np.zeros(nlist, np.int64)
+    )
+    for r in range(t):
+        todo = np.flatnonzero(placed < 0)
+        if todo.size == 0:
+            break
+        lists = choices[todo, r].astype(np.int64)
+        slots = compute_append_slots(counts, lists)
+        ok = slots < cap
+        placed[todo[ok]] = lists[ok]
+        counts = np.bincount(
+            placed[placed >= 0], minlength=nlist
+        ) + (initial_counts.astype(np.int64)
+             if initial_counts is not None else 0)
+    leftovers = np.flatnonzero(placed < 0)
+    for i in leftovers:
+        # only lists with free slots: the chunked build never reallocates
+        open_lists = np.flatnonzero(counts < cap)
+        if open_lists.size == 0:
+            raise ValueError(
+                f"arena full: {n} rows into nlist={nlist} × cap={cap}"
+            )
+        l = int(open_lists[np.argmin(counts[open_lists])])
+        placed[i] = l
+        counts[l] += 1
+    return placed.astype(np.int32)
+
+
+def dedup_topk(
+    d: np.ndarray, ids: np.ndarray, k: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Keep the first (nearest) occurrence of each id of an ascending
+    top-k2 result and truncate to ``k``; short rows pad with
+    FLT_MAX/INVALID_ID (copied from the JAX package)."""
+    b, k2 = ids.shape
+    earlier = np.tril(np.ones((k2, k2), bool), -1)
+    is_dup = ((ids[:, :, None] == ids[:, None, :]) & earlier).any(-1)
+    order = np.argsort(is_dup, axis=1, kind="stable")
+    d2 = np.take_along_axis(d, order, 1)[:, :k].copy()
+    i2 = np.take_along_axis(ids, order, 1)[:, :k].copy()
+    tail = np.arange(k)[None, :] >= (k2 - is_dup.sum(1))[:, None]
+    d2[tail] = FLT_MAX
+    i2[tail] = INVALID_ID
+    return d2, i2
+
+
+def _bulk_pack_device(x, assignments, nlist: int, cap: int, dtype,
+                      anchors=None):
+    """Pack a whole corpus into a fresh arena on the device: per-list rank
+    by a stable sort, then the append path's quantize-and-scatter. Returns
+    ``(arena, arena_sq, counts, slots, arena_scale)``."""
+    dev = x.device
+    n = x.shape[0]
+    a = assignments.to(device=dev, dtype=torch.long)
+    counts = torch.bincount(a, minlength=nlist)
+    order = torch.argsort(a, stable=True)
+    start = torch.cumsum(counts, 0) - counts
+    slots = torch.empty_like(a)
+    slots[order] = torch.arange(n, device=dev) - start[a[order]]
+    dtype = torch_dtype(dtype)
+    arena = torch.zeros((nlist, cap, x.shape[1]), dtype=dtype, device=dev)
+    arena_sq = torch.zeros((nlist, cap), dtype=torch.float32, device=dev)
+    scale = (
+        torch.zeros((nlist, cap), dtype=torch.float32, device=dev)
+        if dtype == torch.int8 else None
+    )
+    step = PackedListArena.APPEND_DEVICE_ROWS
+    for s0 in range(0, n, step):
+        _append_device(arena, arena_sq, scale, anchors, a[s0:s0 + step],
+                       slots[s0:s0 + step], x[s0:s0 + step].float())
+    return arena, arena_sq, counts.int(), slots, scale
+
+
+def _ivf_search_device(
+    queries, centroids, arena, arena_sq, counts, nprobe, k, metric,
+    scan_impl="gather", arena_scale=None, arena_anchors=None, m_budget=None,
+    scan_capacity=None,
+):
+    """The device half of a search: ``(dists [B, k], pos [B, k],
+    probe_ids [B, nprobe])``. The probe set rides along so the host's
+    hotness accounting counts lists that were probed. Each stage runs in a
+    named ``torch.profiler`` range (``ivf_flat.coarse_probe``,
+    ``grouped_scan.*``) so a trace attributes device time to it."""
+    with record_function("ivf_flat.coarse_probe"):
+        q = queries.float()
+        if metric == Metric.COSINE:
+            q = l2_normalize(q)
+        coarse = pairwise_distance(q, centroids, metric)      # [B, nlist]
+        _, probe_ids = topk_smallest(coarse, nprobe)
+        probe_ids = probe_ids.int()
+    if scan_impl == "grouped":
+        d, pos = scan_probed_lists_grouped(
+            q, arena, arena_sq, counts, probe_ids, k, metric,
+            m_budget=m_budget, arena_scale=arena_scale,
+            arena_anchors=arena_anchors, scan_capacity=scan_capacity,
+        )
+    else:
+        d, pos = scan_probed_lists(
+            q, arena, arena_sq, counts, probe_ids, k, metric,
+            arena_scale=arena_scale, arena_anchors=arena_anchors,
+        )
+    return d[:, :k], pos[:, :k], probe_ids
+
+
+class IVFFlatIndex:
+    """IVF-Flat ANN index on one explicit device (``"cpu"``, ``"cuda"``,
+    ``"cuda:1"``, ...). Searches snapshot the arena handle; mutations write
+    only slots past the snapshot's counts or allocate anew (see
+    ``models/arena.py``), so a running search stays consistent."""
+
+    def __init__(self, config: IVFFlatConfig,
+                 device: torch.device | str = "cpu"):
+        self.config = config
+        self.metric = config.metric
+        self.device = torch.device(device)
+        self.arena = PackedListArena.create(
+            config.nlist, config.dimension, dtype=torch_dtype(config.dtype),
+            device=self.device,
+        )
+        self.centroids: torch.Tensor | None = None  # [nlist, dim] fp32
+        self.trained = False
+        # Measured-coverage nprobe; SearchParams(nprobe=0) resolves to it.
+        self.calibrated_nprobe: int | None = None
+        # Hotness stats behind warmup/evict decisions.
+        self.list_access_count = np.zeros(config.nlist, np.int64)
+        # Serializes mutations (each plans slots from the current counts).
+        self._mutate_lock = threading.Lock()
+
+    # ------------------------------------------------------------------ #
+    # build
+    # ------------------------------------------------------------------ #
+
+    def _generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            self.config.seed
+        )
+
+    def _to_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            self.device
+        )
+
+    def _assign_metric(self) -> Metric:
+        # rows are assigned by L2 (cosine rows are pre-normalized) or by
+        # negated inner product
+        return (Metric.INNER_PRODUCT if self.metric == Metric.INNER_PRODUCT
+                else Metric.L2)
+
+    def _quant_anchors(self) -> torch.Tensor | None:
+        """Residual anchors for int8 encoding (the coarse centroids), or
+        ``None`` when raw-value quantization is configured."""
+        if (
+            self.arena.dtype == torch.int8
+            and self.config.int8_residual
+            and self.centroids is not None
+        ):
+            return self.centroids
+        return None
+
+    def _publish_anchors(self) -> None:
+        """Bind the centroids to the (still empty) arena as residual
+        anchors. Never rebinds once rows exist: stored codes decode only
+        with the anchors they were encoded against."""
+        anchors = self._quant_anchors()
+        if anchors is not None and self.arena.total_vectors == 0:
+            self.arena = dataclasses.replace(self.arena, anchors=anchors)
+
+    def _fit(self, sample: torch.Tensor, generator: torch.Generator) -> None:
+        cfg = self.config
+        self.centroids, _ = kmeans_fit(
+            sample, cfg.nlist, iters=cfg.train_iters,
+            split_thresh=cfg.split_threshold, generator=generator,
+        )
+        self.trained = True
+        self._publish_anchors()
+
+    def train(self, vectors: np.ndarray) -> None:
+        """k-means++ + Lloyd iterations on a uniform subsample of
+        ``train_sample_per_list * nlist`` host rows."""
+        vectors = np.ascontiguousarray(vectors, np.float32)
+        n = vectors.shape[0]
+        cfg = self.config
+        if n < cfg.nlist:
+            raise ValueError(
+                f"need at least nlist={cfg.nlist} training vectors, got {n}"
+            )
+        cap = cfg.train_sample_per_list * cfg.nlist
+        if n > cap:
+            rng = np.random.default_rng(cfg.seed)
+            vectors = vectors[rng.choice(n, cap, replace=False)]
+        sample = self._to_device(vectors)
+        if self.metric == Metric.COSINE:
+            sample = l2_normalize(sample)
+        self._fit(sample, self._generator())
+
+    def train_from_device(self, x_dev: torch.Tensor) -> None:
+        """Train from a device-resident corpus (subsampled before the fp32
+        cast, so a bf16 corpus is never copied whole to fp32)."""
+        cfg = self.config
+        x_dev = x_dev.to(self.device)
+        n = x_dev.shape[0]
+        if n < cfg.nlist:
+            raise ValueError(f"need ≥ nlist={cfg.nlist} training vectors")
+        gen = self._generator()
+        cap = cfg.train_sample_per_list * cfg.nlist
+        if n > cap:
+            idx = torch.randperm(n, generator=gen, device=self.device)[:cap]
+            sample = x_dev[idx].float()
+        else:
+            sample = x_dev.float()
+        if self.metric == Metric.COSINE:
+            sample = l2_normalize(sample)
+        self._fit(sample, gen)
+
+    def add(self, vectors: np.ndarray, ids: np.ndarray | None = None) -> None:
+        """Assign each row to its nearest list and append it (the arena
+        grows when a list fills)."""
+        if not self.trained:
+            raise RuntimeError("index must be trained before add()")
+        vectors = np.ascontiguousarray(vectors, np.float32)
+        n = vectors.shape[0]
+        if n == 0:
+            return
+        if ids is None:
+            ids = np.arange(self.ntotal, self.ntotal + n, dtype=np.uint64)
+        vec_d = self._to_device(vectors)
+        if self.metric == Metric.COSINE:
+            vec_d = l2_normalize(vec_d)
+        assignments = kmeans_assign(
+            vec_d, self.centroids, self._assign_metric()
+        ).cpu().numpy()
+        with self._mutate_lock:
+            self.arena = self.arena.append(vec_d, np.asarray(ids),
+                                           assignments)
+
+    def build_from_device(
+        self, x_dev: torch.Tensor, ids: np.ndarray | None = None
+    ) -> None:
+        """One-shot bulk build of a fresh arena from a device-resident
+        corpus: balanced assignment with the capacity clamped near the p99
+        list size (overflow spills to next-nearest lists), then one device
+        pack. Replaces any existing lists."""
+        if not self.trained:
+            raise RuntimeError("index must be trained before build")
+        cfg = self.config
+        x_dev = self._to_device(x_dev)
+        n = x_dev.shape[0]
+        if self.metric == Metric.COSINE:
+            x_dev = l2_normalize(x_dev)
+        choices = kmeans_assign_topk(
+            x_dev, self.centroids, cfg.assign_choices, self._assign_metric()
+        ).cpu().numpy()
+        counts0 = np.bincount(choices[:, 0], minlength=cfg.nlist)
+        cap = _choose_capacity(
+            counts0, PackedListArena.SLOT_ALIGN,
+            max_factor=cfg.max_capacity_factor,
+        )
+        assignments_np = _balance_assignments(choices, cap, cfg.nlist)
+        anchors = self._quant_anchors()
+        arena, arena_sq, counts_d, slots, scale = _bulk_pack_device(
+            x_dev, torch.from_numpy(assignments_np), cfg.nlist, cap,
+            cfg.dtype, anchors,
+        )
+        if ids is None:
+            ids = np.arange(n, dtype=np.uint64)
+        ids_table = np.full((cfg.nlist, cap), INVALID_ID, np.uint64)
+        ids_table[assignments_np, slots.cpu().numpy()] = ids
+        with self._mutate_lock:
+            self.arena = PackedListArena(
+                nlist=cfg.nlist, dim=cfg.dimension, dtype=arena.dtype,
+                capacity=cap, arena=arena, arena_sq=arena_sq,
+                counts=counts_d, ids=ids_table, arena_scale=scale,
+                anchors=anchors,
+                counts_max=int(
+                    np.bincount(assignments_np, minlength=cfg.nlist).max()
+                ),
+            )
+
+    def append_balanced(
+        self,
+        x_dev: torch.Tensor,
+        ids: np.ndarray | None = None,
+        capacity: int | None = None,
+    ) -> None:
+        """Chunked-build ingest: capacity-respecting append of a chunk. The
+        caller fixes ``capacity`` up front; rows that would overflow a full
+        list spill to their next-nearest lists, so the arena never
+        reallocates mid-build.
+
+        With ``config.multi_assign_eps > 0``, rows whose 2nd-nearest
+        centroid passes d2 ≤ (1+ε)²·d1 (squared L2) also get a second copy
+        in that list (at most ``multi_assign_budget × n`` copies, tightest
+        ratios first); search dedups by id."""
+        if not self.trained:
+            raise RuntimeError("index must be trained before append")
+        cfg = self.config
+        x_dev = self._to_device(x_dev)
+        n = x_dev.shape[0]
+        if self.metric == Metric.COSINE:
+            x_dev = l2_normalize(x_dev)
+        eps = float(cfg.multi_assign_eps or 0.0)
+        t = max(cfg.assign_choices, 2 if eps > 0 else 1)
+        vals_d, choices_d = kmeans_assign_topk_vals(
+            x_dev, self.centroids, t, self._assign_metric()
+        )
+        choices = choices_d.cpu().numpy()
+        if ids is None:
+            ids = np.arange(self.ntotal, self.ntotal + n, dtype=np.uint64)
+        ids = np.asarray(ids)
+        with self._mutate_lock:
+            if capacity is not None and capacity > self.arena.capacity:
+                self.arena = self.arena.grow(capacity)
+            cap = self.arena.capacity
+            assignments = _balance_assignments(
+                choices, cap, cfg.nlist,
+                initial_counts=self.arena.counts.cpu().numpy(),
+            )
+            self.arena = self.arena.append(x_dev, ids, assignments)
+            if eps <= 0:
+                return
+            # Replica pass: placement ranks from the 2nd choice on.
+            vals = vals_d.cpu().numpy()
+            ratio = vals[:, 1] / np.maximum(vals[:, 0], 1e-12)
+            rep = np.flatnonzero(ratio <= (1.0 + eps) ** 2)
+            budget = int(n * max(cfg.multi_assign_budget, 0.0))
+            if rep.size > budget:
+                rep = np.sort(
+                    rep[np.argsort(ratio[rep], kind="stable")[:budget]]
+                )
+            if rep.size:
+                rep_assign = _balance_assignments(
+                    choices[rep, 1:], cap, cfg.nlist,
+                    initial_counts=self.arena.counts.cpu().numpy(),
+                )
+                x_rep = x_dev[torch.from_numpy(rep).to(self.device)]
+                self.arena = self.arena.append(x_rep, ids[rep], rep_assign)
+
+    # ------------------------------------------------------------------ #
+    # search
+    # ------------------------------------------------------------------ #
+
+    @property
+    def ntotal(self) -> int:
+        return self.arena.total_vectors
+
+    def search(
+        self, queries: np.ndarray, params: SearchParams | None = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Batched ANN search. Returns ``(distances [B, k] fp32, ids [B, k]
+        uint64)`` ascending, with FLT_MAX/UINT64_MAX sentinels for
+        underfull rows."""
+        return self.search_async(queries, params)()
+
+    def search_async(
+        self, queries: np.ndarray, params: SearchParams | None = None
+    ):
+        """Enqueue the device search now and return a thunk that waits for
+        it and post-processes the result on the host."""
+        params = params or SearchParams()
+        if not self.trained:
+            raise RuntimeError("index must be trained before search()")
+        queries = np.ascontiguousarray(queries, np.float32)
+        if queries.ndim == 1:
+            queries = queries[None]
+        if queries.shape[1] != self.config.dimension:
+            raise ValueError(
+                f"query dim {queries.shape[1]} != index dim "
+                f"{self.config.dimension}"
+            )
+        nprobe = params.nprobe
+        if nprobe <= 0:
+            nprobe = self.calibrated_nprobe or SearchParams().nprobe
+        nprobe = min(nprobe, self.config.nlist)
+        # Multi-assignment indices scan a doubled shortlist, so the host
+        # dedup can still hand back k unique ids.
+        k = params.k
+        k_dev = 2 * k if self.config.multi_assign_eps > 0 else k
+        arena = self.arena   # snapshot: one consistent (arena, counts, ids)
+        scan_impl = _SCAN_IMPLS[self.config.scan_impl]
+        if scan_impl == "auto":
+            scan_impl = "grouped" if arena.arena.is_cuda else "gather"
+        with record_function("ivf_flat.upload"):
+            q_dev = self._to_device(queries)
+        d_dev, pos_dev, probes_dev = _ivf_search_device(
+            q_dev, self.centroids, arena.arena,
+            arena.arena_sq, arena.counts, nprobe, k_dev, self.metric,
+            scan_impl, arena.arena_scale, arena.anchors,
+            self.config.m_budget, arena.scan_capacity_hint(),
+        )
+
+        def finalize():
+            with record_function("ivf_flat.finalize"):
+                d = d_dev.cpu().numpy().copy()
+                pos = pos_dev.cpu().numpy()
+                ids = arena.positions_to_ids(pos)
+                d[pos < 0] = FLT_MAX
+                probed = np.unique(probes_dev.cpu().numpy())
+                self.list_access_count[probed[probed >= 0]] += 1
+                if k_dev != k:
+                    return dedup_topk(d, ids, k)
+                return d, ids
+
+        return finalize
+
+    def search_batch(
+        self, queries: np.ndarray, params: SearchParams | None = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Alias of :meth:`search` with the batched signature."""
+        return self.search(queries, params)
+
+    def calibrate_nprobe(
+        self,
+        queries: np.ndarray | None = None,
+        target_coverage: float = 0.99,
+        k: int = 10,
+        candidates: tuple = (4, 8, 12, 16, 24, 32, 48, 64, 96, 128),
+        sample: int = 512,
+        seed: int = 0,
+    ) -> dict:
+        """Measure probe coverage on this index and pick the smallest
+        ``nprobe`` meeting ``target_coverage`` (against an exact full-probe
+        search). Sets ``self.calibrated_nprobe`` and returns ``{"nprobe",
+        "coverage", "curve", "target", ...}``. Without ``queries`` it
+        samples stored rows, which over-estimates coverage slightly."""
+        if not self.trained:
+            raise RuntimeError("index must be trained before calibration")
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.models.calibrate \
+            import probe_coverage_calibrate, sample_stored_rows
+
+        if queries is None:
+            queries = sample_stored_rows(self.arena, sample, seed)
+        result = probe_coverage_calibrate(
+            centroids=self.centroids,
+            metric=self.metric,
+            ids_table=self.arena.ids,
+            queries=queries,
+            exact_search_fn=lambda q, kk: self.search(
+                q, SearchParams(nprobe=self.config.nlist, k=kk)
+            ),
+            target_coverage=target_coverage,
+            k=k,
+            candidates=candidates,
+        )
+        self.calibrated_nprobe = result["nprobe"]
+        return result
+
+    # ------------------------------------------------------------------ #
+    # residency management
+    # ------------------------------------------------------------------ #
+
+    def warmup_lists(self, list_ids=None, batch_sizes=(1, 8, 64),
+                     nprobes=None) -> None:
+        """Run one search per batch size × nprobe, so first-use costs (the
+        kernel library build on CUDA, allocator growth) are paid before
+        serving; optionally mark ``list_ids`` as accessed."""
+        if not self.trained:
+            return
+        if nprobes is None:
+            nprobes = (SearchParams().nprobe,)
+        dummy = np.zeros((1, self.config.dimension), np.float32)
+        for np_ in nprobes:
+            params = SearchParams(nprobe=int(np_))
+            for bs in batch_sizes:
+                self.search(np.repeat(dummy, bs, axis=0), params)
+        if list_ids is not None:
+            self.list_access_count[np.asarray(list_ids, np.int64)] += 1
+
+    def evict_list(self, list_id: int) -> None:
+        """The arena is device-resident with nothing to evict; reset the
+        list's hotness, the accounting effect of an eviction."""
+        self.list_access_count[list_id] = 0
+
+    def get_hot_lists(self, n: int) -> np.ndarray:
+        """Most-accessed lists."""
+        return np.argsort(-self.list_access_count, kind="stable")[:n]
+
+    # ------------------------------------------------------------------ #
+    # state
+    # ------------------------------------------------------------------ #
+
+    def state_arrays(self) -> dict:
+        """Packed snapshot arrays (dequantized fp32 arena, counts, ids)."""
+        host = self.arena.to_host()
+        return {
+            "centroids": self.centroids.cpu().numpy(),
+            "arena": host["arena"],
+            "counts": host["counts"],
+            "ids": host["ids"],
+        }
+
+    @classmethod
+    def from_state(
+        cls,
+        config: IVFFlatConfig,
+        centroids: np.ndarray,
+        arena: np.ndarray,
+        counts: np.ndarray,
+        ids: np.ndarray,
+        device: torch.device | str = "cpu",
+    ) -> "IVFFlatIndex":
+        idx = cls(config, device=device)
+        idx.centroids = torch.from_numpy(
+            np.ascontiguousarray(centroids, np.float32)
+        ).to(idx.device)
+        anchors = (
+            centroids.astype(np.float32)
+            if torch_dtype(config.dtype) == torch.int8 and config.int8_residual
+            else None
+        )
+        idx.arena = PackedListArena.from_host(
+            arena, counts, ids, config.dtype, anchors=anchors,
+            device=idx.device,
+        )
+        idx.trained = True
+        return idx
+
+    def memory_stats(self) -> dict:
+        """Device-memory accounting of the index."""
+        centroid_bytes = (
+            0 if self.centroids is None else self.centroids.numel() * 4
+        )
+        arena_bytes = self.arena.nbytes_device()
+        return {
+            "arena_bytes": arena_bytes,
+            "centroid_bytes": centroid_bytes,
+            "total_bytes": arena_bytes + centroid_bytes,
+            "total_vectors": self.ntotal,
+            "nlist": self.config.nlist,
+            "capacity_per_list": self.arena.capacity,
+        }
