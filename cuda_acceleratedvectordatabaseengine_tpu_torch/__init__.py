@@ -2,10 +2,12 @@
 
 The port of ``cuda_acceleratedvectordatabaseengine_tpu`` (JAX on a TPU),
 which stays beside it as the reference. This package imports ``torch`` and
-numpy, never JAX. It runs the IVF-Flat main path: k-means training, a
-chunked int8 / bf16 / fp32 build into a packed list arena, and batched
-search whose probed-list scan is a hand-written CUDA kernel for ``sm_90a``
-(``csrc/grouped_scan.cu``, built with ``nvcc`` at first use). On CPU
+numpy, never JAX. It runs two index families: IVF-Flat (k-means training,
+a chunked int8 / bf16 / fp32 build into a packed list arena, batched
+search) and IVF-PQ (PQ / OPQ codebooks, residual codes, ADC search with an
+optional exact rerank). Their probed-list scans are hand-written CUDA
+kernels for ``sm_90a`` (``csrc/grouped_scan.cu``,
+``csrc/grouped_pq_scan.cu``, built with ``nvcc`` at first use). On CPU
 tensors every op takes its plain PyTorch version; on CUDA tensors a kernel
 path launches its kernel or raises.
 
@@ -15,6 +17,12 @@ path launches its kernel or raises.
                            device="cuda")
     idx.train(x); idx.add(x)
     d, ids = idx.search(x[:8], vdb.SearchParams(nprobe=32, k=10))
+
+    pq = vdb.IVFPQIndex(vdb.IVFPQConfig(dimension=128, nlist=256, m=16),
+                        device="cuda")
+    pq.train(x); pq.add(x)
+    d, ids = pq.search(x[:8], vdb.SearchParams(nprobe=32, k=10,
+                                               use_exact_rerank=True))
 """
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import Metric
@@ -23,6 +31,10 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
     IVFFlatIndex,
     SearchParams,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_pq import (
+    IVFPQConfig,
+    IVFPQIndex,
+)
 
 __version__ = "0.1.0"
 
@@ -30,6 +42,8 @@ __all__ = [
     "Metric",
     "IVFFlatIndex",
     "IVFFlatConfig",
+    "IVFPQIndex",
+    "IVFPQConfig",
     "SearchParams",
     "__version__",
 ]

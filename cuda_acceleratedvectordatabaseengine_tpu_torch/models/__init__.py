@@ -1,2 +1,2 @@
-"""Index models of the PyTorch port: the packed list arena, IVF-Flat, probe
-calibration and state conversion from the JAX package."""
+"""Index models of the PyTorch port: the packed list arena, IVF-Flat,
+IVF-PQ, probe calibration and state conversion from the JAX package."""

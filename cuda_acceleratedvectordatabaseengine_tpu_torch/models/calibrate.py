@@ -54,16 +54,20 @@ def probe_coverage_calibrate(
     target_coverage: float = 0.99,
     k: int = 10,
     candidates: tuple = (4, 8, 12, 16, 24, 32, 48, 64, 96, 128),
+    query_transform=None,
 ) -> dict:
     """Measure the coverage curve and pick the smallest candidate meeting
     ``target_coverage``.
 
     ``ids_table`` is the ``[nlist, capacity]`` id layout; ``exact_search_fn
     (queries, k)`` returns the full-probe top-``k`` ``(dists, ids)`` on the
-    index's stored representation. When coverage plateaus below target on
-    every candidate, the knee (smallest candidate within 1% absolute of the
-    best) is chosen and ``coverage_limited`` is set, rather than silently
-    escalating to a full scan.
+    index's stored representation. ``query_transform`` (optional) maps the
+    queries, as a tensor on the centroids' device, into the frame the
+    centroids live in (an OPQ rotation) before the coarse ranking; the
+    exact search gets the untransformed queries. When coverage plateaus
+    below target on every candidate, the knee (smallest candidate within 1%
+    absolute of the best) is chosen and ``coverage_limited`` is set, rather
+    than silently escalating to a full scan.
     """
     nlist, cap = ids_table.shape
     queries = np.ascontiguousarray(queries, np.float32)
@@ -84,6 +88,8 @@ def probe_coverage_calibrate(
 
     # coarse rank of each true list per query
     q = torch.from_numpy(queries).to(centroids.device)
+    if query_transform is not None:
+        q = query_transform(q)
     if metric == Metric.COSINE:
         q = l2_normalize(q)
     coarse_metric = (

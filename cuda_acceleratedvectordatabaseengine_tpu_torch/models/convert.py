@@ -1,11 +1,12 @@
-"""Carry an IVF-Flat index's state across from the JAX package.
+"""Carry an index's state across from the JAX package.
 
-:func:`ivf_flat_from_arrays` takes the JAX index's device state as numpy
-arrays (``np.asarray`` of each ``jax.Array``) and builds this package's
-``IVFFlatIndex`` with identical centroids, codes, scales, norms, anchors,
-counts and ids, so both packages can search the *same* index. No JAX import
-is needed: bfloat16 arrays arrive as ``ml_dtypes`` numpy arrays and are
-reinterpreted bit for bit.
+:func:`ivf_flat_from_arrays` and :func:`ivf_pq_from_arrays` take the JAX
+index's device state as numpy arrays (``np.asarray`` of each
+``jax.Array``) and build this package's ``IVFFlatIndex`` / ``IVFPQIndex``
+with identical centroids, codes, codebooks, rotation, scales, norms,
+anchors, counts and ids, so both packages can search the *same* index. No
+JAX import is needed: bfloat16 arrays arrive as ``ml_dtypes`` numpy arrays
+and are reinterpreted bit for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +21,10 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
     IVFFlatConfig,
     IVFFlatIndex,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_pq import (
+    IVFPQConfig,
+    IVFPQIndex,
 )
 
 
@@ -83,5 +88,67 @@ def ivf_flat_from_arrays(
         ),
         counts_max=counts_max,
     )
+    idx.trained = True
+    return idx
+
+
+def ivf_pq_from_arrays(
+    config: IVFPQConfig,
+    *,
+    centroids: np.ndarray,
+    codebooks: np.ndarray,
+    codes_t: np.ndarray,
+    code_sq: np.ndarray,
+    counts: np.ndarray,
+    ids: np.ndarray,
+    raw_arena: np.ndarray | None,
+    raw_sq: np.ndarray | None,
+    raw_scale: np.ndarray | None,
+    raw_anchors: np.ndarray | None,
+    opq_R: np.ndarray | None,
+    device: torch.device | str = "cpu",
+) -> IVFPQIndex:
+    """An ``IVFPQIndex`` on ``device`` holding exactly this state: codes
+    ``codes_t [nlist, m, cap]`` uint8 (the transposed storage), and, when
+    ``config.keep_raw``, the raw arena in ``config.raw_dtype`` with the same
+    capacity."""
+    codes = _tensor(np.asarray(codes_t, np.uint8), device)
+    nlist, m, capacity = codes.shape
+    if (nlist, m) != (config.nlist, config.m):
+        raise ValueError(
+            f"codes [nlist={nlist}, m={m}] do not match the config "
+            f"[nlist={config.nlist}, m={config.m}]"
+        )
+    if (raw_arena is not None) != config.keep_raw:
+        raise ValueError("raw_arena must be given exactly when keep_raw")
+    idx = IVFPQIndex(config, device=device)
+    idx.centroids = _tensor(np.asarray(centroids, np.float32), device)
+    idx.codebooks = _tensor(np.asarray(codebooks, np.float32), device)
+    idx.opq_R = (_tensor(np.asarray(opq_R, np.float32), device)
+                 if opq_R is not None else None)
+    idx.code_arena_t = codes
+    idx.code_sq = _tensor(np.asarray(code_sq, np.float32), device)
+    counts_t = _tensor(np.asarray(counts, np.int32), device)
+    ids = np.asarray(ids, np.uint64).copy()
+    if raw_arena is not None:
+        arena_t = _tensor(raw_arena, device)
+        dtype = torch_dtype(config.raw_dtype)
+        if arena_t.dtype != dtype or arena_t.shape[1] != capacity:
+            raise ValueError(
+                f"raw arena {tuple(arena_t.shape)} {arena_t.dtype} does not "
+                f"match raw_dtype {dtype} and code capacity {capacity}"
+            )
+        opt = lambda a: None if a is None else _tensor(  # noqa: E731
+            np.asarray(a, np.float32), device)
+        idx.raw = PackedListArena(
+            nlist=nlist, dim=config.dimension, dtype=dtype,
+            capacity=capacity, arena=arena_t,
+            arena_sq=opt(raw_sq), counts=counts_t, ids=ids,
+            arena_scale=opt(raw_scale), anchors=opt(raw_anchors),
+            counts_max=int(np.max(counts)) if np.size(counts) else 0,
+        )
+    else:
+        idx._counts = counts_t
+        idx._ids = ids
     idx.trained = True
     return idx

@@ -1,0 +1,784 @@
+"""IVF-PQ index on torch tensors (PyTorch port of
+``cuda_acceleratedvectordatabaseengine_tpu/models/ivf_pq.py``).
+
+Coarse quantizer + 8-bit product-quantized *residual* codes (``x − coarse
+centroid``), with an optional raw-row arena for an exact rerank. A search
+batch runs on the index's device as:
+
+  query (→ OPQ frame) → coarse ``[B, nlist]`` fp32 distances + top-nprobe
+  → ADC scan of the probed lists' codes (the hand-written grouped kernel K2
+    on CUDA, the gather ADC on the CPU)
+  → optional exact fp32 rerank of the top ``rerank_k`` over the raw rows
+  → the host maps positions to user ids.
+
+Two frames under OPQ: codes and centroids live in the rotated frame, raw
+rerank rows in the original one, so the rerank pairs the stored rows with
+the unrotated query (the JAX package's round-5 fix). Every rotation and the
+rerank run in full fp32 (TF32 is off package-wide).
+
+Mutation rule (``models/arena.py``): codes are written only into slots past
+the published counts, growth allocates new tensors, and the new counts are
+published after the codes are written. A search takes one consistent
+snapshot of codes, ``code_sq``, the raw handle, counts and ids.
+
+Not ported yet (a later slice), each raising ``NotImplementedError``:
+``remove_ids`` (ROADMAP Queue 1 item 1, arena removal), ``save`` / ``load``
+(M6, snapshots) and ``attach_host_rerank`` (M9, the host memory tier).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
+    INVALID_ID,
+    PackedListArena,
+    compute_append_slots,
+    torch_dtype,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
+    FLT_MAX,
+    SearchParams,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+    Metric,
+    pairwise_distance,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_pq_scan import (
+    scan_probed_codes_grouped,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.kmeans import (
+    kmeans_assign,
+    kmeans_fit,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.normalize import (
+    l2_normalize,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.pq import (
+    _mm,
+    opq_fit,
+    pq_adc_lookup,
+    pq_decode,
+    pq_distance_tables,
+    pq_encode,
+    train_product_quantizer,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
+    topk_smallest,
+)
+
+# scan_impl names this package runs; "xla" and "pallas" are the JAX
+# package's names for the gather ADC and the grouped kernel.
+_SCAN_IMPLS = {
+    "auto": "auto", "xla": "gather", "gather": "gather",
+    "pallas": "grouped", "grouped": "grouped",
+}
+# Bound on the emit_full row transient of one probe chunk (bytes).
+_FULL_ROWS_BYTES = 2 << 30
+
+
+@dataclasses.dataclass
+class IVFPQConfig:
+    """The JAX package's ``IVFPQConfig``: same fields, same defaults."""
+
+    dimension: int = 768
+    nlist: int = 1024
+    m: int = 96                 # subquantizers; dimension % m == 0
+    nbits: int = 8              # codebook bits (ks = 2^nbits); only 8
+    metric: Metric = Metric.L2
+    keep_raw: bool = True       # retain raw rows for the exact rerank
+    raw_dtype: str = "bfloat16"
+    train_iters: int = 40
+    train_sample_per_list: int = 128
+    pq_train_sample: int = 65536
+    seed: int = 42
+    scan_impl: str = "auto"     # "auto": the grouped kernel on CUDA, the
+                                # gather ADC on the CPU; or "pallas" (alias
+                                # "grouped") | "xla" (alias "gather")
+    opq: bool = False           # learn an OPQ rotation (ops/pq.opq_fit)
+    opq_iters: int = 6          # OPQ alternations (Procrustes + Lloyd)
+    query_upload_dtype: str = "float32"  # only float32 is ported
+
+    def __post_init__(self):
+        if isinstance(self.metric, str):
+            self.metric = Metric.parse(self.metric)
+        if self.dimension % self.m:
+            raise ValueError(f"dimension {self.dimension} % m {self.m} != 0")
+        if self.nbits != 8:
+            raise ValueError("only nbits=8 (uint8 codes) is supported")
+        if self.scan_impl not in _SCAN_IMPLS:
+            raise ValueError(
+                f"scan_impl {self.scan_impl!r} is not available in this "
+                f"package; expected one of {sorted(_SCAN_IMPLS)}"
+            )
+        if self.query_upload_dtype != "float32":
+            raise NotImplementedError(
+                "only query_upload_dtype='float32' is ported"
+            )
+
+    @property
+    def ks(self) -> int:
+        return 1 << self.nbits
+
+
+def _gather_adc(q, centroids, codebooks, code_arena_t, counts, probe_ids,
+                keep, metric):
+    """Gather ADC over the probed lists, one probe column at a time, merged
+    into a running top-``keep`` (the JAX package's XLA path)."""
+    b, dim = q.shape
+    nlist, m, cap = code_arena_t.shape
+    dev = q.device
+    slot = torch.arange(cap, device=dev)
+    best_d = torch.full((b, keep), float("inf"), device=dev)
+    best_p = torch.full((b, keep), -1, dtype=torch.int32, device=dev)
+    for lists in probe_ids.T:
+        safe = lists.clamp_min(0).long()
+        c = centroids[safe]                                       # [B, D]
+        if metric == Metric.INNER_PRODUCT:
+            # d = −(q·x) = −(q·c) − (q·r): table term from q, bias from c
+            tables = -torch.einsum("bmd,mkd->bmk",
+                                   q.reshape(b, m, dim // m), codebooks)
+            bias = -(q * c).sum(-1)
+        else:
+            # L2 (and cosine as L2): ‖q − (c + r̂)‖² over residual tables
+            tables = pq_distance_tables(q - c, codebooks)
+            bias = torch.zeros((b,), device=dev)
+        d = pq_adc_lookup(tables, code_arena_t[safe]) + bias[:, None]
+        valid = (slot[None, :] < counts[safe].long()[:, None]) & (
+            lists >= 0)[:, None]
+        d = torch.where(valid, d, float("inf"))
+        pos = torch.where(valid, safe[:, None] * cap + slot[None, :],
+                          -1).int()
+        best_d, best_p = topk_smallest(torch.cat([best_d, d], 1), keep,
+                                       idx=torch.cat([best_p, pos], 1))
+    return best_d, best_p
+
+
+def _ivf_pq_search_device(
+    queries, centroids, codebooks, code_arena_t, code_sq, counts, raw_arena,
+    raw_sq, raw_scale, raw_anchors, nprobe, k, metric, rerank_k,
+    scan_impl="gather", opq_R=None, k_inner=0, scan_capacity=None,
+):
+    """The device half of a search: ``(dists [B, k], pos [B, k])``.
+    ``rerank_k`` 0 means no rerank; ``k_inner`` > 0 selects the kernel's
+    per-list shortlist mode. Each stage runs in a named ``torch.profiler``
+    range (``ivf_pq.coarse_probe``, ``grouped_pq_scan.*`` or
+    ``ivf_pq.gather_adc``, ``ivf_pq.rerank``)."""
+    b, dim = queries.shape
+    nlist, _, cap = code_arena_t.shape
+    with record_function("ivf_pq.coarse_probe"):
+        q0 = queries.float()               # the ORIGINAL frame (rerank's)
+        if metric == Metric.COSINE:
+            q0 = l2_normalize(q0)
+        q = _mm(q0, opq_R) if opq_R is not None else q0
+        q_sq = (q * q).sum(-1)
+        # For cosine the stored rows are unit vectors, so L2 order over the
+        # centroids is cosine order; report-space conversion comes last.
+        coarse_metric = (Metric.INNER_PRODUCT
+                         if metric == Metric.INNER_PRODUCT else Metric.L2)
+        coarse = pairwise_distance(q, centroids, coarse_metric)
+        _, probe_ids = topk_smallest(coarse, nprobe)
+        probe_ids = probe_ids.int()
+
+    keep = max(k, rerank_k)
+    if scan_impl == "grouped":
+        # Deep shortlists (a rerank feed) skip the in-kernel top-k, whose
+        # cost grows with its depth: full distance rows + one top-keep,
+        # unless the caller chose per-list k_inner truncation. The row
+        # transient is bounded by chunking the probe axis (chunks cover
+        # disjoint lists, so the merge is exact).
+        emit_full = keep > 32 and not k_inner
+        step_p = nprobe
+        if emit_full:
+            cap_b = cap
+            if scan_capacity is not None:
+                cap_b = min(cap_b, -(-scan_capacity // 128) * 128)
+            n_chunks = 1
+            while b * step_p * cap_b * 4 > _FULL_ROWS_BYTES and step_p > 1:
+                n_chunks += 1
+                step_p = -(-nprobe // n_chunks)
+        kernel_metric = (Metric.INNER_PRODUCT
+                         if metric == Metric.INNER_PRODUCT else Metric.L2)
+        parts = [
+            scan_probed_codes_grouped(
+                q, code_arena_t, code_sq, counts, centroids, codebooks,
+                probe_ids[:, s:s + step_p].contiguous(), keep, kernel_metric,
+                k_inner=(k_inner or None), emit_full=emit_full,
+                scan_capacity=scan_capacity,
+            )
+            for s in range(0, nprobe, step_p)
+        ]
+        if len(parts) == 1:
+            best_d, best_p = parts[0]
+        else:
+            with record_function("grouped_pq_scan.epilogue"):
+                best_d, best_p = topk_smallest(
+                    torch.cat([p[0] for p in parts], 1), keep,
+                    idx=torch.cat([p[1] for p in parts], 1),
+                )
+    else:
+        with record_function("ivf_pq.gather_adc"):
+            best_d, best_p = _gather_adc(q, centroids, codebooks,
+                                         code_arena_t, counts, probe_ids,
+                                         keep, metric)
+
+    if rerank_k > 0 and raw_arena is not None:
+        with record_function("ivf_pq.rerank"):
+            # Exact fp32 distances of the shortlist against the raw rows,
+            # which live in the ORIGINAL frame: paired with the unrotated q0.
+            if raw_arena.shape[1] != cap:
+                raise AssertionError(
+                    f"raw capacity {raw_arena.shape[1]} != code capacity "
+                    f"{cap}: positions would map to the wrong rows"
+                )
+            safe_p = best_p.clamp_min(0).long()
+            cand = raw_arena.reshape(nlist * cap, dim)[safe_p].float()
+            if raw_scale is not None:
+                cand = cand * raw_scale.reshape(-1)[safe_p][:, :, None]
+            if raw_anchors is not None:
+                cand = cand + raw_anchors[safe_p // cap]
+            dots = torch.bmm(cand, q0[:, :, None])[:, :, 0]     # [B, keep]
+            if metric == Metric.INNER_PRODUCT:
+                exact = -dots
+            elif metric == Metric.COSINE:
+                exact = 1.0 - dots
+            else:
+                exact = (q_sq[:, None] - 2.0 * dots
+                         + raw_sq.reshape(-1)[safe_p]).clamp_min(0.0)
+            exact = torch.where(best_p >= 0, exact, float("inf"))
+            return topk_smallest(exact, k, idx=best_p)
+
+    best_d, best_p = best_d[:, :k], best_p[:, :k]
+    if metric == Metric.COSINE:
+        # ADC ran in L2 over unit vectors: ‖q − x‖² = 2(1 − cos) → halve
+        best_d = torch.where(torch.isfinite(best_d), best_d * 0.5, best_d)
+    return best_d, best_p
+
+
+class IVFPQIndex:
+    """IVF index with 8-bit product-quantized residual codes on one
+    explicit device (``"cpu"``, ``"cuda"``, ``"cuda:1"``, ...)."""
+
+    def __init__(self, config: IVFPQConfig,
+                 device: torch.device | str = "cpu"):
+        self.config = config
+        self.metric = config.metric
+        self.device = torch.device(device)
+        self.centroids: torch.Tensor | None = None   # [nlist, D] fp32
+        self.codebooks: torch.Tensor | None = None   # [m, ks, dsub] fp32
+        self.opq_R: torch.Tensor | None = None       # [D, D] or None
+        cap = PackedListArena.SLOT_ALIGN
+        # Codes live transposed ([nlist, m, cap]) so the kernel reads one
+        # subspace's codes for consecutive slots as consecutive bytes; the
+        # public ``code_arena`` property presents [nlist, cap, m].
+        self.code_arena_t = torch.zeros((config.nlist, config.m, cap),
+                                        dtype=torch.uint8, device=self.device)
+        # ‖c_l + r̂‖² of each decoded point (the kernel's norms input)
+        self.code_sq = torch.zeros((config.nlist, cap), dtype=torch.float32,
+                                   device=self.device)
+        self.raw: PackedListArena | None = (
+            PackedListArena.create(
+                config.nlist, config.dimension,
+                dtype=torch_dtype(config.raw_dtype), device=self.device,
+            )
+            if config.keep_raw else None
+        )
+        # Without raw rows the counts and ids live here.
+        self._counts = torch.zeros((config.nlist,), dtype=torch.int32,
+                                   device=self.device)
+        self._ids = np.full((config.nlist, cap), INVALID_ID, np.uint64)
+        self.trained = False
+        self.calibrated_nprobe: int | None = None
+        self.list_access_count = np.zeros(config.nlist, np.int64)
+        # (counts tensor, occupied-prefix hint): one max() per counts version
+        self._scan_cap_cache = (None, None)
+        # Serializes mutations against each other and against the
+        # snapshot a search takes (each plans slots from current counts).
+        self._mutate_lock = threading.Lock()
+
+    # ------------------------------------------------------------------ #
+
+    @property
+    def capacity(self) -> int:
+        return self.code_arena_t.shape[2]
+
+    @property
+    def code_arena(self) -> torch.Tensor:
+        """[nlist, cap, m] view (storage is transposed, see __init__)."""
+        return self.code_arena_t.transpose(1, 2)
+
+    @code_arena.setter
+    def code_arena(self, value) -> None:
+        self.code_arena_t = torch.as_tensor(value).to(
+            self.device).transpose(1, 2).contiguous()
+        self._refresh_code_sq()
+
+    def _refresh_code_sq(self) -> None:
+        """Recompute the decoded-point norms of the whole arena (needs
+        codebooks and centroids). Chunked over lists so the decoded fp32
+        intermediate stays near 128 MB."""
+        if self.codebooks is None or self.centroids is None:
+            return
+        nlist, m, cap = self.code_arena_t.shape
+        dim = self.config.dimension
+        step = max(1, (128 << 20) // max(cap * dim * 4, 1))
+        out = []
+        for s in range(0, nlist, step):
+            block = self.code_arena_t[s:s + step]               # [S, m, cap]
+            codes = block.transpose(1, 2).reshape(-1, m)
+            deq = pq_decode(codes, self.codebooks).reshape(
+                block.shape[0], cap, dim) + self.centroids[s:s + step, None]
+            out.append((deq * deq).sum(-1))
+        self.code_sq = torch.cat(out)
+
+    @property
+    def counts(self) -> torch.Tensor:
+        return self.raw.counts if self.raw is not None else self._counts
+
+    @property
+    def ids(self) -> np.ndarray:
+        return self.raw.ids if self.raw is not None else self._ids
+
+    @property
+    def ntotal(self) -> int:
+        return int(self.counts.sum().item())
+
+    def _scan_capacity_hint(self) -> int | None:
+        """Occupied-prefix bound for the ADC kernel: max(counts) rounded to
+        the slot tile, None when the arena is filled to capacity. Cached
+        per counts tensor, so the device sync runs once per ingest."""
+        c = self.counts
+        cached_for, val = self._scan_cap_cache
+        if cached_for is not c:
+            mx = int(c.max().item()) if c.shape[0] else 0
+            align = PackedListArena.SLOT_ALIGN
+            occ = -(-max(mx, 1) // align) * align
+            val = occ if occ < self.capacity else None
+            self._scan_cap_cache = (c, val)
+        return val
+
+    # ------------------------------------------------------------------ #
+    # build
+    # ------------------------------------------------------------------ #
+
+    def _generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            self.config.seed
+        )
+
+    def _to_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            self.device
+        )
+
+    def _assign_metric(self) -> Metric:
+        return (Metric.INNER_PRODUCT if self.metric == Metric.INNER_PRODUCT
+                else Metric.L2)
+
+    def train(self, vectors: np.ndarray) -> None:
+        """Coarse k-means on a host subsample of ``train_sample_per_list ·
+        nlist`` rows, then residual PQ codebooks (and with ``config.opq``
+        an OPQ rotation) on up to ``pq_train_sample`` of them."""
+        cfg = self.config
+        vectors = np.ascontiguousarray(vectors, np.float32)
+        n = vectors.shape[0]
+        if n < cfg.nlist:
+            raise ValueError(f"need ≥ nlist={cfg.nlist} training vectors")
+        rng = np.random.default_rng(cfg.seed)
+        cap = cfg.train_sample_per_list * cfg.nlist
+        sample = vectors if n <= cap else vectors[
+            rng.choice(n, cap, replace=False)
+        ]
+        sample_d = self._to_device(sample)
+        if self.metric == Metric.COSINE:
+            sample_d = l2_normalize(sample_d)
+        gen = self._generator()
+        self.centroids, assign = kmeans_fit(
+            sample_d, cfg.nlist, iters=cfg.train_iters, generator=gen
+        )
+        nsub = min(sample.shape[0], cfg.pq_train_sample)
+        sub = torch.from_numpy(
+            rng.choice(sample.shape[0], nsub, replace=False)
+        ).to(self.device)
+        self._train_pq(gen, sample_d[sub] - self.centroids[assign[sub].long()])
+        self.trained = True
+
+    def train_from_device(self, x_dev: torch.Tensor) -> None:
+        """Train from a device-resident corpus (subsampled on the device
+        before the fp32 cast, so a bf16 corpus is never copied whole)."""
+        cfg = self.config
+        x_dev = x_dev.to(self.device)
+        n = x_dev.shape[0]
+        if n < cfg.nlist:
+            raise ValueError(f"need ≥ nlist={cfg.nlist} training vectors")
+        gen = self._generator()
+        cap = cfg.train_sample_per_list * cfg.nlist
+        if n > cap:
+            idx = torch.randperm(n, generator=gen, device=self.device)[:cap]
+            sample = x_dev[idx].float()
+        else:
+            sample = x_dev.float()
+        if self.metric == Metric.COSINE:
+            sample = l2_normalize(sample)
+        self.centroids, assign = kmeans_fit(
+            sample, cfg.nlist, iters=cfg.train_iters, generator=gen
+        )
+        nsamp = sample.shape[0]
+        nsub = min(nsamp, cfg.pq_train_sample)
+        sub = torch.randperm(nsamp, generator=gen, device=self.device)[:nsub]
+        self._train_pq(gen, sample[sub] - self.centroids[assign[sub].long()])
+        self.trained = True
+
+    def _train_pq(self, gen: torch.Generator, residuals: torch.Tensor) -> None:
+        """PQ codebooks from a residual sample; with ``config.opq`` also an
+        OPQ rotation, after which the centroids (and, through :meth:`_rot`,
+        ingest and queries) live in the rotated basis. Rotation is an
+        isometry: distances are unchanged, only the subspace split moves."""
+        cfg = self.config
+        if cfg.opq:
+            self.opq_R, self.codebooks = opq_fit(
+                residuals, cfg.m, cfg.ks, iters=cfg.train_iters,
+                opq_iters=cfg.opq_iters, generator=gen,
+            )
+            self.centroids = _mm(self.centroids, self.opq_R)
+        else:
+            self.codebooks = train_product_quantizer(
+                residuals, cfg.m, cfg.ks, iters=cfg.train_iters,
+                generator=gen,
+            )
+
+    def _rot(self, x: torch.Tensor) -> torch.Tensor:
+        """Change of basis into the OPQ frame (no-op without OPQ)."""
+        return x if self.opq_R is None else _mm(x.float(), self.opq_R)
+
+    def add(self, vectors: np.ndarray, ids: np.ndarray | None = None) -> None:
+        """Assign → residual-encode → write codes (and raw rows)."""
+        if not self.trained:
+            raise RuntimeError("index must be trained before add()")
+        vectors = np.ascontiguousarray(vectors, np.float32)
+        if vectors.shape[0] == 0:
+            return
+        self._add_device(self._to_device(vectors), ids)
+
+    def add_from_device(
+        self, x_dev: torch.Tensor, ids: np.ndarray | None = None
+    ) -> None:
+        """:meth:`add` for a device-resident batch (no host round trip)."""
+        if not self.trained:
+            raise RuntimeError("index must be trained before add()")
+        if x_dev.shape[0] == 0:
+            return
+        self._add_device(x_dev.to(self.device).float(), ids)
+
+    def _add_device(self, x: torch.Tensor, ids) -> None:
+        n = x.shape[0]
+        if ids is None:
+            ids = np.arange(self.ntotal, self.ntotal + n, dtype=np.uint64)
+        if self.metric == Metric.COSINE:
+            x = l2_normalize(x)
+        x_rot = self._rot(x)
+        assignments = kmeans_assign(
+            x_rot, self.centroids, self._assign_metric()
+        ).cpu().numpy()
+        self._ingest(x_rot, ids, assignments, vec_orig=x)
+
+    def _ingest(self, vec_d, ids, assignments: np.ndarray,
+                vec_orig) -> None:
+        """Encode + write. ``vec_d`` is in the index's (possibly rotated)
+        frame for the codes; ``vec_orig`` is the original-frame copy the
+        raw rerank arena stores. The grow → slot plan → write → publish
+        sequence holds the mutation lock."""
+        cfg = self.config
+        a_d = torch.from_numpy(assignments.astype(np.int64)).to(self.device)
+        cen = self.centroids[a_d]
+        codes = pq_encode(vec_d - cen, self.codebooks)
+        deq = pq_decode(codes, self.codebooks) + cen
+        sq_rows = (deq * deq).sum(-1)
+        del cen, deq
+        with self._mutate_lock:
+            counts_h = self.counts.cpu().numpy().astype(np.int64)
+            per_list = np.bincount(assignments, minlength=cfg.nlist)
+            max_needed = int((counts_h + per_list).max())
+            if max_needed > self.capacity:
+                align = PackedListArena.SLOT_ALIGN
+                new_cap = max(max_needed, int(self.capacity * 1.5))
+                self._grow(-(-new_cap // align) * align)
+            slots = compute_append_slots(counts_h, assignments)
+            s_d = torch.from_numpy(slots).to(self.device)
+            self.code_arena_t[a_d, :, s_d] = codes
+            self.code_sq[a_d, s_d] = sq_rows
+            if self.raw is not None:
+                self.raw = self.raw.append(vec_orig, np.asarray(ids),
+                                           assignments)
+            else:
+                new_ids = self._ids.copy()      # copy-on-write for readers
+                new_ids[assignments, slots] = np.asarray(ids, np.uint64)
+                self._ids = new_ids
+                self._counts = torch.from_numpy(
+                    (counts_h + per_list).astype(np.int32)
+                ).to(self.device)
+
+    def reserve(self, capacity: int) -> None:
+        """Pre-size the arenas for a bulk build: one allocation instead of
+        repeated 1.5× growth steps (each holds old and new arenas)."""
+        align = PackedListArena.SLOT_ALIGN
+        cap = -(-capacity // align) * align
+        if cap > self.capacity:
+            with self._mutate_lock:
+                if cap > self.capacity:
+                    self._grow(cap)
+
+    def _grow(self, new_cap: int) -> None:
+        """New, larger code and raw arenas (same capacity for both, or
+        positions would map to the wrong ids); old handles stay valid."""
+        pad = new_cap - self.capacity
+        t = self.code_arena_t
+        self.code_arena_t = torch.cat(
+            [t, torch.zeros(t.shape[:2] + (pad,), dtype=t.dtype,
+                            device=t.device)], dim=2)
+        self.code_sq = torch.cat(
+            [self.code_sq, torch.zeros((t.shape[0], pad), device=t.device)],
+            dim=1)
+        if self.raw is None:
+            ids = np.full((self.config.nlist, new_cap), INVALID_ID, np.uint64)
+            ids[:, : self._ids.shape[1]] = self._ids
+            self._ids = ids
+        elif self.raw.capacity < new_cap:
+            self.raw = self.raw.grow(new_cap)
+
+    def remove_ids(self, ids: np.ndarray) -> int:
+        raise NotImplementedError(
+            "IVFPQIndex.remove_ids is not ported yet: it needs arena removal "
+            "(ROADMAP Queue 1 item 1)"
+        )
+
+    # ------------------------------------------------------------------ #
+    # search
+    # ------------------------------------------------------------------ #
+
+    def search(
+        self, queries: np.ndarray, params: SearchParams | None = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Batched ANN search: ``(distances [B, k] fp32, ids [B, k]
+        uint64)`` ascending, FLT_MAX / UINT64_MAX for underfull rows.
+        ``use_exact_rerank`` reranks the top ``min(4k, 256)`` ADC
+        candidates exactly when raw rows are kept."""
+        return self._search_finalize(*self._search_dispatch(queries, params))
+
+    def search_async(
+        self, queries: np.ndarray, params: SearchParams | None = None
+    ):
+        """Enqueue the device search now; the returned thunk waits for it
+        and maps positions to ids on the host."""
+        state = self._search_dispatch(queries, params)
+        return lambda: self._search_finalize(*state)
+
+    def _search_dispatch(self, queries, params):
+        params = params or SearchParams()
+        if not self.trained:
+            raise RuntimeError("index must be trained before search()")
+        queries = np.ascontiguousarray(queries, np.float32)
+        if queries.ndim == 1:
+            queries = queries[None]
+        if queries.shape[1] != self.config.dimension:
+            raise ValueError(
+                f"query dim {queries.shape[1]} != index dim "
+                f"{self.config.dimension}"
+            )
+        nprobe = params.nprobe
+        if nprobe <= 0:   # measured-coverage calibration, as in IVF-Flat
+            nprobe = self.calibrated_nprobe or SearchParams().nprobe
+        nprobe = min(nprobe, self.config.nlist)
+        rerank_k = 0
+        if params.use_exact_rerank and self.raw is not None:
+            rerank_k = min(max(4 * params.k, params.k), 256)
+        with self._mutate_lock:   # one consistent snapshot
+            raw = self.raw
+            codes, code_sq, counts = self.code_arena_t, self.code_sq, \
+                self.counts
+            ids_table, capacity = self.ids, self.capacity
+            scan_capacity = self._scan_capacity_hint()
+        scan_impl = _SCAN_IMPLS[self.config.scan_impl]
+        if scan_impl == "auto":
+            scan_impl = "grouped" if codes.is_cuda else "gather"
+        with record_function("ivf_pq.upload"):
+            q_dev = self._to_device(queries)
+        d, pos = _ivf_pq_search_device(
+            q_dev, self.centroids, self.codebooks, codes, code_sq, counts,
+            raw.arena if raw is not None else None,
+            raw.arena_sq if raw is not None else None,
+            raw.arena_scale if raw is not None else None,
+            raw.anchors if raw is not None else None,
+            nprobe, params.k, self.metric, rerank_k, scan_impl,
+            opq_R=self.opq_R, scan_capacity=scan_capacity,
+        )
+        return d, pos, ids_table, capacity
+
+    def _search_finalize(self, d, pos, ids_table, capacity):
+        """Wait for the device result, map positions to ids, and count the
+        lists of the returned positions (the JAX package's list heat)."""
+        with record_function("ivf_pq.finalize"):
+            d = d.cpu().numpy().copy()
+            pos = pos.cpu().numpy()
+            flat_ids = ids_table.reshape(-1)
+            out_ids = flat_ids[np.clip(pos, 0, flat_ids.size - 1)]
+            out_ids[pos < 0] = INVALID_ID
+            d[pos < 0] = FLT_MAX
+            probed = np.unique(pos[pos >= 0] // capacity)
+            self.list_access_count[probed] += 1
+            return d, out_ids
+
+    def search_batches_pipelined(
+        self, batches, params: SearchParams | None = None
+    ):
+        """Dispatch batch i+1 before finalizing batch i, so the device scan
+        of one batch overlaps the host stage of the previous. Yields
+        ``(dists, ids)`` per input batch, in order."""
+        pending = None
+        for q in batches:
+            nxt = self._search_dispatch(q, params)
+            if pending is not None:
+                yield self._search_finalize(*pending)
+            pending = nxt
+        if pending is not None:
+            yield self._search_finalize(*pending)
+
+    def search_batch(self, queries, params=None):
+        """Alias of :meth:`search` with the batched signature."""
+        return self.search(queries, params)
+
+    # ------------------------------------------------------------------ #
+    # residency surface (parity with IVFFlatIndex)
+    # ------------------------------------------------------------------ #
+
+    def warmup_lists(self, list_ids=None, batch_sizes=(1, 8, 64),
+                     nprobes=None) -> None:
+        """One search per batch size × nprobe (and with the exact rerank
+        when raw rows are kept), so first-use costs are paid before
+        serving; optionally mark ``list_ids`` as accessed."""
+        if not self.trained:
+            return
+        if nprobes is None:
+            nprobes = (SearchParams().nprobe,)
+        dummy = np.zeros((1, self.config.dimension), np.float32)
+        reranks = (False, True) if self.raw is not None else (False,)
+        for np_ in nprobes:
+            for bs in batch_sizes:
+                for rr in reranks:
+                    self.search(np.repeat(dummy, bs, axis=0),
+                                SearchParams(nprobe=int(np_),
+                                             use_exact_rerank=rr))
+        if list_ids is not None:
+            self.list_access_count[np.asarray(list_ids, np.int64)] += 1
+
+    def attach_host_rerank(self, store, rerank_k: int = 128,
+                           k_inner: int = 0, margin: float = 0.0) -> None:
+        raise NotImplementedError(
+            "IVFPQIndex.attach_host_rerank is not ported yet: it needs the "
+            "host memory tier, io_host (ROADMAP M9)"
+        )
+
+    def evict_list(self, list_id: int) -> None:
+        """Nothing to evict (device-resident); reset the list's heat."""
+        self.list_access_count[list_id] = 0
+
+    def get_hot_lists(self, n: int) -> np.ndarray:
+        """Most-accessed lists."""
+        return np.argsort(-self.list_access_count, kind="stable")[:n]
+
+    # ------------------------------------------------------------------ #
+    # state
+    # ------------------------------------------------------------------ #
+
+    def state_arrays(self) -> dict:
+        """Host arrays of the index (raw rows dequantized to fp32)."""
+        out = {
+            "centroids": self.centroids.cpu().numpy(),
+            "codebooks": self.codebooks.cpu().numpy(),
+            "codes": self.code_arena.contiguous().cpu().numpy(),
+            "counts": self.counts.cpu().numpy(),
+            "ids": self.ids,
+        }
+        if self.opq_R is not None:
+            out["opq_R"] = self.opq_R.cpu().numpy()
+        if self.raw is not None:
+            out["arena"] = self.raw.to_host()["arena"]
+        return out
+
+    def calibrate_nprobe(
+        self,
+        queries: np.ndarray | None = None,
+        target_coverage: float = 0.99,
+        k: int = 10,
+        candidates: tuple = (4, 8, 12, 16, 24, 32, 48, 64, 96, 128),
+        sample: int = 512,
+        seed: int = 0,
+    ) -> dict:
+        """Measured-coverage nprobe calibration (``models/calibrate.py``).
+        The ground truth is the full-probe search on the index's stored
+        representation, with the exact rerank when raw rows are kept.
+        Under OPQ the coarse ranking happens in the rotated frame. Sets
+        ``self.calibrated_nprobe`` (used by ``SearchParams(nprobe=0)``)."""
+        if not self.trained:
+            raise RuntimeError("index must be trained before calibration")
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.models.calibrate \
+            import probe_coverage_calibrate, sample_stored_rows
+
+        if queries is None:
+            if self.raw is None:
+                raise ValueError(
+                    "keep_raw=False index has no stored rows to sample; "
+                    "pass held-out queries"
+                )
+            # raw rows live in the original frame: usable as queries as is
+            queries = sample_stored_rows(self.raw, sample, seed)
+        result = probe_coverage_calibrate(
+            centroids=self.centroids,
+            metric=self.metric,
+            ids_table=self.ids,
+            queries=queries,
+            exact_search_fn=lambda q, kk: self.search(
+                q, SearchParams(nprobe=self.config.nlist, k=kk,
+                                use_exact_rerank=self.raw is not None)
+            ),
+            target_coverage=target_coverage,
+            k=k,
+            candidates=candidates,
+            query_transform=self._rot if self.opq_R is not None else None,
+        )
+        self.calibrated_nprobe = result["nprobe"]
+        return result
+
+    def save(self, path: str) -> None:
+        raise NotImplementedError(
+            "IVFPQIndex.save is not ported yet: snapshots are ROADMAP M6"
+        )
+
+    @classmethod
+    def load(cls, path: str) -> "IVFPQIndex":
+        raise NotImplementedError(
+            "IVFPQIndex.load is not ported yet: snapshots are ROADMAP M6"
+        )
+
+    def memory_stats(self) -> dict:
+        """Device-memory accounting of the index (bytes)."""
+        code_bytes = self.code_arena_t.numel()
+        raw_bytes = self.raw.nbytes_device() if self.raw is not None else 0
+        cb_bytes = 0 if self.codebooks is None else self.codebooks.numel() * 4
+        cent_bytes = (0 if self.centroids is None
+                      else self.centroids.numel() * 4)
+        return {
+            "code_bytes": code_bytes,
+            "raw_bytes": raw_bytes,
+            "total_bytes": code_bytes + raw_bytes + cb_bytes + cent_bytes,
+            "total_vectors": self.ntotal,
+            "nlist": self.config.nlist,
+            "capacity_per_list": self.capacity,
+        }

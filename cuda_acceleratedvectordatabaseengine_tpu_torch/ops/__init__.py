@@ -1,2 +1,3 @@
 """Device ops of the PyTorch port: distances, normalization, top-k, the
-gather scan, the grouped scan (with its CUDA kernel) and k-means."""
+gather scan, the grouped scans (with their CUDA kernels), k-means and
+product quantization."""

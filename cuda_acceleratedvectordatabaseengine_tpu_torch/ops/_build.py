@@ -1,8 +1,10 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``, with the shared
+headers ``csrc/*.cuh``).
 
-The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
-headers, so the build takes seconds). The library lands in
+The sources are compiled at first use with ``nvcc``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, which is loaded with ``ctypes`` (no PyTorch headers, so
+the build takes seconds). The library lands in
 ``build/kernels/<hash>/`` beside the package, keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. There is no fallback: without ``nvcc`` the CUDA path raises.
@@ -21,10 +23,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libvdb_torch_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 def find_nvcc() -> str:
@@ -48,35 +50,56 @@ def _sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    """Hash of the flags and of every source and header: an edited header
+    rebuilds like an edited source."""
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
 def build_library(build_root: Path = BUILD_ROOT) -> Path:
-    """Compile ``csrc/*.cu`` unless a library for the same sources exists;
-    return its path. The compiler's output (``-Xptxas -v``: registers,
-    shared memory, spills per kernel) is kept in ``nvcc.log`` beside it."""
+    """Compile ``csrc/*.cu`` (one ``nvcc -c`` per source, in parallel) and
+    link them, unless a library for the same sources exists; return its
+    path. The compilers' output (``-Xptxas -v``: registers, shared memory,
+    spills per kernel) is kept in ``nvcc.log`` beside it."""
     out_dir = Path(build_root) / source_hash()
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for src in _sources():
+        obj = out_dir / f".{src.stem}.{tag}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:          # waits for every compiler it started
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]}: exit code {proc.returncode}\n"
+                          f"{err[-4000:]}")
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link: exit code {proc.returncode}\n"
+                          f"{proc.stderr[-4000:]}")
+    (out_dir / "nvcc.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{proc.stderr[-4000:]}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 
@@ -91,4 +114,8 @@ def load_library() -> ctypes.CDLL:
     lib.vdb_grouped_scan.restype = i
     lib.vdb_grouped_scan_max_m.argtypes = [i, i]
     lib.vdb_grouped_scan_max_m.restype = i
+    lib.vdb_grouped_pq_scan.argtypes = [p] * 10 + [i] * 11 + [p]
+    lib.vdb_grouped_pq_scan.restype = i
+    lib.vdb_grouped_pq_scan_max_m.argtypes = [i]
+    lib.vdb_grouped_pq_scan_max_m.restype = i
     return lib

@@ -120,11 +120,14 @@ def _pack_pairs_into_rows(probe_ids: torch.Tensor, nlist: int, m: int,
 
 
 def _grouped_epilogue(out_d, out_s, pack: Pack, batch, nprobe, k, nlist,
-                      global_cap, slot_stride, slot_offset):
+                      global_cap, slot_stride, slot_offset, k_inner=None):
     """Per-pair candidate rows back to (b, p) order, then the final top-k
-    over ``nprobe · k`` candidates per query. Local slots map to logical
-    ones under striping; invalid candidates become (+inf, -1)."""
-    pair_d = out_d[pack.row_of_pair, pack.m_of_pair]         # [BP, k] sorted
+    over ``nprobe · k_inner`` candidates per query. ``k_inner`` is the
+    per-pair depth the rows hold: ``k`` (the default) for exact scans,
+    smaller in shortlist mode. Local slots map to logical ones under
+    striping; invalid candidates become (+inf, -1)."""
+    ki = k if k_inner is None else k_inner
+    pair_d = out_d[pack.row_of_pair, pack.m_of_pair]         # [BP, ki] sorted
     pair_s = out_s[pack.row_of_pair, pack.m_of_pair].long()
     real = (
         (pair_s >= 0) & (pack.key_sorted[:, None] < nlist)
@@ -142,7 +145,7 @@ def _grouped_epilogue(out_d, out_s, pack: Pack, batch, nprobe, k, nlist,
     d[pack.order] = pair_d
     pos[pack.order] = pair_pos
     return topk_smallest(
-        d.reshape(batch, nprobe * k), k, idx=pos.reshape(batch, nprobe * k)
+        d.reshape(batch, nprobe * ki), k, idx=pos.reshape(batch, nprobe * ki)
     )
 
 

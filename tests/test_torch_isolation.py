@@ -2,6 +2,7 @@
 build never falls back to a plain path."""
 
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -23,9 +24,9 @@ def test_port_imports_and_searches_without_jax():
         import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
         from cuda_acceleratedvectordatabaseengine_tpu_torch import testing
         from cuda_acceleratedvectordatabaseengine_tpu_torch.models import (
-            calibrate, convert)
+            calibrate, convert, ivf_pq)
         from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
-            _build, grouped_scan, kmeans, scan)
+            _build, grouped_pq_scan, grouped_scan, kmeans, pq, scan)
         from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
             batching)
         x = np.random.default_rng(0).standard_normal((512, 16), np.float32)
@@ -36,7 +37,15 @@ def test_port_imports_and_searches_without_jax():
         idx.add(x)
         d, ids = idx.search(x[:4], vdb.SearchParams(nprobe=8, k=3))
         assert (ids[:, 0] == np.arange(4)).all(), ids
-        assert grouped_scan.LAUNCHES == 0
+        pq_idx = vdb.IVFPQIndex(vdb.IVFPQConfig(dimension=16, nlist=8, m=4,
+                                                train_iters=3, opq=True,
+                                                opq_iters=1))
+        pq_idx.train(x)
+        pq_idx.add(x)
+        d, ids = pq_idx.search(x[:4], vdb.SearchParams(
+            nprobe=8, k=3, use_exact_rerank=True))
+        assert (ids[:, 0] == np.arange(4)).all(), ids
+        assert grouped_scan.LAUNCHES == 0 and grouped_pq_scan.LAUNCHES == 0
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m.startswith("cuda_acceleratedvectordatabaseengine_tpu.")
                or m == "cuda_acceleratedvectordatabaseengine_tpu"]
@@ -64,8 +73,17 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     assert not any((tmp_path / "kernels").rglob("*.so"))
 
 
-def test_kernel_sources_are_hashed():
+def test_kernel_sources_are_hashed(tmp_path, monkeypatch):
     srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert "grouped_scan.cu" in srcs
+    assert "grouped_scan.cu" in srcs and "grouped_pq_scan.cu" in srcs
+    assert (_build.CSRC / "grouped_common.cuh").is_file()
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
+    # an edited header changes the hash (and so rebuilds) like a source
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert _build.source_hash() == h
+    with open(csrc / "grouped_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.source_hash() != h
