@@ -37,7 +37,34 @@ fails (non-zero exit, no result line) when any phase fails:
 8. K2 against its plain version on the built index in both served modes;
 9. one IVF-PQ search per served setting under ``torch.profiler``;
 10. a small OPQ index (100K x 768, nlist 256) beside plain PQ: the rotation
-   must be an isometry (max|R^T R - I| <= 2e-5); ADC-only recall of both.
+   must be an isometry (max|R^T R - I| <= 2e-5); ADC-only recall of both;
+2c. K3 (sorted full-row scan) and K4 (pair full-row scan) against their
+   plain versions on small cases (every metric, int8 with scale +- anchor,
+   bf16 / fp32, -1 probes, short lists, the scan-capacity prefix, a hot
+   list, slot striping, k 100) and at the main shapes (K3 on the int8
+   geometry of phase 4, K4 on a bf16 arena of it): rows and top-k, both
+   times and the roofline bound;
+11. IVF-Flat through the scan names of K3 and K4 at full width, run right
+   after phase 6 on the phase-4 index: ``"pallas_sorted"`` (K3) at the
+   calibrated nprobe and 32, equal to K1's results, recall@10 >= 0.95; a
+   k 100 search (K1 keeps at most 64, so it goes to K3); then a 1M x 768
+   bf16 index served with ``"pallas"`` (K4), ``"pallas_sorted"`` and the
+   default, all three equal, recall@10 >= 0.95 each;
+11b. after phase 11's launch counts are read: K3 and K4 against their
+   plain versions on the two indexes phase 11 served, at the calibrated
+   nprobe and 32 (K3 on int8 and bf16, also k 100; K4 on bf16);
+12. the streaming tier over the phase-4 index with 512 cache slots (half
+   the lists on the card): 1024-query batches at the calibrated nprobe and
+   32 through K1 and K3, each equal to the resident index; QPS, hit rate,
+   waves per batch, H2D GB, peak memory, a traced batch per setting, and
+   the resident index timed just before each tier and just after it is
+   dropped (the dropped tier must be freed at once). Phases 11 and 12
+   each start with every launch counter at 0 and gate the kernels they
+   drive (> 0).
+
+They run in the order 0, 1, 2, 2b, 2c, 3, 7-10, 4-6, 11, 11b, 12: the
+streaming tier's host-heavy copies come last, so no other phase is timed
+after them.
 
 The second-to-last line is the kernel report JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -52,9 +79,11 @@ import argparse
 import json
 import math
 import re
+import resource
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -63,8 +92,20 @@ K1_REPLACES = "cuda_acceleratedvectordatabaseengine_tpu/ops/pallas_scan.py:698"
 K2_SOURCE = ("cuda_acceleratedvectordatabaseengine_tpu_torch/csrc/"
              "grouped_pq_scan.cu")
 K2_REPLACES = "cuda_acceleratedvectordatabaseengine_tpu/ops/pallas_scan.py:996"
+K34_SOURCE = ("cuda_acceleratedvectordatabaseengine_tpu_torch/csrc/"
+              "full_row_scan.cu")
+K3_REPLACES = "cuda_acceleratedvectordatabaseengine_tpu/ops/pallas_scan.py:207"
+K4_REPLACES = "cuda_acceleratedvectordatabaseengine_tpu/ops/pallas_scan.py:844"
 RTOL = 1e-5          # distance tolerance, relative ...
 ATOL_QSQ = 1e-5      # ... plus this × ‖q‖² (fp32 sums in another order)
+# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): fp32 on the
+# CUDA cores (the scans' dots run there) and HBM3 bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+FULL_ROW_REPS = 5     # timed batches per setting of phase 11
+CACHE_SLOTS = 512     # streaming tier: half the lists of the 1M index
+STREAM_REPS = 2       # timed batches per setting of phase 12
+RESIDENT_REPS = 10    # timed resident batches around each tier of phase 12
 
 
 def log(*parts) -> None:
@@ -84,6 +125,61 @@ def ptxas_summary(nvcc_log: str) -> dict:
         "functions_spilling": sum(s > 0 for s in spills),
         "spill_store_bytes_max": max(spills, default=None),
     }
+
+
+def roofline(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for this work: the larger of the
+    operations over the fp32 peak and the bytes over the HBM rate."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def scan_work(probe, counts, cap_s: int) -> tuple[int, int, int]:
+    """How much a probed-list scan of these inputs touches: the (valid
+    pair, occupied scanned slot) count, the occupied scanned slots of the
+    distinct probed lists, and the number of distinct lists."""
+    import torch
+
+    flat = probe.reshape(-1).long()
+    flat = flat[flat >= 0]
+    occ = counts.long().clamp(max=cap_s)
+    distinct = torch.unique(flat)
+    return (int(occ[flat].sum()), int(occ[distinct].sum()),
+            int(distinct.numel()))
+
+
+def flat_scan_bound(case, k: int, cap_s: int, kernel: str, metric) -> dict:
+    """Roofline of one flat scan step on ``case``: K1 (``"grouped"``,
+    top-k rows out), K3 (``"sorted"``, full rows out) and K4 (``"pairs"``,
+    full rows out). Each does a D-long dot (2·D operations) per (valid
+    pair, occupied scanned slot). K4 reads no norms, scales or anchors;
+    under L2 it needs |x|² of each distinct occupied slot, which does not
+    depend on the query: 2·D operations a slot, once. Inputs read once:
+    the distinct lists' occupied rows (codes, norms, scales), their
+    anchors and the queries."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+        Metric,
+    )
+
+    arena, q, probe = case["arena"], case["q"], case["probe"]
+    batch, nprobe = probe.shape
+    dim = arena.shape[2]
+    pair_slots, list_slots, n_lists = scan_work(probe, case["counts"], cap_s)
+    flops = 2 * dim * pair_slots
+    row = dim * arena.element_size()
+    if kernel == "pairs":
+        if metric == Metric.L2:
+            flops += 2 * dim * list_slots
+    else:
+        row += 4 + (4 if case["arena_scale"] is not None else 0)
+    nbytes = row * list_slots
+    if kernel != "pairs" and case["arena_anchors"] is not None:
+        nbytes += n_lists * dim * 4
+    nbytes += q.numel() * 4 + batch * nprobe * (
+        k * 8 if kernel == "grouped" else cap_s * 4)
+    return roofline(flops, nbytes)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -223,6 +319,7 @@ def check_scan_case(name, case, k, metric, m_budget=None, scan_capacity=None,
         out.update(
             m=m, n_rows=n_rows,
             rows_max_abs_err=rcmp.max_abs_err,
+            **flat_scan_bound(case, k, cap_s, "grouped", metric),
             ms=cuda_ms(lambda: gs._grouped_rows_cuda(*rows_args, **rows_kw),
                        10),
             plain_ms=cuda_ms(
@@ -406,8 +503,15 @@ def check_pq_case(name, case, k, metric, m_budget=None, scan_capacity=None,
                 rp[0].reshape(n_rows * m, k).cpu().numpy(),
                 rp[1].reshape(n_rows * m, k).cpu().numpy(),
                 rtol=RTOL, atol=float(atol.max())).max_abs_err
+        pair_slots, list_slots, n_lists = scan_work(
+            case["probe"], case["counts"], cap_s)
+        flops = 2 * dim * pair_slots
+        nbytes = ((msub + 4) * list_slots
+                  + (case["cb"].numel() + n_lists * dim + q.numel()) * 4
+                  + batch * nprobe * (cap_s * 4 if emit_full else k * 8))
         out.update(
             m=m, n_rows=n_rows, cap_s=cap_s, rows_max_abs_err=rows_err,
+            **roofline(flops, nbytes),
             ms=cuda_ms(lambda: gps._grouped_pq_rows_cuda(
                 *rows_args, emit_full=emit_full), 10),
             plain_ms=cuda_ms(lambda: gps._grouped_pq_rows_reference(
@@ -473,6 +577,171 @@ def phase_pq_kernel_vs_plain(seed: int, dev) -> dict:
     del main
     torch.cuda.empty_cache()
     return res
+
+
+# --------------------------------------------------------------------------- #
+# phase 2c: K3 and K4 against their plain versions
+# --------------------------------------------------------------------------- #
+
+def check_full_row_case(name, case, k, metric, kernel, m_budget=None,
+                        scan_capacity=None, striping=None, time_it=False,
+                        label="phase2c"):
+    """K3 (``kernel="sorted"``) or K4 (``"pairs"``) against its plain
+    version on one case: the whole scan (top-k outside the kernel) and,
+    with ``time_it``, the row step alone (full rows compared entry by
+    entry), with both times and the step's roofline; raises on
+    disagreement."""
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
+        grouped_scan as gs,
+        pair_scan as ps,
+        sorted_scan as ss,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.testing import (
+        assert_topk_match,
+    )
+
+    q = case["q"]
+    args = (q, case["arena"], case["arena_sq"], case["counts"],
+            case["probe"], k, metric)
+    kw = dict(scan_capacity=scan_capacity, **(striping or {}))
+    if kernel == "sorted":
+        kw.update(m_budget=m_budget, arena_scale=case["arena_scale"],
+                  arena_anchors=case["arena_anchors"])
+        scan, plain = (ss.scan_probed_lists_sorted,
+                       ss.scan_probed_lists_sorted_reference)
+    else:
+        scan, plain = (ps.scan_probed_lists_pairs,
+                       ps.scan_probed_lists_pairs_reference)
+    d_k, p_k = scan(*args, **kw)
+    torch.cuda.synchronize()
+    d_p, p_p = plain(*args, **kw)
+    atol = (ATOL_QSQ * (q * q).sum(1)).cpu().numpy()
+    cmp = assert_topk_match(d_k.cpu().numpy(), p_k.cpu().numpy(),
+                            d_p.cpu().numpy(), p_p.cpu().numpy(),
+                            rtol=RTOL, atol=atol)
+    out = {"case": name, "kernel": kernel, "k": k,
+           "max_abs_err": cmp.max_abs_err,
+           "id_differences_at_ties": cmp.n_id_differences,
+           "entries": cmp.n_entries}
+    if time_it:
+        nlist, cap, dim = case["arena"].shape
+        batch, nprobe = case["probe"].shape
+        cap_s = gs._effective_cap(cap, scan_capacity)
+        qc = q.contiguous()
+        if kernel == "sorted":
+            m = min(m_budget or gs.auto_m_budget(batch * nprobe, nlist),
+                    ss.kernel_max_m(dim, case["arena"].dtype))
+            row_list, table = ss._pair_table(case["probe"], nlist, m)
+            rows_args = (qc, case["arena"], case["arena_sq"],
+                         case["counts"], row_list, table, nprobe,
+                         batch * nprobe, metric, cap_s)
+            rows_kw = dict(arena_scale=case["arena_scale"],
+                           arena_anchors=case["arena_anchors"])
+            kern, ref = ss._sorted_rows_cuda, ss._sorted_rows_reference
+            out.update(m=m, n_rows=int(row_list.shape[0]))
+        else:
+            rows_args = (qc, case["arena"], case["counts"], case["probe"],
+                         metric, cap_s)
+            rows_kw = {}
+            kern, ref = ps._pair_rows_cuda, ps._pair_rows_reference
+        rows_err = compare_full_rows(kern(*rows_args, **rows_kw),
+                                     ref(*rows_args, **rows_kw),
+                                     float(atol.max()))
+        out.update(
+            cap_s=cap_s, rows_max_abs_err=rows_err,
+            **flat_scan_bound(case, k, cap_s, kernel, metric),
+            ms=cuda_ms(lambda: kern(*rows_args, **rows_kw), 10),
+            plain_ms=cuda_ms(lambda: ref(*rows_args, **rows_kw), 3),
+            scan_ms=cuda_ms(lambda: scan(*args, **kw), 10),
+            scan_plain_ms=cuda_ms(lambda: plain(*args, **kw), 3),
+        )
+    log(label, json.dumps(out))
+    return out
+
+
+def phase_full_row_kernels_vs_plain(seed: int, dev) -> dict:
+    """K3 and K4 on small cases covering every metric, int8 with scale ±
+    anchor (K3), bf16 and fp32 arenas (K4), -1 probes, lists shorter than
+    k, the scan-capacity prefix, a hot list over many pairs, slot striping
+    and k 100; then at the main shapes: K3 on the IVF-Flat int8 geometry
+    (nlist 1024, cap 1408, D 768, B 1024, nprobe 32, k 10), K4 on a bf16
+    arena of the same geometry."""
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+        Metric,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    i8, bf, f32 = torch.int8, torch.bfloat16, torch.float32
+    base = dict(nlist=16, cap=256, dim=64, batch=48, nprobe=6)
+    stripe = dict(slot_stride=2, slot_offset=1, global_capacity=512)
+    small = [  # name, kernel, case spec, k, m, scan capacity, striping
+        ("k3_l2_i8_anchor_neg_short", "sorted",
+         dict(base, dtype=i8, metric=Metric.L2, neg=True, short=True), 10,
+         None, None, None),
+        ("k3_ip_i8_raw", "sorted",
+         dict(base, dtype=i8, metric=Metric.INNER_PRODUCT, anchors=False),
+         10, 16, None, None),
+        ("k3_cos_bf16", "sorted",
+         dict(base, dtype=bf, metric=Metric.COSINE), 10, None, None, None),
+        ("k3_l2_f32_dim30", "sorted",
+         dict(base, dim=30, dtype=f32, metric=Metric.L2, neg=True), 7, 8,
+         None, None),
+        ("k3_l2_i8_scan_capacity", "sorted",
+         dict(base, cap=512, dtype=i8, metric=Metric.L2, max_count=200), 10,
+         None, 200, None),
+        ("k3_ip_i8_hot_list", "sorted",
+         dict(base, nlist=4, batch=256, nprobe=2, dtype=i8,
+              metric=Metric.INNER_PRODUCT), 10, 16, None, None),
+        ("k3_l2_i8_striped", "sorted",
+         dict(base, dtype=i8, metric=Metric.L2), 10, None, None, stripe),
+        ("k3_l2_i8_k100_short", "sorted",
+         dict(base, dtype=i8, metric=Metric.L2, short=True, neg=True), 100,
+         None, None, None),
+        ("k4_l2_bf16_neg_short", "pairs",
+         dict(base, dtype=bf, metric=Metric.L2, neg=True, short=True), 10,
+         None, None, None),
+        ("k4_ip_f32", "pairs",
+         dict(base, dtype=f32, metric=Metric.INNER_PRODUCT), 10, None, None,
+         None),
+        ("k4_cos_bf16", "pairs",
+         dict(base, dtype=bf, metric=Metric.COSINE), 10, None, None, None),
+        ("k4_l2_f32_dim30", "pairs",
+         dict(base, dim=30, dtype=f32, metric=Metric.L2, neg=True), 7, None,
+         None, None),
+        ("k4_l2_bf16_scan_capacity", "pairs",
+         dict(base, cap=512, dtype=bf, metric=Metric.L2, max_count=200), 10,
+         None, 200, None),
+        ("k4_l2_bf16_hot_list", "pairs",
+         dict(base, nlist=4, batch=256, nprobe=2, dtype=bf,
+              metric=Metric.L2), 10, None, None, None),
+        ("k4_ip_bf16_striped", "pairs",
+         dict(base, dtype=bf, metric=Metric.INNER_PRODUCT), 10, None, None,
+         stripe),
+        ("k4_l2_f32_k100_short", "pairs",
+         dict(base, dtype=f32, metric=Metric.L2, short=True), 100, None,
+         None, None),
+    ]
+    out = {"small_max_abs_err": {"sorted": 0.0, "pairs": 0.0}}
+    for name, kernel, spec, k, m, scap, strp in small:
+        res = check_full_row_case(name, make_scan_case(gen, dev, **spec), k,
+                                  spec["metric"], kernel, m_budget=m,
+                                  scan_capacity=scap, striping=strp)
+        err = out["small_max_abs_err"]
+        err[kernel] = max(err[kernel], res["max_abs_err"])
+    for key, kernel, dtype, tag in (("k3", "sorted", i8, "int8_residual"),
+                                    ("k4", "pairs", bf, "bf16")):
+        main = make_scan_case(gen, dev, nlist=1024, cap=1408, dim=768,
+                              batch=1024, nprobe=32, dtype=dtype,
+                              metric=Metric.L2)
+        out[key] = check_full_row_case(f"main_{key}_{tag}_768", main, 10,
+                                       Metric.L2, kernel, time_it=True)
+        del main
+        torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -562,6 +831,12 @@ def recall_at(ids, truth, k=10) -> float:
 SEARCH_STAGES = ("ivf_flat.upload", "ivf_flat.coarse_probe",
                  "grouped_scan.pack", "grouped_scan.rows",
                  "grouped_scan.epilogue", "ivf_flat.finalize")
+# ... of one StreamingIVFFlatIndex.search (the scan's own ranges opened
+# once per wave) ...
+STREAM_STAGES = ("streaming.coarse_probe", "streaming.stage",
+                 "grouped_scan.pack", "grouped_scan.rows",
+                 "grouped_scan.epilogue", "sorted_scan.rows",
+                 "sorted_scan.topk", "streaming.merge")
 # ... and of one IVFPQIndex.search.
 PQ_SEARCH_STAGES = ("ivf_pq.upload", "ivf_pq.coarse_probe",
                     "grouped_pq_scan.pack", "grouped_pq_scan.rows",
@@ -603,8 +878,9 @@ def trace_search(idx, queries, params, batch_ms, top=6,
         return sum(e.cpu_time_total for e in on_host if e.name == name) / 1e3
 
     wall = host_ms("chip_smoke.search")
-    spans = {e.name: e.time_range for e in on_device
-             if e.is_user_annotation and e.name in stage_names}
+    # a stage may open several times in one search (a wave each)
+    spans = [(e.name, e.time_range) for e in on_device
+             if e.is_user_annotation and e.name in stage_names]
     stages = {s: {"device_ms": 0.0, "host_ms": host_ms(s)}
               for s in stage_names}
     kernels: dict[str, float] = {}
@@ -616,7 +892,7 @@ def trace_search(idx, queries, params, batch_ms, top=6,
         kernels[e.name] = kernels.get(e.name, 0.0) + ms
         stage = next((st for frag, st in kernel_stages if frag in e.name),
                      None) or next(
-            (s for s, r in spans.items() if r.start <= e.time_range.start
+            (s for s, r in spans if r.start <= e.time_range.start
              and e.time_range.end <= r.end), None)
         if stage is None:
             unattributed += ms
@@ -782,7 +1058,8 @@ def phase_main_path(args, dev):
                                  f"kernel")
     if out["recall10_auto"] < 0.95:
         raise AssertionError(f"recall@10 {out['recall10_auto']} < 0.95")
-    return out, idx, queries, q_np, min(cal["nprobe"], nlist)
+    return (out, idx, queries, q_np, min(cal["nprobe"], nlist), truth,
+            centers, capacity)
 
 
 def phase_index_checks(idx, queries, q_np, cal_nprobe, main_path,
@@ -801,6 +1078,276 @@ def phase_index_checks(idx, queries, q_np, cal_nprobe, main_path,
             idx, q_np, vdb.SearchParams(nprobe=nprobe, k=k),
             main_path[f"ms_per_batch_median_{label}"])
         log("phase6", label, json.dumps(out[f"trace_{label}"]))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phases 11-12: IVF-Flat through K3 and K4, and the streaming tier
+# --------------------------------------------------------------------------- #
+
+def serve_setting(idx, q_np, truth, nprobe, k, reps, counters) -> dict:
+    """Timed ``search`` batches of one setting (after a warm-up): QPS,
+    median / max batch ms, recall@10 and each kernel's launches during
+    the setting (``counters``: name → module with ``LAUNCHES``). Returns
+    the numbers and the last result."""
+    import numpy as np
+
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+
+    before = {n: m.LAUNCHES for n, m in counters.items()}
+    ru0 = resource.getrusage(resource.RUSAGE_SELF)
+    ms, (d, ids) = search_timed(idx, q_np,
+                                vdb.SearchParams(nprobe=nprobe, k=k), reps)
+    ru1 = resource.getrusage(resource.RUSAGE_SELF)
+    if not (np.isfinite(d).all() and d.shape == (len(q_np), k)):
+        raise AssertionError(f"search nprobe {nprobe} k {k}: bad result")
+    med = float(np.median(ms))
+    batches = reps + 1                   # the warm-up batch included
+    return {
+        "nprobe": nprobe, "k": k, "qps": len(q_np) / med * 1e3,
+        "ms_per_batch_median": med, "ms_per_batch_max": float(max(ms)),
+        "recall10": recall_at(ids[:, :10], truth, 10),
+        "launches": {n: m.LAUNCHES - before[n] for n, m in counters.items()},
+        # the process's host side per batch, all threads: CPU ms, minor
+        # page faults, and context switches it gave up (waits) or was
+        # made to give up (preempted)
+        "host_cpu_ms_per_batch": ((ru1.ru_utime + ru1.ru_stime)
+                                  - (ru0.ru_utime + ru0.ru_stime))
+        * 1e3 / batches,
+        "minor_faults_per_batch": (ru1.ru_minflt - ru0.ru_minflt) / batches,
+        "voluntary_switches_per_batch": (ru1.ru_nvcsw - ru0.ru_nvcsw)
+        / batches,
+        "involuntary_switches_per_batch": (ru1.ru_nivcsw - ru0.ru_nivcsw)
+        / batches,
+    }, (d, ids)
+
+
+def same_results(name, got, ref, q_np) -> dict:
+    """Two searches' ``(d, ids)`` agree: ids up to ties, distances within
+    RTOL + ATOL_QSQ·‖q‖²; raises otherwise."""
+    import numpy as np
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.testing import (
+        assert_topk_match,
+    )
+
+    atol = ATOL_QSQ * (q_np.astype(np.float64) ** 2).sum(1)
+    try:
+        cmp = assert_topk_match(*got, *ref, rtol=RTOL, atol=atol)
+    except AssertionError as e:
+        raise AssertionError(f"{name}: {e}") from None
+    return {"max_abs_err": cmp.max_abs_err,
+            "id_differences_at_ties": cmp.n_id_differences}
+
+
+def scan_counters() -> dict:
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
+        grouped_scan,
+        pair_scan,
+        sorted_scan,
+    )
+
+    return {"k1": grouped_scan, "k3": sorted_scan, "k4": pair_scan}
+
+
+def phase_full_row_paths(args, dev, idx, q_np, truth, cal_nprobe, centers,
+                         capacity) -> dict:
+    """Phase 11, IVF-Flat through the scan names of K3 and K4 at full
+    width. The phase-4 index (int8 residual) is served with
+    ``scan_impl="pallas_sorted"`` (K3) at the calibrated nprobe and 32,
+    each result equal to the default scan's (K1) and recall@10 ≥ 0.95;
+    then a k 100 search with the default scan, which goes to K3 (K1 keeps
+    at most 64 per list), its top 10 equal to the k 10 result. Then a bf16
+    index of the same corpus and geometry is built and served with
+    ``"pallas"`` (K4), ``"pallas_sorted"`` (K3) and the default (K1): all
+    three agree, each with recall@10 ≥ 0.95. Returns the numbers and the
+    bf16 index (for phase 11b)."""
+    import numpy as np
+    import torch
+
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+
+    k, reps, counters = 10, FULL_ROW_REPS, scan_counters()
+    out = {"int8": {}, "bf16": {}}
+    ref = {}
+
+    def serve(index, impl, label, nprobe, kk=k, into="int8"):
+        index.config.scan_impl = impl
+        res, result = serve_setting(index, q_np, truth, nprobe, kk, reps,
+                                    counters)
+        out[into][label] = res
+        return result
+
+    for np_label, nprobe in (("auto", cal_nprobe), ("p32", 32)):
+        ref[np_label] = serve(idx, "auto", f"k1_{np_label}", nprobe)
+        got = serve(idx, "pallas_sorted", f"k3_{np_label}", nprobe)
+        out["int8"][f"k3_{np_label}"].update(
+            same_results(f"K3 vs K1 at nprobe {nprobe}", got, ref[np_label],
+                         q_np))
+    deep = serve(idx, "auto", "k1_route_k100_p32", 32, kk=100)
+    top = (deep[0][:, :k], deep[1][:, :k])
+    out["int8"]["k1_route_k100_p32"].update(
+        same_results("k 100 top 10 vs k 10", top, ref["p32"], q_np))
+    idx.config.scan_impl = "auto"
+    if out["int8"]["k1_route_k100_p32"]["launches"]["k3"] <= 0:
+        raise AssertionError("the k 100 search never launched K3")
+
+    # the bf16 index: same corpus, same nlist and capacity
+    n, dim, nlist = args.n, args.dim, args.nlist
+    chunk = -(-n // args.chunks)
+    bidx = vdb.IVFFlatIndex(vdb.IVFFlatConfig(
+        dimension=dim, nlist=nlist, dtype="bfloat16",
+        max_capacity_factor=4.0), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        xc = corpus_chunk(centers, s, m, args.seed)
+        if s == 0:
+            bidx.train_from_device(xc)
+        bidx.append_balanced(xc, ids=np.arange(s, s + m, dtype=np.uint64),
+                             capacity=capacity)
+        del xc
+    torch.cuda.synchronize()
+    out["bf16"]["build_s"] = time.perf_counter() - t0
+    out["bf16"]["arena_gb"] = bidx.arena.nbytes_device() / 1e9
+    if bidx.ntotal != n:
+        raise AssertionError(f"bf16 build: ntotal {bidx.ntotal} != {n}")
+    for np_label, nprobe in (("auto", cal_nprobe), ("p32", 32)):
+        k1 = serve(bidx, "auto", f"k1_{np_label}", nprobe, into="bf16")
+        for impl, key in (("pallas", "k4"), ("pallas_sorted", "k3")):
+            got = serve(bidx, impl, f"{key}_{np_label}", nprobe, into="bf16")
+            out["bf16"][f"{key}_{np_label}"].update(same_results(
+                f"bf16 {key} vs K1 at nprobe {nprobe}", got, k1, q_np))
+    bidx.config.scan_impl = "auto"
+    for tier in ("int8", "bf16"):
+        for label, res in out[tier].items():
+            if isinstance(res, dict) and res["recall10"] < 0.95:
+                raise AssertionError(f"phase 11 {tier} {label}: recall@10 "
+                                     f"{res['recall10']} < 0.95")
+    log("phase11", json.dumps(out))
+    return out, bidx
+
+
+def phase_full_row_index_checks(idx, bidx, queries, cal_nprobe) -> dict:
+    """Phase 11b, after phase 11's launch counts are read: K3 and K4
+    against their plain versions on the indexes phase 11 served, on the
+    probes their coarse step gives the phase-4 queries, at the calibrated
+    nprobe and at 32: K3 on the int8 index (k 10, and k 100 at 32, the
+    deep-k route) and on the bf16 index, K4 on the bf16 index (the arena
+    ``"pallas"`` sends to it)."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+        Metric,
+        pairwise_distance,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.normalize import (
+        l2_normalize,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
+        topk_smallest,
+    )
+
+    out = {"sorted": [], "pairs": []}
+    for tag, index, kernels in (("int8", idx, ("sorted",)),
+                                ("bf16", bidx, ("sorted", "pairs"))):
+        a = index.arena
+        q = (l2_normalize(queries) if index.metric == Metric.COSINE
+             else queries)
+        for nprobe in (cal_nprobe, 32):
+            _, probe = topk_smallest(
+                pairwise_distance(q, index.centroids, index.metric), nprobe)
+            case = dict(q=q, arena=a.arena, arena_sq=a.arena_sq,
+                        counts=a.counts, probe=probe.int(),
+                        arena_scale=a.arena_scale, arena_anchors=a.anchors)
+            depths = (10, 100) if (tag == "int8" and nprobe == 32) else (10,)
+            for kernel in kernels:
+                for k in depths:
+                    out[kernel].append(check_full_row_case(
+                        f"index_{tag}_{kernel}_p{nprobe}_k{k}", case, k,
+                        index.metric, kernel, m_budget=index.config.m_budget,
+                        scan_capacity=a.scan_capacity_hint(),
+                        label="phase11b"))
+    return out
+
+
+def phase_streaming(dev, idx, q_np, truth, cal_nprobe) -> dict:
+    """Phase 12, the streaming tier: a ``StreamingIVFFlatIndex`` built
+    from the phase-4 index with ``CACHE_SLOTS`` lists in the device cache
+    (half the lists), serving 1024-query batches at the
+    calibrated nprobe and at 32 through K1 (``"auto"``) and K3
+    (``"pallas_sorted"``). Each result equals the resident index's; prints
+    QPS, hit rate, waves per batch, H2D GB and peak device memory. The
+    resident index is timed just before each tier and just after it is
+    dropped (the tier must be gone at once: no reference cycle may keep
+    its cache), with the host's CPU time, page faults and context
+    switches per batch."""
+    import numpy as np
+    import torch
+
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+
+    k, counters = 10, scan_counters()
+    resident = {}
+    idx.config.scan_impl = "auto"
+    for np_label, nprobe in (("auto", cal_nprobe), ("p32", 32)):
+        resident[np_label] = idx.search(q_np, vdb.SearchParams(nprobe=nprobe,
+                                                               k=k))
+    out = {"cache_slots": CACHE_SLOTS}
+    for impl, key in (("auto", "k1"), ("pallas_sorted", "k3")):
+        # the resident index timed just before each tier and just after it
+        # is dropped: whether the tier leaves the host slower
+        out[f"resident_before_{key}"], _ = serve_setting(
+            idx, q_np, truth, cal_nprobe, k, RESIDENT_REPS, counters)
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tier = vdb.StreamingIVFFlatIndex(idx, cache_slots=CACHE_SLOTS,
+                                         scan_impl=impl, device=dev)
+        out["build_s"] = time.perf_counter() - t0
+        out["host_gb"] = tier.store.nbytes() / 1e9
+        out["cache_gb"] = tier.cache.memory_bytes() / 1e9
+        for np_label, nprobe in (("auto", cal_nprobe), ("p32", 32)):
+            st0 = tier.stats()
+            res, got = serve_setting(tier, q_np, truth, nprobe, k,
+                                     STREAM_REPS, counters)
+            st1 = tier.stats()
+            batches = st1["batches"] - st0["batches"]
+            looked = (st1["hits"] - st0["hits"]) + (st1["misses"]
+                                                    - st0["misses"])
+            res.update(
+                hit_rate=(st1["hits"] - st0["hits"]) / max(looked, 1),
+                waves_per_batch=(st1["waves"] - st0["waves"])
+                / (STREAM_REPS + 1),
+                sub_batches_per_batch=batches / (STREAM_REPS + 1),
+                h2d_gb_per_batch=(st1["h2d_bytes"] - st0["h2d_bytes"]) / 1e9
+                / (STREAM_REPS + 1),
+                **same_results(f"streaming {key} vs resident at nprobe "
+                               f"{nprobe}", got, resident[np_label], q_np),
+            )
+            if res["launches"][key] <= 0:
+                raise AssertionError(f"streaming {impl} never launched "
+                                     f"{key.upper()}")
+            res["trace"] = trace_search(
+                tier, q_np, vdb.SearchParams(nprobe=nprobe, k=k),
+                res["ms_per_batch_median"], stage_names=STREAM_STAGES,
+                kernel_stages=(("grouped_scan_kernel", "grouped_scan.rows"),
+                               ("sorted_scan_kernel", "sorted_scan.rows")))
+            out[f"{key}_{np_label}"] = res
+        out[f"{key}_peak_gb_over_resident"] = (
+            torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+        tier_ref = weakref.ref(tier)
+        del tier
+        torch.cuda.empty_cache()
+        # no reference cycle holds the tier: its cache is gone at once
+        out[f"{key}_tier_freed"] = tier_ref() is None
+        out[f"{key}_device_gb_after_drop_over_resident"] = (
+            torch.cuda.memory_allocated() - base_bytes) / 1e9
+        if not out[f"{key}_tier_freed"]:
+            raise AssertionError("the dropped tier is still alive")
+        out[f"resident_after_{key}"], _ = serve_setting(
+            idx, q_np, truth, cal_nprobe, k, RESIDENT_REPS, counters)
+    log("phase12", json.dumps(out))
     return out
 
 
@@ -1103,6 +1650,8 @@ def main(argv=None) -> int:
         _build,
         grouped_pq_scan,
         grouped_scan,
+        pair_scan,
+        sorted_scan,
     )
 
     if not Path(port.__file__).resolve().is_relative_to(REPO):
@@ -1138,18 +1687,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     k1 = phase_kernel_vs_plain(args.seed, dev)     # phase 2
     k2 = phase_pq_kernel_vs_plain(args.seed, dev)  # phase 2b
+    k34 = phase_full_row_kernels_vs_plain(args.seed, dev)  # phase 2c
     phase_quickstart(dev)                          # phase 3
-    grouped_scan.LAUNCHES = 0                      # phase 4: the main path
-    main_path, idx, queries, q_np, cal_nprobe = phase_main_path(args, dev)
-    launches = grouped_scan.LAUNCHES
-    log("phase4_k1_launches", launches)
-    if launches <= 0:
-        raise AssertionError("the main path never launched the K1 kernel")
-    checks = phase_index_checks(idx, queries, q_np, cal_nprobe,  # 5, 6
-                                main_path)
-    del idx, queries
-    torch.cuda.empty_cache()
-
+    # The IVF-PQ phases run before the IVF-Flat ones, so that the streaming
+    # tier (phase 12, heavy host copies) runs last and no later phase is
+    # timed after it.
     grouped_pq_scan.LAUNCHES = 0                   # phase 7: the IVF-PQ path
     pq_path, pq_idx, pq_q, pq_q_np, pq_cal = phase_pq_main_path(args, dev)
     pq_launches = grouped_pq_scan.LAUNCHES
@@ -1161,8 +1703,48 @@ def main(argv=None) -> int:
     del pq_idx, pq_q
     torch.cuda.empty_cache()
     opq = phase_opq(args, dev)                     # phase 10
+    grouped_scan.LAUNCHES = 0                      # phase 4: the main path
+    (main_path, idx, queries, q_np, cal_nprobe, truth, centers,
+     capacity) = phase_main_path(args, dev)
+    launches = grouped_scan.LAUNCHES
+    log("phase4_k1_launches", launches)
+    if launches <= 0:
+        raise AssertionError("the main path never launched the K1 kernel")
+    checks = phase_index_checks(idx, queries, q_np, cal_nprobe,  # 5, 6
+                                main_path)
+    # phase 11 (run while the phase-4 index is alive): IVF-Flat through
+    # the scan names of K3 and K4, and deep k
+    counters = scan_counters()
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    full_rows, bidx = phase_full_row_paths(args, dev, idx, q_np, truth,
+                                           cal_nprobe, centers, capacity)
+    launches11 = {n: m.LAUNCHES for n, m in counters.items()}
+    log("phase11_launches", json.dumps(launches11))
+    for key in ("k3", "k4"):
+        if launches11[key] <= 0:
+            raise AssertionError(f"phase 11 never launched {key.upper()}")
+    full_row_checks = phase_full_row_index_checks(  # phase 11b
+        idx, bidx, queries, cal_nprobe)
+    del bidx
+    torch.cuda.empty_cache()
+    for mod in counters.values():                  # phase 12: streaming
+        mod.LAUNCHES = 0
+    streaming = phase_streaming(dev, idx, q_np, truth, cal_nprobe)
+    launches12 = {n: m.LAUNCHES for n, m in counters.items()}
+    log("phase12_launches", json.dumps(launches12))
+    for key in ("k1", "k3"):
+        if launches12[key] <= 0:
+            raise AssertionError(f"phase 12 never launched {key.upper()}")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+
+    def timing(main_shape):
+        # times measured here at the kernel's main shape; no single PyTorch
+        # call computes any of these scans, so there is no library time
+        return {key: main_shape[key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by")} | {
+                    "library_ms": None}
 
     report = {"kernels": [{
         "name": "grouped_scan", "route": "cuda", "source": K1_SOURCE,
@@ -1170,22 +1752,40 @@ def main(argv=None) -> int:
         "max_abs_err": max(k1["max_abs_err"],
                            checks["index_scan_auto"]["max_abs_err"],
                            checks["index_scan_p32"]["max_abs_err"]),
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
+        **timing(k1),
     }, {
         "name": "grouped_pq_scan", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": pq_launches,
         "max_abs_err": max([r["max_abs_err"] for r in k2.values()]
                            + [c["max_abs_err"] for key, c in pq_checks.items()
                               if key.startswith("index_pq_scan")]),
-        "ms": k2["topk_k10"]["ms"],
-        "plain_ms": k2["topk_k10"]["plain_ms"],
+        **timing(k2["topk_k10"]),
+    }, {
+        "name": "sorted_scan", "route": "cuda", "source": K34_SOURCE,
+        "replaces": K3_REPLACES, "launches": launches11["k3"],
+        "max_abs_err": max([k34["small_max_abs_err"]["sorted"],
+                            k34["k3"]["max_abs_err"]]
+                           + [c["max_abs_err"]
+                              for c in full_row_checks["sorted"]]),
+        **timing(k34["k3"]),
+    }, {
+        "name": "pair_scan", "route": "cuda", "source": K34_SOURCE,
+        "replaces": K4_REPLACES, "launches": launches11["k4"],
+        "max_abs_err": max([k34["small_max_abs_err"]["pairs"],
+                            k34["k4"]["max_abs_err"]]
+                           + [c["max_abs_err"]
+                              for c in full_row_checks["pairs"]]),
+        **timing(k34["k4"]),
     }]}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({
             "nvidia_smi": smi, "k1_main_shape": k1, "main_path": main_path,
             "index_checks": checks, "k2_main_shape": k2,
+            "k34_main_shapes": k34, "full_row_paths": full_rows,
+            "full_row_index_checks": full_row_checks,
+            "streaming": streaming, "launches_phase11": launches11,
+            "launches_phase12": launches12,
             "pq_main_path": pq_path, "pq_index_checks": pq_checks,
             "opq": opq, **report}, indent=1))
     log(json.dumps(report))

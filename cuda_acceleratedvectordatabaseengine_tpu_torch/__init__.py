@@ -5,26 +5,35 @@ which stays beside it as the reference. This package imports ``torch`` and
 numpy, never JAX. It runs two index families: IVF-Flat (k-means training,
 a chunked int8 / bf16 / fp32 build into a packed list arena, batched
 search) and IVF-PQ (PQ / OPQ codebooks, residual codes, ADC search with an
-optional exact rerank). Their probed-list scans are hand-written CUDA
-kernels for ``sm_90a`` (``csrc/grouped_scan.cu``,
-``csrc/grouped_pq_scan.cu``, built with ``nvcc`` at first use). On CPU
-tensors every op takes its plain PyTorch version; on CUDA tensors a kernel
-path launches its kernel or raises.
+optional exact rerank), and a streaming tier that serves an IVF-Flat corpus
+from host RAM through a device cache of hot lists
+(``StreamingIVFFlatIndex``). Their probed-list scans are hand-written CUDA
+kernels for ``sm_90a`` (``csrc/grouped_scan.cu``, ``csrc/grouped_pq_scan.cu``,
+``csrc/full_row_scan.cu``, built with ``nvcc`` at first use). On CPU tensors
+every op takes its plain PyTorch version; on CUDA tensors a kernel path
+launches its kernel or raises. Every entry point runs on the card unless
+it is given another ``device`` (``device="cpu"`` runs on the host).
 
     import numpy as np, cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
     x = np.random.default_rng(0).standard_normal((100_000, 128), np.float32)
-    idx = vdb.IVFFlatIndex(vdb.IVFFlatConfig(dimension=128, nlist=256),
-                           device="cuda")
+    idx = vdb.IVFFlatIndex(vdb.IVFFlatConfig(dimension=128, nlist=256))
     idx.train(x); idx.add(x)
     d, ids = idx.search(x[:8], vdb.SearchParams(nprobe=32, k=10))
 
-    pq = vdb.IVFPQIndex(vdb.IVFPQConfig(dimension=128, nlist=256, m=16),
-                        device="cuda")
+    pq = vdb.IVFPQIndex(vdb.IVFPQConfig(dimension=128, nlist=256, m=16))
     pq.train(x); pq.add(x)
     d, ids = pq.search(x[:8], vdb.SearchParams(nprobe=32, k=10,
                                                use_exact_rerank=True))
+
+    tier = vdb.StreamingIVFFlatIndex(idx, cache_slots=64)
+    d, ids = tier.search(x[:8], vdb.SearchParams(nprobe=32, k=10))
 """
 
+from cuda_acceleratedvectordatabaseengine_tpu_torch.io_host import (
+    HbmListCache,
+    HostListStore,
+    StreamingIVFFlatIndex,
+)
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import Metric
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
     IVFFlatConfig,
@@ -45,5 +54,8 @@ __all__ = [
     "IVFPQIndex",
     "IVFPQConfig",
     "SearchParams",
+    "HbmListCache",
+    "HostListStore",
+    "StreamingIVFFlatIndex",
     "__version__",
 ]

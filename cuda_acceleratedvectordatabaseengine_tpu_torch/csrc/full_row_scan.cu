@@ -1,0 +1,404 @@
+// Full-row probed-list scans for Hopper (sm_90a): the sorted scan (K3) and
+// the pair scan (K4). Both write one distance row per (query, probe) pair,
+// +inf where a slot is empty or the probe is -1; the torch wrappers take the
+// top-k outside, as the TPU versions left it to XLA.
+//
+// K3, vdb_sorted_scan, replaces
+// cuda_acceleratedvectordatabaseengine_tpu/ops/pallas_scan.py::
+// scan_probed_lists_pallas_sorted (kernel body _sorted_kernel). Wrapper and
+// plain PyTorch version: cuda_acceleratedvectordatabaseengine_tpu_torch/ops/
+// sorted_scan.py.
+//
+// What it computes. For pair (b, p) probing list l and each slot
+// s < cap_s: qx = scale[l,s] * (q_b . code[l,s]) + q_b . anchor[l] (scale 1
+// and anchor 0 when absent), and the distance
+//     L2: max(|q_b|^2 - 2 qx + arena_sq[l,s], 0)   IP: -qx   cosine: 1 - qx,
+// +inf for s >= min(count_l, cap_s) (count_l is the local count under slot
+// striping) and for probe -1. Row of pair (b, p) goes to out[b * P + p].
+//
+// Design. The TPU kernel sorted the pairs by list so consecutive grid steps
+// could reuse one VMEM block. Here the wrapper sorts the pairs by list on
+// the device and packs runs of same-list pairs into list-rows of at most M
+// pairs (the packing of K1). One CTA takes one list-row: it reads its pairs'
+// query rows into shared memory, then walks the list in tiles of 32 * SPL
+// slots, staging each tile once in shared memory for all the pairs of the
+// row (coalesced 16-byte loads, arena dtype, widened to fp32 in the dot
+// loop). Dots are fp32 on CUDA cores, int8 and bf16 widened exactly, the
+// query kept fp32: no bf16 or TF32 rounding. Lane t of a warp owns slots t
+// and t + 32 of the tile, so the row of each pair is written 32 consecutive
+// floats at a time. Pairs of probe -1 sit in sentinel rows (list id nlist),
+// which read nothing and write +inf rows.
+//
+// K4, vdb_pair_scan, replaces pallas_scan.py::scan_probed_lists_pallas
+// (kernel body _kernel). Wrapper and plain version: ops/pair_scan.py.
+//
+// What it computes. The same rows from the stored block alone: norms are
+// recomputed in fp32 from the stored values (arena_sq is not read), there is
+// no scale and no anchor (an int8 arena is scanned as raw code values),
+//     L2: max(|q|^2 - 2 q.x + |x|^2, 0)   IP: -q.x   cosine: 1 - q.x.
+//
+// Design. One CTA per (query, probe) pair, as the TPU grid had one step per
+// pair; no dedup. The CTA keeps its query in shared memory; each warp takes
+// one slot at a time, its lanes reading consecutive 4-element groups of the
+// slot's row (coalesced), and reduces q.x and x.x with shuffles. The
+// wrapper hands the pairs over in list order, so CTAs that run together
+// read the same list and find it in L2.
+//
+// What bounds them on the H100. Both do fp32 FMAs on the CUDA cores
+// (scans stay exact in fp32, so no bf16 or TF32 tensor cores), and the
+// least time is the operation bound: at the IVF-Flat main shape (B 1024, nprobe 32,
+// about 1000 rows a list, D 768) K3 does 2 * D FLOPs per (pair, occupied
+// slot), about 53 GFLOP, 0.79 ms at 67 TFLOP/s, while it must move about
+// 1 GB (the probed lists once, 185 MB of rows out), 0.30 ms at 3.35 TB/s.
+// K4's function needs the same dots plus, under L2, |x|^2 of each distinct
+// occupied slot once (2 * D a slot; it does not depend on the query): about
+// 54 GFLOP, 0.81 ms. K4 recomputes |x|^2 for every pair, 4 * D a (pair,
+// slot), so it does about twice the work its bound counts. K3's design
+// keeps its bytes near that floor: one staged tile serves every pair of a
+// list-row, so a list is read once per M pairs. K4 reads a list once per
+// pair and relies on neighbouring CTAs (pairs in list order) finding it in
+// L2. Neither
+// uses tensor cores or TMA yet; both run far above the operation bound
+// and what limits them is not measured (PERF.md has the times).
+
+#include "grouped_common.cuh"
+
+#include <cuda_bf16.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+using namespace vdb;
+
+template <typename T, int MPT, int SPL>
+__global__ void __launch_bounds__(kThreads)
+sorted_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
+                   const float* __restrict__ arena_sq,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ anchors,
+                   const int* __restrict__ counts,
+                   const int* __restrict__ row_list,
+                   const int* __restrict__ pair_table,
+                   float* __restrict__ out, int m, int dim, int nlist,
+                   int cap, int cap_s, int nprobe, int metric) {
+  constexpr int TS = 32 * SPL;
+  const int row = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int dp = padded_dim(dim);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [m][dp]
+  float* qsq = qs + static_cast<size_t>(m) * dp;
+  float* qa = qsq + m;
+  int* qi = reinterpret_cast<int*>(qa + m);  // pair index b * nprobe + p
+  T* tile = reinterpret_cast<T*>(smem + query_smem_bytes(m, dim));
+
+  const int* prow = pair_table + static_cast<size_t>(row) * m;
+  const int list = row_list[row];
+  if (list < 0 || list >= nlist) {  // sentinel row: pairs of probe -1
+    for (int mm = warp; mm < m; mm += kWarps) {
+      const int p = prow[mm];
+      if (p < 0) continue;
+      float* o = out + static_cast<size_t>(p) * cap_s;
+      for (int s = lane; s < cap_s; s += 32) o[s] = INFINITY;
+    }
+    return;
+  }
+
+  load_row_queries(qs, qi, tile, q, prow, m, dim, nprobe, TS);
+  row_query_norms(qs, qsq, qa,
+                  anchors != nullptr ? anchors + static_cast<size_t>(list) * dim
+                                     : nullptr,
+                  m, dim);
+  // (the first tile's __syncthreads publishes qsq / qa)
+
+  const int lim = min(counts[list], cap_s);
+  const T* lbase = arena + static_cast<size_t>(list) * cap * dim;
+  const float* sq_l = arena_sq + static_cast<size_t>(list) * cap;
+  const float* sc_l =
+      scale != nullptr ? scale + static_cast<size_t>(list) * cap : nullptr;
+  const int nq = (m - warp + kWarps - 1) / kWarps;  // queries of this warp
+  const bool vec16 = (static_cast<size_t>(dim) * sizeof(T) % 16 == 0) &&
+                     (reinterpret_cast<uintptr_t>(arena) % 16 == 0);
+
+  for (int s0 = 0; s0 < lim; s0 += TS) {
+    const int nt = min(TS, lim - s0);
+    __syncthreads();  // the previous tile is consumed
+    stage_tile(tile, lbase, s0, nt, dim, vec16);
+    __syncthreads();
+
+    float acc[MPT][SPL];
+    tile_dots<T, MPT, SPL>(acc, tile, qs, dim, nq);
+
+    float xsq[SPL];
+    float sc[SPL];
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) {
+      const int t = lane + 32 * j;
+      xsq[j] = t < nt ? sq_l[s0 + t] : 0.f;
+      sc[j] = (t < nt && sc_l != nullptr) ? sc_l[s0 + t] : 1.f;
+    }
+#pragma unroll
+    for (int i = 0; i < MPT; ++i) {
+      if (i < nq) {
+        const int mm = warp + kWarps * i;
+        const int p = qi[mm];
+        if (p >= 0) {
+          float* o = out + static_cast<size_t>(p) * cap_s + s0;
+#pragma unroll
+          for (int j = 0; j < SPL; ++j) {
+            const int t = lane + 32 * j;
+            if (t < nt) {
+              o[t] = flat_distance(metric, acc[i][j] * sc[j] + qa[mm],
+                                   qsq[mm], xsq[j]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // --- slots past the list's count: +inf -----------------------------------
+  __syncthreads();  // qi visible even when the list is empty
+  for (int mm = warp; mm < m; mm += kWarps) {
+    const int p = qi[mm];
+    if (p < 0) continue;
+    float* o = out + static_cast<size_t>(p) * cap_s;
+    for (int s = lim + lane; s < cap_s; s += 32) o[s] = INFINITY;
+  }
+}
+
+template <typename T, int MPT, int SPL>
+cudaError_t launch_sorted(const float* q, const void* arena,
+                          const float* arena_sq, const float* scale,
+                          const float* anchors, const int* counts,
+                          const int* row_list, const int* pair_table,
+                          float* out, int n_rows, int m, int dim, int nlist,
+                          int cap, int cap_s, int nprobe, int metric,
+                          int dtype, cudaStream_t stream) {
+  auto kernel = sorted_scan_kernel<T, MPT, SPL>;
+  const size_t smem = flat_row_smem_bytes(m, dim, dtype);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<n_rows, kThreads, smem, stream>>>(
+      q, static_cast<const T*>(arena), arena_sq, scale, anchors, counts,
+      row_list, pair_table, out, m, dim, nlist, cap, cap_s, nprobe, metric);
+  return cudaGetLastError();
+}
+
+template <typename T, int SPL>
+cudaError_t dispatch_sorted(int mpt, const float* q, const void* arena,
+                            const float* arena_sq, const float* scale,
+                            const float* anchors, const int* counts,
+                            const int* row_list, const int* pair_table,
+                            float* out, int n_rows, int m, int dim, int nlist,
+                            int cap, int cap_s, int nprobe, int metric,
+                            int dtype, cudaStream_t stream) {
+#define VDB_LAUNCH(MPT)                                                       \
+  return launch_sorted<T, MPT, SPL>(q, arena, arena_sq, scale, anchors,       \
+                                    counts, row_list, pair_table, out, n_rows, \
+                                    m, dim, nlist, cap, cap_s, nprobe, metric, \
+                                    dtype, stream)
+  if (mpt <= 1) VDB_LAUNCH(1);
+  if (mpt <= 2) VDB_LAUNCH(2);
+  if (mpt <= 4) VDB_LAUNCH(4);
+  VDB_LAUNCH(8);
+#undef VDB_LAUNCH
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) {
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+pair_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
+                 const int* __restrict__ counts,
+                 const int* __restrict__ probe,
+                 const int* __restrict__ order, float* __restrict__ out,
+                 int nprobe, int dim, int nlist, int cap, int cap_s,
+                 int metric) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int pair = order[blockIdx.x];
+  const int b = pair / nprobe;
+  const int list = probe[pair];
+  float* o = out + static_cast<size_t>(pair) * cap_s;
+  const int lim = (list >= 0 && list < nlist) ? min(counts[list], cap_s) : 0;
+  for (int s = lim + tid; s < cap_s; s += kThreads) o[s] = INFINITY;
+  if (lim <= 0) return;  // probe -1 or an empty list: nothing to read
+
+  extern __shared__ __align__(16) float qv[];  // [dp], zero-padded
+  const int dp = padded_dim(dim);
+  for (int d = tid; d < dp; d += kThreads) {
+    qv[d] = d < dim ? q[static_cast<size_t>(b) * dim + d] : 0.f;
+  }
+  __syncthreads();
+  float qsq = 0.f;  // every warp forms |q|^2 itself (dim / 32 FMAs a lane)
+  for (int d = lane; d < dim; d += 32) qsq = fmaf(qv[d], qv[d], qsq);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) qsq += __shfl_xor_sync(kFull, qsq, off);
+
+  const T* lbase = arena + static_cast<size_t>(list) * cap * dim;
+  const bool vec4 = (dim % 4 == 0) &&
+                    (reinterpret_cast<uintptr_t>(arena) % (4 * sizeof(T)) == 0);
+  for (int s = warp; s < lim; s += kWarps) {
+    const T* x = lbase + static_cast<size_t>(s) * dim;
+    float dot = 0.f;
+    float xsq = 0.f;
+    if (vec4) {
+      for (int d = 4 * lane; d < dim; d += 128) {
+        const float4 xv = Vec4<T>::load(x + d);
+        const float4 qq = *reinterpret_cast<const float4*>(qv + d);
+        dot = fmaf(qq.x, xv.x, dot);
+        dot = fmaf(qq.y, xv.y, dot);
+        dot = fmaf(qq.z, xv.z, dot);
+        dot = fmaf(qq.w, xv.w, dot);
+        xsq = fmaf(xv.x, xv.x, xsq);
+        xsq = fmaf(xv.y, xv.y, xsq);
+        xsq = fmaf(xv.z, xv.z, xsq);
+        xsq = fmaf(xv.w, xv.w, xsq);
+      }
+    } else {
+      for (int d = lane; d < dim; d += 32) {
+        const float xf = to_f32<T>(x[d]);
+        dot = fmaf(qv[d], xf, dot);
+        xsq = fmaf(xf, xf, xsq);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      dot += __shfl_xor_sync(kFull, dot, off);
+      xsq += __shfl_xor_sync(kFull, xsq, off);
+    }
+    if (lane == 0) o[s] = flat_distance(metric, dot, qsq, xsq);
+  }
+}
+
+template <typename T>
+cudaError_t launch_pair(const float* q, const void* arena, const int* counts,
+                        const int* probe, const int* order, float* out,
+                        int n_pairs, int nprobe, int dim, int nlist, int cap,
+                        int cap_s, int metric, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * padded_dim(dim);
+  auto kernel = pair_scan_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<n_pairs, kThreads, smem, stream>>>(
+      q, static_cast<const T*>(arena), counts, probe, order, out, nprobe, dim,
+      nlist, cap, cap_s, metric);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest list-row width M of the sorted scan at this dimension and arena
+// dtype: its M queries and one slot tile must fit one CTA (0: none fits).
+int vdb_sorted_scan_max_m(int dim, int dtype) {
+  return flat_row_max_m(dim, dtype);
+}
+
+// Launch the sorted scan (K3) on `stream`. Returns a cudaError_t (0 =
+// launched). Pointers: q [B, dim] f32; arena [nlist, cap, dim] of `dtype`
+// (0 int8, 1 bf16, 2 f32); arena_sq [nlist, cap] f32; scale [nlist, cap] f32
+// or null; anchors [nlist, dim] f32 or null; counts [nlist] i32 (local);
+// row_list [n_rows] i32 (nlist = sentinel row); pair_table [n_rows, m] i32
+// (pair index b * nprobe + p, -1 = empty); out [B * nprobe, cap_s] f32,
+// every row of a listed pair written.
+int vdb_sorted_scan(const void* q, const void* arena, const void* arena_sq,
+                    const void* scale, const void* anchors, const void* counts,
+                    const void* row_list, const void* pair_table, void* out,
+                    int n_rows, int m, int dim, int nlist, int cap, int cap_s,
+                    int nprobe, int metric, int dtype, void* stream) {
+  if (n_rows <= 0 || m <= 0 || m > flat_row_max_m(dim, dtype) || cap_s <= 0 ||
+      cap_s > cap || nlist <= 0 || nprobe <= 0 || metric < kL2 ||
+      metric > kCosine) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int mpt = (m + kWarps - 1) / kWarps;
+  const float* qf = static_cast<const float*>(q);
+  const float* sq = static_cast<const float*>(arena_sq);
+  const float* sc = static_cast<const float*>(scale);
+  const float* an = static_cast<const float*>(anchors);
+  const int* cn = static_cast<const int*>(counts);
+  const int* rl = static_cast<const int*>(row_list);
+  const int* pt = static_cast<const int*>(pair_table);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kInt8:
+      return static_cast<int>(dispatch_sorted<int8_t, 2>(
+          mpt, qf, arena, sq, sc, an, cn, rl, pt, o, n_rows, m, dim, nlist,
+          cap, cap_s, nprobe, metric, dtype, st));
+    case kBf16:
+      return static_cast<int>(dispatch_sorted<__nv_bfloat16, 2>(
+          mpt, qf, arena, sq, sc, an, cn, rl, pt, o, n_rows, m, dim, nlist,
+          cap, cap_s, nprobe, metric, dtype, st));
+    default:
+      return static_cast<int>(dispatch_sorted<float, 1>(
+          mpt, qf, arena, sq, sc, an, cn, rl, pt, o, n_rows, m, dim, nlist,
+          cap, cap_s, nprobe, metric, dtype, st));
+  }
+}
+
+// Launch the pair scan (K4) on `stream`. Returns a cudaError_t (0 =
+// launched). Pointers: q [B, dim] f32; arena [nlist, cap, dim] of `dtype`;
+// counts [nlist] i32 (local); probe [B * nprobe] i32 (-1 = no probe);
+// order [n_pairs] i32, the pair each CTA takes (a permutation of
+// 0 .. n_pairs - 1); out [n_pairs, cap_s] f32, every row written.
+int vdb_pair_scan(const void* q, const void* arena, const void* counts,
+                  const void* probe, const void* order, void* out,
+                  int n_pairs, int nprobe, int dim, int nlist, int cap,
+                  int cap_s, int metric, int dtype, void* stream) {
+  if (n_pairs <= 0 || nprobe <= 0 || dim <= 0 ||
+      sizeof(float) * padded_dim(dim) > static_cast<size_t>(kSmemLimit) ||
+      cap_s <= 0 || cap_s > cap || nlist <= 0 || metric < kL2 ||
+      metric > kCosine) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* qf = static_cast<const float*>(q);
+  const int* cn = static_cast<const int*>(counts);
+  const int* pr = static_cast<const int*>(probe);
+  const int* od = static_cast<const int*>(order);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kInt8:
+      return static_cast<int>(launch_pair<int8_t>(
+          qf, arena, cn, pr, od, o, n_pairs, nprobe, dim, nlist, cap, cap_s,
+          metric, st));
+    case kBf16:
+      return static_cast<int>(launch_pair<__nv_bfloat16>(
+          qf, arena, cn, pr, od, o, n_pairs, nprobe, dim, nlist, cap, cap_s,
+          metric, st));
+    case kF32:
+      return static_cast<int>(launch_pair<float>(
+          qf, arena, cn, pr, od, o, n_pairs, nprobe, dim, nlist, cap, cap_s,
+          metric, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

@@ -48,8 +48,9 @@
 // queries w, w+8, ...), the shared-memory loads of the dot loop, the
 // shuffle rounds of the top-k, and occupancy.
 //
-// The pieces shared with the K2 kernel (grouped_pq_scan.cu): shared-memory
-// layout, widening tile loads and warp_merge, are in grouped_common.cuh.
+// The pieces shared with the K2 and K3 kernels (grouped_pq_scan.cu,
+// full_row_scan.cu): shared-memory layout, query and tile staging, the fp32
+// tile dots and warp_merge, are in grouped_common.cuh.
 //
 // What later versions change: wgmma on int8 codes widened to bf16 (exact)
 // against a hi/lo bf16 split of the query, which keeps near-fp32 accuracy
@@ -70,19 +71,6 @@ namespace {
 
 using namespace vdb;
 
-enum Dtype { kInt8 = 0, kBf16 = 1, kF32 = 2 };
-
-__host__ inline int slots_per_lane(int dtype) { return dtype == kF32 ? 1 : 2; }
-
-__host__ inline int elem_size(int dtype) {
-  return dtype == kInt8 ? 1 : (dtype == kBf16 ? 2 : 4);
-}
-
-__host__ inline size_t smem_bytes(int m, int dim, int dtype) {
-  return query_smem_bytes(m, dim) +
-         tile_smem_bytes(dim, elem_size(dtype), 32 * slots_per_lane(dtype));
-}
-
 template <typename T, int MPT, int SPL, int KPL>
 __global__ void __launch_bounds__(kThreads)
 grouped_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
@@ -101,7 +89,6 @@ grouped_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int dp = padded_dim(dim);
-  const int tstride = dp + 4;
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [m][dp]
@@ -122,42 +109,12 @@ grouped_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
   }
 
   // --- this row's queries, straight from q [B, D] --------------------------
-  const int* qrow = qrow_table + static_cast<size_t>(row) * m;
-  for (int i = tid; i < m; i += kThreads) qi[i] = qrow[i];
-  __syncthreads();
-  for (int e = tid; e < m * dp; e += kThreads) {
-    const int mm = e / dp;
-    const int d = e - mm * dp;
-    const int b = qi[mm];
-    qs[e] = (b >= 0 && d < dim) ? q[static_cast<size_t>(b) * dim + d] : 0.f;
-  }
-  if (dp != dim) {  // zero the pad columns of the tile once
-    const int pw = dp - dim;
-    for (int e = tid; e < TS * pw; e += kThreads) {
-      tile[(e / pw) * tstride + dim + e % pw] = Vec4<T>::zero();
-    }
-  }
-  __syncthreads();
-  const float* anc =
-      anchors != nullptr ? anchors + static_cast<size_t>(list) * dim : nullptr;
-  for (int mm = warp; mm < m; mm += kWarps) {
-    float s = 0.f;
-    float a = 0.f;
-    for (int d = lane; d < dim; d += 32) {
-      const float v = qs[mm * dp + d];
-      s = fmaf(v, v, s);
-      if (anc != nullptr) a = fmaf(v, anc[d], a);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(kFull, s, off);
-      a += __shfl_xor_sync(kFull, a, off);
-    }
-    if (lane == 0) {
-      qsq[mm] = s;
-      qa[mm] = a;
-    }
-  }
+  load_row_queries(qs, qi, tile, q, qrow_table + static_cast<size_t>(row) * m,
+                   m, dim, 1, TS);
+  row_query_norms(qs, qsq, qa,
+                  anchors != nullptr ? anchors + static_cast<size_t>(list) * dim
+                                     : nullptr,
+                  m, dim);
   // (the first tile's __syncthreads publishes qsq / qa)
 
   // --- walk the occupied slot prefix in tiles of TS slots ------------------
@@ -167,10 +124,8 @@ grouped_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
   const float* sc_l =
       scale != nullptr ? scale + static_cast<size_t>(list) * cap : nullptr;
   const int nq = (m - warp + kWarps - 1) / kWarps;  // queries of this warp
-  const size_t row_bytes = static_cast<size_t>(dim) * sizeof(T);
-  const bool vec16 = (row_bytes % 16 == 0) &&
+  const bool vec16 = (static_cast<size_t>(dim) * sizeof(T) % 16 == 0) &&
                      (reinterpret_cast<uintptr_t>(arena) % 16 == 0);
-  const int tstride_bytes = tstride * static_cast<int>(sizeof(T));
 
   float bd[MPT][KPL];
   int bs[MPT][KPL];
@@ -188,57 +143,11 @@ grouped_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
   for (int s0 = 0; s0 < lim; s0 += TS) {
     const int nt = min(TS, lim - s0);
     __syncthreads();  // the previous tile is consumed
-    if (vec16) {
-      const int per_row = static_cast<int>(row_bytes / 16);
-      const uint4* src = reinterpret_cast<const uint4*>(
-          lbase + static_cast<size_t>(s0) * dim);
-      unsigned char* dst = reinterpret_cast<unsigned char*>(tile);
-      for (int c = tid; c < nt * per_row; c += kThreads) {
-        const int r = c / per_row;
-        const uint4 v = __ldg(src + c);
-        uint32_t* o = reinterpret_cast<uint32_t*>(dst + r * tstride_bytes +
-                                                  (c - r * per_row) * 16);
-        o[0] = v.x;
-        o[1] = v.y;
-        o[2] = v.z;
-        o[3] = v.w;
-      }
-    } else {
-      const T* src = lbase + static_cast<size_t>(s0) * dim;
-      for (int e = tid; e < nt * dim; e += kThreads) {
-        const int r = e / dim;
-        tile[r * tstride + (e - r * dim)] = src[e];
-      }
-    }
+    stage_tile(tile, lbase, s0, nt, dim, vec16);
     __syncthreads();
 
     float acc[MPT][SPL];
-#pragma unroll
-    for (int i = 0; i < MPT; ++i)
-#pragma unroll
-      for (int j = 0; j < SPL; ++j) acc[i][j] = 0.f;
-
-    for (int d = 0; d < dp; d += 4) {
-      float4 xv[SPL];
-#pragma unroll
-      for (int j = 0; j < SPL; ++j) {
-        xv[j] = Vec4<T>::load(tile + (lane + 32 * j) * tstride + d);
-      }
-#pragma unroll
-      for (int i = 0; i < MPT; ++i) {
-        if (i < nq) {
-          const float4 qv = *reinterpret_cast<const float4*>(
-              qs + (warp + kWarps * i) * dp + d);
-#pragma unroll
-          for (int j = 0; j < SPL; ++j) {
-            acc[i][j] = fmaf(qv.x, xv[j].x, acc[i][j]);
-            acc[i][j] = fmaf(qv.y, xv[j].y, acc[i][j]);
-            acc[i][j] = fmaf(qv.z, xv[j].z, acc[i][j]);
-            acc[i][j] = fmaf(qv.w, xv[j].w, acc[i][j]);
-          }
-        }
-      }
-    }
+    tile_dots<T, MPT, SPL>(acc, tile, qs, dim, nq);
 
     float xsq[SPL];
     float sc[SPL];
@@ -258,15 +167,8 @@ grouped_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
 #pragma unroll
         for (int j = 0; j < SPL; ++j) {
           const float qx = acc[i][j] * sc[j] + qa[mm];
-          float dist;
-          if (metric == kL2) {
-            dist = fmaxf(qsq[mm] - 2.f * qx + xsq[j], 0.f);
-          } else if (metric == kIP) {
-            dist = -qx;
-          } else {
-            dist = 1.f - qx;
-          }
-          cd[j] = valid[j] ? dist : INFINITY;
+          cd[j] = valid[j] ? flat_distance(metric, qx, qsq[mm], xsq[j])
+                           : INFINITY;
         }
         warp_merge<SPL, KPL>(bd[i], bs[i], kth[i], cd, s0 + lane, k);
       }
@@ -301,7 +203,7 @@ cudaError_t launch(const float* q, const void* arena, const float* arena_sq,
                    int cap_s, int k, int metric, int dtype,
                    cudaStream_t stream) {
   auto kernel = grouped_scan_kernel<T, MPT, SPL, KPL>;
-  const size_t smem = smem_bytes(m, dim, dtype);
+  const size_t smem = flat_row_smem_bytes(m, dim, dtype);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -360,10 +262,7 @@ extern "C" {
 // Largest list-row width M whose queries and slot tile fit the shared memory
 // of one CTA at this dimension and arena dtype (0: none fits).
 int vdb_grouped_scan_max_m(int dim, int dtype) {
-  if (dim <= 0 || dtype < kInt8 || dtype > kF32) return 0;
-  int m = 0;
-  while (m < 64 && smem_bytes(m + 1, dim, dtype) <= kSmemLimit) ++m;
-  return m;
+  return flat_row_max_m(dim, dtype);
 }
 
 // Launch the grouped scan on `stream`. Returns a cudaError_t (0 = launched).

@@ -25,6 +25,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
+    resolve_device,
+)
+
 INVALID_ID = np.uint64(0xFFFFFFFFFFFFFFFF)  # UINT64_MAX sentinel
 
 DTYPES = {
@@ -127,9 +131,12 @@ class PackedListArena:
     @classmethod
     def create(
         cls, nlist: int, dim: int, dtype=torch.bfloat16, capacity: int = 128,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = "cuda",
     ) -> "PackedListArena":
+        """An empty arena on ``device`` (the card unless another is
+        named)."""
         dtype = torch_dtype(dtype)
+        device = resolve_device(device)
         capacity = _round_up(max(capacity, cls.SLOT_ALIGN), cls.SLOT_ALIGN)
         scale = (
             torch.zeros((nlist, capacity), dtype=torch.float32, device=device)
@@ -284,11 +291,13 @@ class PackedListArena:
     def from_host(
         cls, arena: np.ndarray, counts: np.ndarray, ids: np.ndarray, dtype,
         anchors: np.ndarray | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = "cuda",
     ) -> "PackedListArena":
-        """Rebuild from a ``to_host`` view (int8 requantizes on the host with
-        the same per-row math as the append path)."""
+        """Rebuild from a ``to_host`` view on ``device`` (the card unless
+        another is named); int8 requantizes on the host with the same
+        per-row math as the append path."""
         dtype = torch_dtype(dtype)
+        device = resolve_device(device)
         nlist, capacity, dim = arena.shape
         arena_f = arena.astype(np.float32)
         arena_scale = None

@@ -26,6 +26,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_pq import (
     IVFPQConfig,
     IVFPQIndex,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
+    resolve_device,
+)
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -50,12 +53,13 @@ def ivf_flat_from_arrays(
     counts: np.ndarray,
     ids: np.ndarray,
     counts_max: int | None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = "cuda",
 ) -> IVFFlatIndex:
-    """An ``IVFFlatIndex`` on ``device`` holding exactly this state.
-    ``arena`` must already be in ``config.dtype`` (int8 codes, bf16 or
-    fp32 rows)."""
+    """An ``IVFFlatIndex`` on ``device`` (the card unless another is named)
+    holding exactly this state. ``arena`` must already be in
+    ``config.dtype`` (int8 codes, bf16 or fp32 rows)."""
     dtype = torch_dtype(config.dtype)
+    device = resolve_device(device)
     arena_t = _tensor(arena, device)
     if arena_t.dtype != dtype:
         raise ValueError(
@@ -106,12 +110,13 @@ def ivf_pq_from_arrays(
     raw_scale: np.ndarray | None,
     raw_anchors: np.ndarray | None,
     opq_R: np.ndarray | None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = "cuda",
 ) -> IVFPQIndex:
-    """An ``IVFPQIndex`` on ``device`` holding exactly this state: codes
-    ``codes_t [nlist, m, cap]`` uint8 (the transposed storage), and, when
-    ``config.keep_raw``, the raw arena in ``config.raw_dtype`` with the same
-    capacity."""
+    """An ``IVFPQIndex`` on ``device`` (the card unless another is named)
+    holding exactly this state: codes ``codes_t [nlist, m, cap]`` uint8
+    (the transposed storage), and, when ``config.keep_raw``, the raw arena
+    in ``config.raw_dtype`` with the same capacity."""
+    device = resolve_device(device)
     codes = _tensor(np.asarray(codes_t, np.uint8), device)
     nlist, m, capacity = codes.shape
     if (nlist, m) != (config.nlist, config.m):

@@ -3,8 +3,14 @@
 
 k-means coarse quantizer + packed inverted-list arena. A search batch runs
 on the index's device as: coarse ``[B, nlist]`` fp32 distance matmul +
-top-nprobe, then the probed-list scan (the hand-written grouped kernel on
-CUDA, the gather scan on the CPU), then the host maps positions to user ids.
+top-nprobe, then the probed-list scan, then the host maps positions to user
+ids. The scan is chosen by ``IVFFlatConfig.scan_impl`` and routed by
+``ops/flat_scan.py``: the grouped kernel K1 (``"auto"`` on CUDA), the
+sorted full-row kernel K3 (``"pallas_sorted"``, and every search deeper
+than K1's ``KMAX``), the pair kernel K4 (``"pallas"`` on a bf16 / fp32
+arena; an int8 arena goes to K3 as in the JAX package), or the gather scan
+(``"auto"`` on the CPU). On the CPU each kernel name takes its kernel's
+plain PyTorch version.
 
 Not ported yet (a later slice): ``remove_ids``, the exact rerank over a
 stored residual plane (``store_residuals`` / ``use_exact_rerank``),
@@ -32,8 +38,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
     Metric,
     pairwise_distance,
 )
-from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_scan import (
-    scan_probed_lists_grouped,
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.flat_scan import (
+    check_scan_name,
+    scan_flat,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.kmeans import (
     kmeans_assign,
@@ -44,22 +51,14 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.kmeans import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.normalize import (
     l2_normalize,
 )
-from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.scan import (
-    scan_probed_lists,
-)
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
     topk_smallest,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
+    resolve_device,
+)
 
 FLT_MAX = np.float32(np.finfo(np.float32).max)
-
-# scan_impl names this package runs; "pallas_grouped" is the JAX package's
-# name for the same list-centric scan.
-_SCAN_IMPLS = {
-    "auto": "auto", "gather": "gather", "grouped": "grouped",
-    "pallas_grouped": "grouped",
-}
-
 
 @dataclasses.dataclass
 class IVFFlatConfig:
@@ -78,7 +77,9 @@ class IVFFlatConfig:
     max_capacity_factor: float = 8.0 # bulk-build capacity clamp (× mean)
     scan_impl: str = "auto"          # "auto": the grouped kernel on CUDA,
                                      # the gather scan on the CPU; or
-                                     # "grouped" (alias "pallas_grouped") |
+                                     # "grouped" (alias "pallas_grouped",
+                                     # K1) | "pallas_sorted" (alias
+                                     # "sorted", K3) | "pallas" (K4) |
                                      # "gather"
     m_budget: int | None = None      # grouped scan: queries per list-row
                                      # (None = auto from batch and nlist)
@@ -95,11 +96,7 @@ class IVFFlatConfig:
         if isinstance(self.metric, str):
             self.metric = Metric.parse(self.metric)
         torch_dtype(self.dtype)
-        if self.scan_impl not in _SCAN_IMPLS:
-            raise ValueError(
-                f"scan_impl {self.scan_impl!r} is not available in this "
-                f"package; expected one of {sorted(_SCAN_IMPLS)}"
-            )
+        check_scan_name(self.scan_impl)
         if self.stage_bf16 or self.store_residuals:
             raise NotImplementedError(
                 "stage_bf16 and store_residuals are not ported"
@@ -234,10 +231,14 @@ def _ivf_search_device(
     scan_capacity=None,
 ):
     """The device half of a search: ``(dists [B, k], pos [B, k],
-    probe_ids [B, nprobe])``. The probe set rides along so the host's
-    hotness accounting counts lists that were probed. Each stage runs in a
-    named ``torch.profiler`` range (``ivf_flat.coarse_probe``,
-    ``grouped_scan.*``) so a trace attributes device time to it."""
+    probe_ids [B, nprobe])``. ``scan_impl`` is any ``IVFFlatConfig``
+    name, routed by ``ops/flat_scan.scan_flat`` (K1, K3, K4 or the gather
+    scan; K3 where K1 would be asked for more than ``KMAX``). The probe
+    set rides along so the host's hotness accounting counts lists that
+    were probed.
+    Each stage runs in a named ``torch.profiler`` range
+    (``ivf_flat.coarse_probe``, ``grouped_scan.*``, ``sorted_scan.*``,
+    ``pair_scan.*``) so a trace attributes device time to it."""
     with record_function("ivf_flat.coarse_probe"):
         q = queries.float()
         if metric == Metric.COSINE:
@@ -245,31 +246,26 @@ def _ivf_search_device(
         coarse = pairwise_distance(q, centroids, metric)      # [B, nlist]
         _, probe_ids = topk_smallest(coarse, nprobe)
         probe_ids = probe_ids.int()
-    if scan_impl == "grouped":
-        d, pos = scan_probed_lists_grouped(
-            q, arena, arena_sq, counts, probe_ids, k, metric,
-            m_budget=m_budget, arena_scale=arena_scale,
-            arena_anchors=arena_anchors, scan_capacity=scan_capacity,
-        )
-    else:
-        d, pos = scan_probed_lists(
-            q, arena, arena_sq, counts, probe_ids, k, metric,
-            arena_scale=arena_scale, arena_anchors=arena_anchors,
-        )
+    d, pos = scan_flat(
+        scan_impl, q, arena, arena_sq, counts, probe_ids, k, metric,
+        arena_scale=arena_scale, arena_anchors=arena_anchors,
+        m_budget=m_budget, scan_capacity=scan_capacity,
+    )
     return d[:, :k], pos[:, :k], probe_ids
 
 
 class IVFFlatIndex:
-    """IVF-Flat ANN index on one explicit device (``"cpu"``, ``"cuda"``,
-    ``"cuda:1"``, ...). Searches snapshot the arena handle; mutations write
-    only slots past the snapshot's counts or allocate anew (see
-    ``models/arena.py``), so a running search stays consistent."""
+    """IVF-Flat ANN index on one device: ``"cuda"`` unless the caller names
+    another (``"cpu"``, ``"cuda:1"``, ...). Searches snapshot the arena
+    handle; mutations write only slots past the snapshot's counts or
+    allocate anew (see ``models/arena.py``), so a running search stays
+    consistent."""
 
     def __init__(self, config: IVFFlatConfig,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = "cuda"):
         self.config = config
         self.metric = config.metric
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.arena = PackedListArena.create(
             config.nlist, config.dimension, dtype=torch_dtype(config.dtype),
             device=self.device,
@@ -535,15 +531,12 @@ class IVFFlatIndex:
         k = params.k
         k_dev = 2 * k if self.config.multi_assign_eps > 0 else k
         arena = self.arena   # snapshot: one consistent (arena, counts, ids)
-        scan_impl = _SCAN_IMPLS[self.config.scan_impl]
-        if scan_impl == "auto":
-            scan_impl = "grouped" if arena.arena.is_cuda else "gather"
         with record_function("ivf_flat.upload"):
             q_dev = self._to_device(queries)
         d_dev, pos_dev, probes_dev = _ivf_search_device(
             q_dev, self.centroids, arena.arena,
             arena.arena_sq, arena.counts, nprobe, k_dev, self.metric,
-            scan_impl, arena.arena_scale, arena.anchors,
+            self.config.scan_impl, arena.arena_scale, arena.anchors,
             self.config.m_budget, arena.scan_capacity_hint(),
         )
 
@@ -655,7 +648,7 @@ class IVFFlatIndex:
         arena: np.ndarray,
         counts: np.ndarray,
         ids: np.ndarray,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = "cuda",
     ) -> "IVFFlatIndex":
         idx = cls(config, device=device)
         idx.centroids = torch.from_numpy(

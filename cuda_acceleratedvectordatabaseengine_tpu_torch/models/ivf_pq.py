@@ -71,6 +71,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.pq import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
     topk_smallest,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
+    resolve_device,
+)
 
 # scan_impl names this package runs; "xla" and "pallas" are the JAX
 # package's names for the gather ADC and the grouped kernel.
@@ -262,13 +265,14 @@ def _ivf_pq_search_device(
 
 class IVFPQIndex:
     """IVF index with 8-bit product-quantized residual codes on one
-    explicit device (``"cpu"``, ``"cuda"``, ``"cuda:1"``, ...)."""
+    device: ``"cuda"`` unless the caller names another (``"cpu"``,
+    ``"cuda:1"``, ...)."""
 
     def __init__(self, config: IVFPQConfig,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = "cuda"):
         self.config = config
         self.metric = config.metric
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.centroids: torch.Tensor | None = None   # [nlist, D] fp32
         self.codebooks: torch.Tensor | None = None   # [m, ks, dsub] fp32
         self.opq_R: torch.Tensor | None = None       # [D, D] or None

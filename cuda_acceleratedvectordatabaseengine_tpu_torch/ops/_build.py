@@ -118,4 +118,10 @@ def load_library() -> ctypes.CDLL:
     lib.vdb_grouped_pq_scan.restype = i
     lib.vdb_grouped_pq_scan_max_m.argtypes = [i]
     lib.vdb_grouped_pq_scan_max_m.restype = i
+    lib.vdb_sorted_scan.argtypes = [p] * 9 + [i] * 9 + [p]
+    lib.vdb_sorted_scan.restype = i
+    lib.vdb_sorted_scan_max_m.argtypes = [i, i]
+    lib.vdb_sorted_scan_max_m.restype = i
+    lib.vdb_pair_scan.argtypes = [p] * 6 + [i] * 8 + [p]
+    lib.vdb_pair_scan.restype = i
     return lib

@@ -220,6 +220,55 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"grouped-scan kernel: {msg}")
 
 
+def check_list_row_args(check, q, arena, arena_sq, counts, row_list, table,
+                        cap_s, metric, m_max, arena_scale=None,
+                        arena_anchors=None) -> None:
+    """The checks a list-row kernel over a flat arena (K1, K3) makes
+    before launch: device, dtype, shape and contiguity of every input, the
+    scanned prefix, the metric and the list-row width against ``m_max``
+    (its shared-memory bound). ``check(cond, msg)`` raises."""
+    dev = arena.device
+    check(dev.type == "cuda", f"arena is on {dev}, not a CUDA device")
+    tensors = {
+        "q": q, "arena": arena, "arena_sq": arena_sq, "counts": counts,
+        "row_list": row_list, "table": table,
+        "arena_scale": arena_scale, "arena_anchors": arena_anchors,
+    }
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        check(t.device == dev, f"{name} is on {t.device}, arena on {dev}")
+        check(t.is_contiguous(), f"{name} is not contiguous")
+    check(arena.dim() == 3 and arena.dtype in _DTYPE_IDS,
+          f"arena must be [nlist, cap, D] int8/bf16/f32, got "
+          f"{tuple(arena.shape)} {arena.dtype}")
+    nlist, cap, dim = arena.shape
+    n_rows, m = table.shape
+    check(q.dtype == torch.float32 and q.dim() == 2 and q.shape[1] == dim,
+          f"q must be [B, {dim}] float32")
+    check(arena_sq.dtype == torch.float32
+          and tuple(arena_sq.shape) == (nlist, cap),
+          "arena_sq must be [nlist, cap] float32")
+    check(counts.dtype == torch.int32 and tuple(counts.shape) == (nlist,),
+          "counts must be [nlist] int32")
+    check(row_list.dtype == torch.int32 and table.dtype == torch.int32
+          and tuple(row_list.shape) == (n_rows,),
+          "row_list [n_rows] and the row table [n_rows, m] must be int32")
+    if arena_scale is not None:
+        check(arena_scale.dtype == torch.float32
+              and tuple(arena_scale.shape) == (nlist, cap),
+              "arena_scale must be [nlist, cap] float32")
+    if arena_anchors is not None:
+        check(arena_anchors.dtype == torch.float32
+              and tuple(arena_anchors.shape) == (nlist, dim),
+              "arena_anchors must be [nlist, D] float32")
+    check(1 <= cap_s <= cap, f"cap_s={cap_s} outside 1..{cap}")
+    check(metric in _METRIC_IDS, f"unknown metric {metric}")
+    check(1 <= m <= m_max,
+          f"list-row width m={m} outside 1..{m_max}, the shared-memory "
+          f"bound at D={dim}, {arena.dtype}")
+
+
 def _grouped_rows_cuda(q, arena, arena_sq, counts, row_list, qrow_table, k,
                        metric, cap_s, arena_scale=None, arena_anchors=None):
     """Launch the hand-written kernel (same contract as
@@ -231,48 +280,15 @@ def _grouped_rows_cuda(q, arena, arena_sq, counts, row_list, qrow_table, k,
         load_library,
     )
 
+    _check(arena.dim() == 3, "arena must be [nlist, cap, D]")
+    check_list_row_args(_check, q, arena, arena_sq, counts, row_list,
+                        qrow_table, cap_s, metric,
+                        kernel_max_m(arena.shape[2], arena.dtype),
+                        arena_scale, arena_anchors)
+    _check(1 <= k <= KMAX, f"k={k} outside 1..{KMAX}")
     dev = arena.device
-    _check(dev.type == "cuda", f"arena is on {dev}, not a CUDA device")
-    tensors = {
-        "q": q, "arena": arena, "arena_sq": arena_sq, "counts": counts,
-        "row_list": row_list, "qrow_table": qrow_table,
-        "arena_scale": arena_scale, "arena_anchors": arena_anchors,
-    }
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        _check(t.device == dev, f"{name} is on {t.device}, arena on {dev}")
-        _check(t.is_contiguous(), f"{name} is not contiguous")
-    _check(arena.dim() == 3 and arena.dtype in _DTYPE_IDS,
-           f"arena must be [nlist, cap, D] int8/bf16/f32, got "
-           f"{tuple(arena.shape)} {arena.dtype}")
     nlist, cap, dim = arena.shape
     n_rows, m = qrow_table.shape
-    _check(q.dtype == torch.float32 and q.dim() == 2 and q.shape[1] == dim,
-           f"q must be [B, {dim}] float32")
-    _check(arena_sq.dtype == torch.float32
-           and tuple(arena_sq.shape) == (nlist, cap),
-           "arena_sq must be [nlist, cap] float32")
-    _check(counts.dtype == torch.int32 and tuple(counts.shape) == (nlist,),
-           "counts must be [nlist] int32")
-    _check(row_list.dtype == torch.int32 and qrow_table.dtype == torch.int32
-           and tuple(row_list.shape) == (n_rows,),
-           "row_list [n_rows] and qrow_table [n_rows, m] must be int32")
-    if arena_scale is not None:
-        _check(arena_scale.dtype == torch.float32
-               and tuple(arena_scale.shape) == (nlist, cap),
-               "arena_scale must be [nlist, cap] float32")
-    if arena_anchors is not None:
-        _check(arena_anchors.dtype == torch.float32
-               and tuple(arena_anchors.shape) == (nlist, dim),
-               "arena_anchors must be [nlist, D] float32")
-    _check(1 <= k <= KMAX, f"k={k} outside 1..{KMAX}")
-    _check(1 <= cap_s <= cap, f"cap_s={cap_s} outside 1..{cap}")
-    _check(metric in _METRIC_IDS, f"unknown metric {metric}")
-    m_max = kernel_max_m(dim, arena.dtype)
-    _check(1 <= m <= m_max,
-           f"list-row width m={m} outside 1..{m_max}, the shared-memory "
-           f"bound at D={dim}, {arena.dtype}")
 
     out_d = torch.empty((n_rows, m, k), dtype=torch.float32, device=dev)
     out_s = torch.empty((n_rows, m, k), dtype=torch.int32, device=dev)

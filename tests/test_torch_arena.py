@@ -24,7 +24,7 @@ JAX_DTYPES = {"int8": jnp.int8, "bfloat16": jnp.bfloat16,
 
 def _pair(dtype, anchors=None):
     j = JArena.create(NLIST, DIM, dtype=JAX_DTYPES[dtype])
-    t = PackedListArena.create(NLIST, DIM, dtype=dtype)
+    t = PackedListArena.create(NLIST, DIM, dtype=dtype, device="cpu")
     if anchors is not None:
         import dataclasses
 
@@ -118,7 +118,8 @@ def test_grow_positions_and_host_roundtrip(rng):
 
     host = g.to_host()
     back = PackedListArena.from_host(host["arena"], host["counts"],
-                                     host["ids"], "int8", anchors=anchors)
+                                     host["ids"], "int8", anchors=anchors,
+                                     device="cpu")
     _codes_agree(back.arena.numpy(), g.arena.numpy())
     np.testing.assert_allclose(back.arena_sq.numpy(), g.arena_sq.numpy(),
                                rtol=1e-5, atol=1e-5)
@@ -140,7 +141,7 @@ def test_float_host_roundtrip(rng, dtype):
                  rng.integers(0, NLIST, 100))
     host = t.to_host()
     back = PackedListArena.from_host(host["arena"], host["counts"],
-                                     host["ids"], dtype)
+                                     host["ids"], dtype, device="cpu")
     assert back.dtype == t.dtype
     np.testing.assert_array_equal(back.arena.float().numpy(),
                                   t.arena.float().numpy())

@@ -23,29 +23,41 @@ def test_port_imports_and_searches_without_jax():
         torch.set_num_threads(1)
         import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
         from cuda_acceleratedvectordatabaseengine_tpu_torch import testing
+        from cuda_acceleratedvectordatabaseengine_tpu_torch import io_host
         from cuda_acceleratedvectordatabaseengine_tpu_torch.models import (
             calibrate, convert, ivf_pq)
         from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
-            _build, grouped_pq_scan, grouped_scan, kmeans, pq, scan)
+            _build, flat_scan, grouped_pq_scan, grouped_scan, kmeans,
+            pair_scan, pq, scan, sorted_scan)
         from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
             batching)
         x = np.random.default_rng(0).standard_normal((512, 16), np.float32)
         idx = vdb.IVFFlatIndex(vdb.IVFFlatConfig(dimension=16, nlist=8,
                                                  dtype="int8",
-                                                 train_iters=3))
+                                                 train_iters=3), device="cpu")
         idx.train(x)
         idx.add(x)
         d, ids = idx.search(x[:4], vdb.SearchParams(nprobe=8, k=3))
         assert (ids[:, 0] == np.arange(4)).all(), ids
+        for impl in ("pallas_sorted", "pallas"):
+            idx.config.scan_impl = impl
+            d, ids = idx.search(x[:4], vdb.SearchParams(nprobe=8, k=100))
+            assert (ids[:, 0] == np.arange(4)).all(), ids
+        tier = io_host.StreamingIVFFlatIndex(idx, cache_slots=4,
+                                             scan_impl="pallas_sorted",
+                                             device="cpu")
+        d, ids = tier.search(x[:4], vdb.SearchParams(nprobe=8, k=3))
+        assert (ids[:, 0] == np.arange(4)).all(), ids
         pq_idx = vdb.IVFPQIndex(vdb.IVFPQConfig(dimension=16, nlist=8, m=4,
                                                 train_iters=3, opq=True,
-                                                opq_iters=1))
+                                                opq_iters=1), device="cpu")
         pq_idx.train(x)
         pq_idx.add(x)
         d, ids = pq_idx.search(x[:4], vdb.SearchParams(
             nprobe=8, k=3, use_exact_rerank=True))
         assert (ids[:, 0] == np.arange(4)).all(), ids
-        assert grouped_scan.LAUNCHES == 0 and grouped_pq_scan.LAUNCHES == 0
+        assert (grouped_scan.LAUNCHES == grouped_pq_scan.LAUNCHES
+                == sorted_scan.LAUNCHES == pair_scan.LAUNCHES == 0)
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m.startswith("cuda_acceleratedvectordatabaseengine_tpu.")
                or m == "cuda_acceleratedvectordatabaseengine_tpu"]
@@ -73,9 +85,36 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     assert not any((tmp_path / "kernels").rglob("*.so"))
 
 
+def test_default_device_is_the_card():
+    """An index built without a device runs on "cuda"; where there is no
+    CUDA the call raises instead of running on the host."""
+    import torch
+
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
+        PackedListArena,
+    )
+
+    makers = [
+        lambda: vdb.IVFFlatIndex(vdb.IVFFlatConfig(dimension=8, nlist=4)),
+        lambda: vdb.IVFPQIndex(vdb.IVFPQConfig(dimension=8, nlist=4, m=2)),
+        lambda: PackedListArena.create(4, 8),
+        lambda: vdb.HbmListCache(2, 128, 8),
+    ]
+    for make in makers:
+        if torch.cuda.is_available():
+            obj = make()
+            dev = getattr(obj, "device", None) or obj.arena.device
+            assert torch.device(dev).type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+
+
 def test_kernel_sources_are_hashed(tmp_path, monkeypatch):
     srcs = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert "grouped_scan.cu" in srcs and "grouped_pq_scan.cu" in srcs
+    assert srcs == ["full_row_scan.cu", "grouped_pq_scan.cu",
+                    "grouped_scan.cu"]
     assert (_build.CSRC / "grouped_common.cuh").is_file()
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()

@@ -55,7 +55,7 @@ def _carry(jidx, cfg):
         cfg, centroids=np.asarray(jidx.centroids), arena=np.asarray(a.arena),
         arena_sq=np.asarray(a.arena_sq), arena_scale=opt(a.arena_scale),
         anchors=opt(a.anchors), counts=np.asarray(a.counts), ids=a.ids,
-        counts_max=a.counts_max,
+        counts_max=a.counts_max, device="cpu",
     )
 
 
@@ -109,7 +109,8 @@ def test_port_recall_full_probe_is_exact(rng, oracle, metric):
     """(b) the port's own train + add + search: exact at full probe."""
     x = rng.standard_normal((4000, DIM)).astype(np.float32)
     idx = IVFFlatIndex(IVFFlatConfig(dimension=DIM, nlist=NLIST,
-                                     metric=metric, dtype="float32"))
+                                     metric=metric, dtype="float32"),
+                       device="cpu")
     idx.train(x)
     idx.add(x)
     q = rng.standard_normal((5, DIM)).astype(np.float32)
@@ -128,7 +129,8 @@ def test_port_bfloat16_and_int8_recall(rng, oracle, scan_impl):
     _, ref = oracle(q, x, 10)
     for dtype in ("bfloat16", "int8"):
         idx = IVFFlatIndex(IVFFlatConfig(dimension=DIM, nlist=NLIST,
-                                         dtype=dtype, scan_impl=scan_impl))
+                                         dtype=dtype, scan_impl=scan_impl),
+                           device="cpu")
         idx.train(x)
         idx.add(x)
         _, ids = idx.search(q, SearchParams(nprobe=NLIST, k=10))
@@ -143,7 +145,7 @@ def test_build_from_device_matches_jax(rng):
     jidx = JIndex(JConfig(**kw))
     jidx.train(x)
     jidx.build_from_device(jnp.asarray(x))
-    tidx = IVFFlatIndex(IVFFlatConfig(**kw))
+    tidx = IVFFlatIndex(IVFFlatConfig(**kw), device="cpu")
     tidx.centroids = torch.from_numpy(np.array(jidx.centroids))
     tidx.trained = True
     tidx._publish_anchors()
@@ -165,7 +167,8 @@ def test_append_balanced_keeps_capacity_clamp(rng):
     x[:1200] = x[0] + 0.01 * rng.standard_normal((1200, DIM)).astype(
         np.float32)                                  # one overfull mode
     idx = IVFFlatIndex(IVFFlatConfig(dimension=DIM, nlist=NLIST,
-                                     dtype="int8", train_iters=10))
+                                     dtype="int8", train_iters=10),
+                       device="cpu")
     idx.train(x)
     cap = 256
     idx.append_balanced(torch.from_numpy(x[:1500]), capacity=cap)
@@ -184,7 +187,7 @@ def test_calibrate_nprobe_meets_target(oracle):
     rng = np.random.default_rng(21)
     x = rng.standard_normal((8000, DIM)).astype(np.float32)
     idx = IVFFlatIndex(IVFFlatConfig(dimension=DIM, nlist=32,
-                                     dtype="float32"))
+                                     dtype="float32"), device="cpu")
     idx.train(x)
     idx.add(x)
     q = rng.standard_normal((64, DIM)).astype(np.float32)
@@ -205,7 +208,8 @@ def test_calibrate_nprobe_meets_target(oracle):
 def test_custom_ids_query_shapes_and_errors(rng):
     """(c) uint64 ids round-trip, a 1-D query works, misuse raises."""
     x = rng.standard_normal((600, DIM)).astype(np.float32)
-    idx = IVFFlatIndex(IVFFlatConfig(dimension=DIM, nlist=8, dtype="int8"))
+    idx = IVFFlatIndex(IVFFlatConfig(dimension=DIM, nlist=8, dtype="int8"),
+                       device="cpu")
     with pytest.raises(RuntimeError):
         idx.search(x[:2])
     with pytest.raises(RuntimeError):
@@ -223,14 +227,14 @@ def test_custom_ids_query_shapes_and_errors(rng):
     with pytest.raises(ValueError):
         idx.search(np.zeros((2, DIM + 1), np.float32))
     # fewer stored rows than k: sentinels pad the tail
-    small = IVFFlatIndex(IVFFlatConfig(dimension=DIM, nlist=8))
+    small = IVFFlatIndex(IVFFlatConfig(dimension=DIM, nlist=8), device="cpu")
     small.train(x)
     small.add(x[:5])
     d, ids = small.search(x[:1], SearchParams(nprobe=8, k=10))
     assert (ids[0, 5:] == INVALID_ID).all()
     assert (d[0, 5:] == np.finfo(np.float32).max).all()
-    with pytest.raises(ValueError):
-        IVFFlatConfig(scan_impl="pallas_sorted")
+    with pytest.raises(ValueError):     # not a Pallas kernel: not ported
+        IVFFlatConfig(scan_impl="ragged")
     with pytest.raises(NotImplementedError):
         IVFFlatConfig(store_residuals=True)
 
@@ -239,7 +243,7 @@ def test_multi_assign_state_hotness_and_stats(rng):
     x = _clustered(rng, 2000)
     idx = IVFFlatIndex(IVFFlatConfig(dimension=DIM, nlist=NLIST,
                                      dtype="float32", multi_assign_eps=0.5,
-                                     train_iters=10))
+                                     train_iters=10), device="cpu")
     idx.train(x)
     idx.append_balanced(torch.from_numpy(x), capacity=512)
     assert idx.ntotal > 2000                     # some rows got a replica
@@ -255,9 +259,98 @@ def test_multi_assign_state_hotness_and_stats(rng):
     idx.warmup_lists(list_ids=[1], batch_sizes=(1, 2))
     st = idx.state_arrays()
     back = IVFFlatIndex.from_state(idx.config, st["centroids"], st["arena"],
-                                   st["counts"], st["ids"])
+                                   st["counts"], st["ids"], device="cpu")
     a = idx.search(x[:8], SearchParams(nprobe=4, k=5))
     b = back.search_batch(x[:8], SearchParams(nprobe=4, k=5))
     np.testing.assert_array_equal(a[1], b[1])
     ms = idx.memory_stats()
     assert ms["total_vectors"] == idx.ntotal and ms["arena_bytes"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("scan_impl", ["pallas_sorted", "pallas"])
+def test_kernel_scan_names_match_jax(rng, monkeypatch, dtype, scan_impl):
+    """The JAX package's names for K3 ("pallas_sorted") and K4 ("pallas";
+    K3 on an int8 arena, whose rows carry scales) reach the port's scans,
+    here their plain versions, and search a carried index as the JAX
+    kernels do in interpret mode."""
+    for name in ("scan_probed_lists_pallas_sorted",
+                 "scan_probed_lists_pallas"):
+        monkeypatch.setattr(pallas_scan, name, functools.partial(
+            getattr(pallas_scan, name), interpret=True))
+    x = _clustered(rng, 1500)
+    kw = dict(dimension=DIM, nlist=NLIST, dtype=dtype, train_iters=8)
+    jidx = JIndex(JConfig(scan_impl=scan_impl, **kw))
+    jidx.train(x)
+    jidx.append_balanced(jnp.asarray(x), capacity=256)
+    tidx = _carry(jidx, IVFFlatConfig(scan_impl=scan_impl, **kw))
+    q = x[:12] + 0.3 * rng.standard_normal((12, DIM)).astype(np.float32)
+    p = dict(nprobe=4, k=10)
+    got = tidx.search(q, SearchParams(**p))
+    assert_topk_match(*got, *jidx.search(q, JParams(**p)), rtol=1e-5,
+                      atol=1e-5 * (q * q).sum(1))
+
+
+def test_deep_k_sorted_matches_jax_gather(rng):
+    """The device half at k 100 through the sorted scan (the route of deep
+    k on the card) against the JAX package's gather search at k 100."""
+    from cuda_acceleratedvectordatabaseengine_tpu.models.ivf_flat import (
+        _ivf_search_device as j_device,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat \
+        import _ivf_search_device as t_device
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+        Metric,
+    )
+
+    x = _clustered(rng, 2000)
+    kw = dict(dimension=DIM, nlist=NLIST, dtype="int8", train_iters=8)
+    jidx = JIndex(JConfig(**kw))
+    jidx.train(x)
+    jidx.append_balanced(jnp.asarray(x), capacity=384)
+    a = jidx.arena
+    q = x[:6] + 0.2
+    jd, jp, _ = j_device(jnp.asarray(q), jidx.centroids, a.arena,
+                         a.arena_sq, a.counts, 4, 100, jidx.metric,
+                         scan_impl="gather", arena_scale=a.arena_scale,
+                         arena_anchors=a.anchors)
+    tidx = _carry(jidx, IVFFlatConfig(**kw))
+    t = tidx.arena
+    td, tp, _ = t_device(
+        torch.from_numpy(q), tidx.centroids, t.arena, t.arena_sq, t.counts,
+        4, 100, Metric.L2, "sorted", t.arena_scale, t.anchors,
+        scan_capacity=t.scan_capacity_hint())
+    assert td.shape == (6, 100)
+    assert_topk_match(td.numpy(), tp.numpy(), np.asarray(jd),
+                      np.asarray(jp), rtol=1e-5, atol=1e-5 * (q * q).sum(1))
+
+
+def test_deep_k_search_takes_the_sorted_scan(rng, monkeypatch):
+    """A grouped-scan index sends every search deeper than K1's KMAX to the
+    sorted scan: k 100, and k 40 on a multi-assignment index (whose device
+    shortlist is 2k). Shallower searches stay on the grouped scan."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import flat_scan
+
+    calls = []
+    for name in ("scan_probed_lists_sorted", "scan_probed_lists_grouped"):
+        real = getattr(flat_scan, name)
+        monkeypatch.setattr(flat_scan, name, functools.partial(
+            lambda real, name, *a, **kw: calls.append((name, a[5]))
+            or real(*a, **kw), real, name))
+    x = _clustered(rng, 2000)
+    for eps, k, k_dev in ((0.0, 100, 100), (0.5, 40, 80), (0.0, 10, 10)):
+        idx = IVFFlatIndex(IVFFlatConfig(
+            dimension=DIM, nlist=NLIST, dtype="int8", train_iters=8,
+            scan_impl="grouped", multi_assign_eps=eps), device="cpu")
+        idx.train(x)
+        idx.append_balanced(torch.from_numpy(x), capacity=512)
+        calls.clear()
+        got = idx.search(x[:5], SearchParams(nprobe=4, k=k))
+        scan = "scan_probed_lists_sorted" if k_dev > 64 else \
+            "scan_probed_lists_grouped"
+        assert calls == [(scan, k_dev)]
+        idx.config.scan_impl = "gather"
+        ref = idx.search(x[:5], SearchParams(nprobe=4, k=k))
+        assert_topk_match(*got, *ref, rtol=1e-5,
+                          atol=1e-5 * (x[:5] ** 2).sum(1))
+        assert (got[1][:, 0] == np.arange(5)).all()

@@ -101,7 +101,7 @@ def _carry(jidx, cfg):
         code_sq=np.asarray(jidx.code_sq), counts=np.asarray(jidx.counts),
         ids=jidx.ids, raw_arena=opt(raw.arena), raw_sq=opt(raw.arena_sq),
         raw_scale=opt(raw.arena_scale), raw_anchors=opt(raw.anchors),
-        opq_R=opt(jidx.opq_R),
+        opq_R=opt(jidx.opq_R), device="cpu",
     )
 
 
@@ -139,7 +139,8 @@ def test_port_end_to_end_recall_near_jax(oracle):
     x, _ = _data()
     q = _recall_queries()
     _, truth = oracle(q, x, 10)
-    idx = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", False, "bfloat16", m=8)))
+    idx = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", False, "bfloat16", m=8)),
+                     device="cpu")
     idx.train(x)
     idx.add(x)
     rep = idx.calibrate_nprobe(queries=q, target_coverage=0.95, k=10)
@@ -160,7 +161,7 @@ def test_port_end_to_end_recall_near_jax(oracle):
 def test_code_and_raw_capacity_stay_equal_across_growth(rng, keep_raw):
     x = rng.standard_normal((1000, DIM)).astype(np.float32)
     idx = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", False, "bfloat16",
-                                           keep_raw=keep_raw)))
+                                           keep_raw=keep_raw)), device="cpu")
     idx.train(x)
     idx.add(x)
     cap0 = idx.capacity
@@ -185,7 +186,8 @@ def test_search_snapshot_unaffected_by_later_add(rng):
     """A dispatched search finalizes against its own snapshot (ids table,
     capacity), even when a later add grows the arenas."""
     x, q = _data()
-    idx = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", False, "bfloat16")))
+    idx = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", False, "bfloat16")),
+                     device="cpu")
     idx.train(x)
     idx.add(x[:2000])
     params = SearchParams(nprobe=NLIST, k=5, use_exact_rerank=True)
@@ -236,7 +238,8 @@ def test_calibrate_query_transform_matches_jax(rng):
 
 def test_calibrate_nprobe_under_opq():
     x, _ = _data()
-    idx = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", True, "bfloat16")))
+    idx = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", True, "bfloat16")),
+                     device="cpu")
     idx.train(x)
     idx.add(x)
     assert idx.opq_R is not None
@@ -249,7 +252,7 @@ def test_calibrate_nprobe_under_opq():
 
 def test_state_memory_and_not_ported_surface():
     x, q = _data()
-    idx = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", False, "int8")))
+    idx = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", False, "int8")), device="cpu")
     idx.train(x[:1000])
     idx.add(x[:1000])
     st = idx.state_arrays()
@@ -259,7 +262,8 @@ def test_state_memory_and_not_ported_surface():
     np.testing.assert_allclose(st["arena"][l, 0], x[int(st["ids"][l, 0])],
                                rtol=0.1, atol=0.05)
     # the code_arena setter re-derives the decoded norms (code_sq)
-    fresh = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", False, "int8")))
+    fresh = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", False, "int8")),
+                       device="cpu")
     fresh.centroids, fresh.codebooks = idx.centroids, idx.codebooks
     fresh.code_arena = st["codes"]
     assert fresh.code_arena_t.is_contiguous()
