@@ -9,8 +9,12 @@ fails (non-zero exit, no result line) when any phase fails:
 1. build: compiles the kernel sources of the checkout (``csrc/*.cu``, one
    ``nvcc`` per source, all started together);
 2. K1 vs plain: the grouped-scan kernel against its plain PyTorch version
-   on the card, at the main-path shape and at small shapes that cover
-   every metric, arena dtype and edge case; both times;
+   on the card, at the main-path shape, at a raw bf16 arena of that
+   geometry and at small shapes that cover every metric, arena dtype and
+   edge case; both times. Here and in phases 2c, 5 and 11b, each K1 / K3
+   result's distances are also held against float64: a kernel's distance
+   outside the tolerance ``RTOL · |d| + ATOL_QSQ · ‖q‖²`` fails the run,
+   and the worst share of it per scan is printed before the report;
 2b. K2 vs plain: the grouped ADC kernel against its plain version, on small
    cases (IP, -1 probes, short lists, ``k_inner``, emit_full, the
    scan-capacity prefix, a hot list, D 30 with m 6, k 64) and at the
@@ -42,8 +46,8 @@ fails (non-zero exit, no result line) when any phase fails:
    plain versions on small cases (every metric, int8 with scale +- anchor,
    bf16 / fp32, -1 probes, short lists, the scan-capacity prefix, a hot
    list, slot striping, k 100) and at the main shapes (K3 on the int8
-   geometry of phase 4, K4 on a bf16 arena of it): rows and top-k, both
-   times and the roofline bound;
+   geometry of phase 4 and on a raw bf16 arena of it, K4 on the bf16
+   arena): rows and top-k, both times and the roofline bound;
 11. IVF-Flat through the scan names of K3 and K4 at full width, run right
    after phase 6 on the phase-4 index: ``"pallas_sorted"`` (K3) at the
    calibrated nprobe and 32, equal to K1's results, recall@10 >= 0.95; a
@@ -52,7 +56,8 @@ fails (non-zero exit, no result line) when any phase fails:
    default, all three equal, recall@10 >= 0.95 each;
 11b. after phase 11's launch counts are read: K3 and K4 against their
    plain versions on the two indexes phase 11 served, at the calibrated
-   nprobe and 32 (K3 on int8 and bf16, also k 100; K4 on bf16);
+   nprobe and 32 (K3 on int8 and bf16, also k 100; K4 on bf16; K1 on
+   bf16);
 12. the streaming tier over the phase-4 index with 512 cache slots (half
    the lists on the card): 1024-query batches at the calibrated nprobe and
    32 through K1 and K3, each equal to the resident index; QPS, hit rate,
@@ -99,8 +104,13 @@ K4_REPLACES = "cuda_acceleratedvectordatabaseengine_tpu/ops/pallas_scan.py:844"
 RTOL = 1e-5          # distance tolerance, relative ...
 ATOL_QSQ = 1e-5      # ... plus this × ‖q‖² (fp32 sums in another order)
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): fp32 on the
-# CUDA cores (the scans' dots run there) and HBM3 bandwidth.
+# CUDA cores (K2's dots against decoded fp32 codebooks, and K1 / K3 on fp32
+# arenas run there), dense bf16 on the tensor cores (K1 and K3 on int8 and
+# bf16 arenas run there as three exact bf16 products per multiply-add; K4's
+# operands are as exact), and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+BF16_PLANES = 3      # hi / mid / lo bf16 planes of an fp32 query
 PEAK_HBM_BYTES = 3.35e12
 FULL_ROW_REPS = 5     # timed batches per setting of phase 11
 CACHE_SLOTS = 512     # streaming tier: half the lists of the 1M index
@@ -118,22 +128,43 @@ def ptxas_summary(nvcc_log: str) -> dict:
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", nvcc_log)]
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
                                          nvcc_log)]
+    # per kernel of the tensor-core flat scans: registers, spill stores
+    tensor_core = {}
+    for block in nvcc_log.split("Compiling entry function")[1:]:
+        name = re.search(r"((?:grouped|sorted)_scan_tc_kernel)I(\w+?)E+vPK",
+                         block)
+        used = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if name and used:
+            # mangled template arguments: a = int8, Li<n> = an int
+            targs = re.sub(r"Li(\d+)", r",\1", name.group(2).replace(
+                "13__nv_bfloat16", "bf16").replace("a", "int8", 1))
+            tensor_core[f"{name.group(1)}<{targs}>"] = [
+                int(used.group(1)), int(spill.group(1)) if spill else None]
     return {
         "ptxas_functions": len(regs),
         "registers_min": min(regs, default=None),
         "registers_max": max(regs, default=None),
         "functions_spilling": sum(s > 0 for s in spills),
         "spill_store_bytes_max": max(spills, default=None),
+        "tensor_core_kernels": tensor_core,
     }
 
 
-def roofline(flops: float, nbytes: float) -> dict:
+def roofline(flops: float, nbytes: float, exact_bf16: bool = False) -> dict:
     """The least time the card could take for this work: the larger of the
-    operations over the fp32 peak and the bytes over the HBM rate."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    operations over their peak and the bytes over the HBM rate. With
+    ``exact_bf16`` (int8 / bf16 operands against an fp32 query) the
+    operations run on the tensor cores as ``BF16_PLANES`` bf16 products
+    each, else at the fp32 CUDA-core peak. ``fp32_bound_ms`` keeps the
+    CUDA-core bound for comparison."""
+    t_fp32 = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = (BF16_PLANES * flops / PEAK_BF16_FLOPS * 1e3 if exact_bf16
+             else t_fp32)
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "fp32_bound_ms": max(t_fp32, t_bytes)}
 
 
 def scan_work(probe, counts, cap_s: int) -> tuple[int, int, int]:
@@ -156,9 +187,10 @@ def flat_scan_bound(case, k: int, cap_s: int, kernel: str, metric) -> dict:
     full rows out). Each does a D-long dot (2·D operations) per (valid
     pair, occupied scanned slot). K4 reads no norms, scales or anchors;
     under L2 it needs |x|² of each distinct occupied slot, which does not
-    depend on the query: 2·D operations a slot, once. Inputs read once:
-    the distinct lists' occupied rows (codes, norms, scales), their
-    anchors and the queries."""
+    depend on the query: 2·D operations a slot, once. On int8 / bf16
+    arenas the operations count at the three-plane bf16 tensor-core rate
+    (``roofline``). Inputs read once: the distinct lists' occupied rows
+    (codes, norms, scales), their anchors and the queries."""
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
         Metric,
     )
@@ -179,7 +211,7 @@ def flat_scan_bound(case, k: int, cap_s: int, kernel: str, metric) -> dict:
         nbytes += n_lists * dim * 4
     nbytes += q.numel() * 4 + batch * nprobe * (
         k * 8 if kernel == "grouped" else cap_s * 4)
-    return roofline(flops, nbytes)
+    return roofline(flops, nbytes, exact_bf16=arena.element_size() <= 2)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -206,10 +238,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def make_scan_case(gen, dev, *, nlist, cap, dim, batch, nprobe, dtype,
                    metric, anchors=True, short=False, neg=False,
-                   max_count=None):
+                   max_count=None, hot=False):
     """A packed arena on the card with clustered rows (one gaussian ball per
     list), queries near stored rows, and coarse probes by centroid
-    distance: the pair pattern a real batch produces."""
+    distance: the pair pattern a real batch produces. ``hot``: every query
+    lies near a row of list 0, so list 0 takes one pair of each query."""
     import torch
 
     from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
@@ -251,6 +284,10 @@ def make_scan_case(gen, dev, *, nlist, cap, dim, batch, nprobe, dtype,
                        si[s0:s0 + (1 << 18)], rows[s0:s0 + (1 << 18)])
     pick = torch.randint(0, rows.shape[0], (batch,), generator=gen,
                          device=dev)
+    if hot:
+        home = torch.nonzero(li == 0).flatten()
+        pick = home[torch.randint(0, home.numel(), (batch,), generator=gen,
+                                  device=dev)]
     q = rows[pick] + 0.1 * torch.randn((batch, dim), generator=gen,
                                        device=dev)
     if metric == Metric.COSINE:
@@ -261,6 +298,61 @@ def make_scan_case(gen, dev, *, nlist, cap, dim, batch, nprobe, dtype,
         probe[::3, -1] = -1
     return dict(q=q, arena=arena, arena_sq=arena_sq, counts=counts,
                 probe=probe, arena_scale=scale, arena_anchors=anc)
+
+
+# The largest share of the distance tolerance (RTOL · |d| + ATOL_QSQ · ‖q‖²)
+# by which each flat scan's distances, and its plain version's, lay from
+# float64 in this run (``f64_distance_error``).
+F64_WORST: dict[str, float] = {}
+
+
+def f64_distance_error(case, d, pos, metric, who=None) -> dict:
+    """How far a flat scan's top-k distances lie from the same distances
+    recomputed in float64 (q . code and q . anchor in float64; the stored
+    norms and scales as given), over the finite entries of ``(d, pos)``,
+    positions ``list · cap + slot``: the largest absolute difference, the
+    largest over ‖q‖², and the largest share of the scans' tolerance
+    ``RTOL · |d| + ATOL_QSQ · ‖q‖²``. ``who`` names the scan in
+    :data:`F64_WORST`; a kernel's distances outside the tolerance raise."""
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+        Metric,
+    )
+
+    arena = case["arena"]
+    cap = arena.shape[1]
+    pos = pos.long()
+    ok = (pos >= 0) & torch.isfinite(d)
+    b = torch.arange(pos.shape[0], device=pos.device)[:, None].expand_as(
+        pos)[ok]
+    lst, slot = pos[ok] // cap, pos[ok] % cap
+    qb = case["q"].double()[b]
+    qx = (qb * arena[lst, slot].double()).sum(1)
+    if case["arena_scale"] is not None:
+        qx = qx * case["arena_scale"][lst, slot].double()
+    if case["arena_anchors"] is not None:
+        qx = qx + (qb * case["arena_anchors"][lst].double()).sum(1)
+    qsq = (qb * qb).sum(1)
+    if metric == Metric.L2:
+        d64 = (qsq - 2.0 * qx + case["arena_sq"][lst, slot].double()).clamp(
+            min=0.0)
+    elif metric == Metric.INNER_PRODUCT:
+        d64 = -qx
+    else:
+        d64 = 1.0 - qx
+    err = (d[ok].double() - d64).abs()
+    if not err.numel():
+        return {"max_abs": 0.0, "max_over_qsq": 0.0, "max_share_of_tol": 0.0}
+    share = float((err / (RTOL * d64.abs() + ATOL_QSQ * qsq)).max())
+    if who is not None:
+        F64_WORST[who] = max(F64_WORST.get(who, 0.0), share)
+        if share > 1.0 and not who.endswith("plain"):
+            raise AssertionError(f"{who}: distances lie {share:.3g} times the "
+                                 f"tolerance from float64")
+    return {"max_abs": float(err.max()),
+            "max_over_qsq": float((err / qsq.clamp(min=1e-30)).max()),
+            "max_share_of_tol": share}
 
 
 def check_scan_case(name, case, k, metric, m_budget=None, scan_capacity=None,
@@ -290,7 +382,12 @@ def check_scan_case(name, case, k, metric, m_budget=None, scan_capacity=None,
                             rtol=RTOL, atol=atol)
     out = {"case": name, "max_abs_err": cmp.max_abs_err,
            "id_differences_at_ties": cmp.n_id_differences,
-           "entries": cmp.n_entries}
+           "entries": cmp.n_entries,
+           # the kernel's sums (tensor cores on int8 / bf16) against
+           # float64, beside the plain version's fp32 sums
+           "f64_err": f64_distance_error(case, d_k, p_k, metric, "K1"),
+           "plain_f64_err": f64_distance_error(case, d_p, p_p, metric,
+                                               "K1 plain")}
     if time_it:
         # the step the kernel replaces (one launch per call) ...
         nlist, cap, dim = case["arena"].shape
@@ -365,6 +462,28 @@ def phase_kernel_vs_plain(seed: int, dev) -> dict:
         ("ip_i8_hot_list", dict(nlist=4, cap=384, dim=64, batch=256, nprobe=2,
                                 dtype=torch.int8,
                                 metric=Metric.INNER_PRODUCT), 10, 16, None),
+        # D 768: list 0 takes 512 pairs, 8 rows of the auto width 64
+        ("l2_i8_768_hot_list", dict(nlist=64, cap=512, dim=768, batch=512,
+                                    nprobe=8, dtype=torch.int8,
+                                    metric=Metric.L2, hot=True), 10, None,
+         None),
+        ("l2_i8_768_k64", dict(nlist=64, cap=512, dim=768, batch=256,
+                               nprobe=8, dtype=torch.int8, metric=Metric.L2),
+         64, None, None),
+        ("ip_bf16_768", dict(nlist=64, cap=384, dim=768, batch=256, nprobe=8,
+                             dtype=torch.bfloat16,
+                             metric=Metric.INNER_PRODUCT), 10, None, None),
+        ("cos_bf16_768", dict(nlist=64, cap=384, dim=768, batch=256, nprobe=8,
+                              dtype=torch.bfloat16, metric=Metric.COSINE), 10,
+         None, None),
+        # D not a multiple of 8: the tensor-core kernel's element-wise ring
+        # fill (no 16-byte copies), D ending inside a chunk, two slot tiles
+        ("l2_i8_dim100", dict(nlist=8, cap=300, dim=100, batch=32, nprobe=4,
+                              dtype=torch.int8, metric=Metric.L2, neg=True),
+         10, None, None),
+        ("ip_bf16_dim30", dict(nlist=8, cap=300, dim=30, batch=32, nprobe=4,
+                               dtype=torch.bfloat16,
+                               metric=Metric.INNER_PRODUCT), 7, 8, None),
     ]
     for name, spec, k, m, scap in small:
         check_scan_case(name, make_scan_case(gen, dev, **spec), k,
@@ -374,6 +493,15 @@ def phase_kernel_vs_plain(seed: int, dev) -> dict:
                           metric=Metric.L2)
     res = check_scan_case("main_int8_residual_768", main, 10, Metric.L2,
                           time_it=True)
+    del main
+    torch.cuda.empty_cache()
+    # a raw bf16 arena of the same geometry: |q . x| near ‖q‖², where fp32
+    # accumulation loses the most
+    main = make_scan_case(gen, dev, nlist=1024, cap=1408, dim=768,
+                          batch=1024, nprobe=32, dtype=torch.bfloat16,
+                          metric=Metric.L2)
+    res["bf16_raw"] = check_scan_case("main_bf16_raw_768", main, 10,
+                                      Metric.L2, time_it=True)
     del main
     torch.cuda.empty_cache()
     return res
@@ -625,6 +753,10 @@ def check_full_row_case(name, case, k, metric, kernel, m_budget=None,
            "max_abs_err": cmp.max_abs_err,
            "id_differences_at_ties": cmp.n_id_differences,
            "entries": cmp.n_entries}
+    if kernel == "sorted" and not striping:  # positions list · cap + slot
+        out.update(f64_err=f64_distance_error(case, d_k, p_k, metric, "K3"),
+                   plain_f64_err=f64_distance_error(case, d_p, p_p, metric,
+                                                    "K3 plain"))
     if time_it:
         nlist, cap, dim = case["arena"].shape
         batch, nprobe = case["probe"].shape
@@ -701,6 +833,24 @@ def phase_full_row_kernels_vs_plain(seed: int, dev) -> dict:
         ("k3_l2_i8_k100_short", "sorted",
          dict(base, dtype=i8, metric=Metric.L2, short=True, neg=True), 100,
          None, None, None),
+        ("k3_l2_i8_768_hot_list", "sorted",
+         dict(nlist=64, cap=512, dim=768, batch=512, nprobe=8, dtype=i8,
+              metric=Metric.L2, hot=True), 10, None, None, None),
+        ("k3_l2_i8_768_k64", "sorted",
+         dict(nlist=64, cap=512, dim=768, batch=256, nprobe=8, dtype=i8,
+              metric=Metric.L2), 64, None, None, None),
+        ("k3_ip_bf16_768", "sorted",
+         dict(nlist=64, cap=384, dim=768, batch=256, nprobe=8, dtype=bf,
+              metric=Metric.INNER_PRODUCT), 10, None, None, None),
+        ("k3_cos_bf16_768", "sorted",
+         dict(nlist=64, cap=384, dim=768, batch=256, nprobe=8, dtype=bf,
+              metric=Metric.COSINE), 10, None, None, None),
+        ("k3_l2_i8_dim100", "sorted",
+         dict(base, cap=300, dim=100, dtype=i8, metric=Metric.L2, neg=True),
+         10, None, None, None),
+        ("k3_cos_bf16_dim30", "sorted",
+         dict(base, cap=300, dim=30, dtype=bf, metric=Metric.COSINE), 7, 8,
+         None, None),
         ("k4_l2_bf16_neg_short", "pairs",
          dict(base, dtype=bf, metric=Metric.L2, neg=True, short=True), 10,
          None, None, None),
@@ -733,11 +883,13 @@ def phase_full_row_kernels_vs_plain(seed: int, dev) -> dict:
         err = out["small_max_abs_err"]
         err[kernel] = max(err[kernel], res["max_abs_err"])
     for key, kernel, dtype, tag in (("k3", "sorted", i8, "int8_residual"),
+                                    ("k3_bf16", "sorted", bf, "bf16_raw"),
                                     ("k4", "pairs", bf, "bf16")):
         main = make_scan_case(gen, dev, nlist=1024, cap=1408, dim=768,
                               batch=1024, nprobe=32, dtype=dtype,
                               metric=Metric.L2)
-        out[key] = check_full_row_case(f"main_{key}_{tag}_768", main, 10,
+        name = f"main_{key.split('_')[0]}_{tag}_768"
+        out[key] = check_full_row_case(name, main, 10,
                                        Metric.L2, kernel, time_it=True)
         del main
         torch.cuda.empty_cache()
@@ -831,6 +983,12 @@ def recall_at(ids, truth, k=10) -> float:
 SEARCH_STAGES = ("ivf_flat.upload", "ivf_flat.coarse_probe",
                  "grouped_scan.pack", "grouped_scan.rows",
                  "grouped_scan.epilogue", "ivf_flat.finalize")
+# The hand-written flat scans' kernels by name (tensor-core kernels on
+# int8 / bf16 arenas, CUDA-core ones on fp32) and the stage each belongs to.
+K1_KERNEL_STAGES = (("grouped_scan_tc_kernel", "grouped_scan.rows"),
+                    ("grouped_scan_kernel", "grouped_scan.rows"))
+K3_KERNEL_STAGES = (("sorted_scan_tc_kernel", "sorted_scan.rows"),
+                    ("sorted_scan_kernel", "sorted_scan.rows"))
 # ... of one StreamingIVFFlatIndex.search (the scan's own ranges opened
 # once per wave) ...
 STREAM_STAGES = ("streaming.coarse_probe", "streaming.stage",
@@ -846,8 +1004,7 @@ PQ_SEARCH_STAGES = ("ivf_pq.upload", "ivf_pq.coarse_probe",
 
 def trace_search(idx, queries, params, batch_ms, top=6,
                  stage_names=SEARCH_STAGES,
-                 kernel_stages=(("grouped_scan_kernel",
-                                 "grouped_scan.rows"),)) -> dict:
+                 kernel_stages=K1_KERNEL_STAGES) -> dict:
     """One ``search`` of ``idx`` (after a warm-up) under
     ``torch.profiler``: device and host ms of each named stage, the sum of
     all device activity (busy), the idle share against ``batch_ms`` (the
@@ -952,10 +1109,15 @@ def check_index_scan(idx, q_dev, nprobe, k) -> dict:
     cmp = assert_topk_match(d_k.cpu().numpy(), p_k.cpu().numpy(),
                             d_p.cpu().numpy(), p_p.cpu().numpy(),
                             rtol=RTOL, atol=atol)
+    case = dict(q=q, arena=a.arena, arena_sq=a.arena_sq,
+                arena_scale=a.arena_scale, arena_anchors=a.anchors)
     return {
         "nprobe": nprobe, "max_abs_err": cmp.max_abs_err,
         "id_differences_at_ties": cmp.n_id_differences,
         "entries": cmp.n_entries,
+        "f64_err": f64_distance_error(case, d_k, p_k, idx.metric, "K1"),
+        "plain_f64_err": f64_distance_error(case, d_p, p_p, idx.metric,
+                                            "K1 plain"),
         "scan_ms": cuda_ms(lambda: gs.scan_probed_lists_grouped(*args, **kw),
                            10),
         "scan_plain_ms": cuda_ms(
@@ -1235,7 +1397,9 @@ def phase_full_row_index_checks(idx, bidx, queries, cal_nprobe) -> dict:
     probes their coarse step gives the phase-4 queries, at the calibrated
     nprobe and at 32: K3 on the int8 index (k 10, and k 100 at 32, the
     deep-k route) and on the bf16 index, K4 on the bf16 index (the arena
-    ``"pallas"`` sends to it)."""
+    ``"pallas"`` sends to it); and K1 on the bf16 index (raw values,
+    where fp32 accumulation loses the most), with its distances against
+    float64."""
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
         Metric,
         pairwise_distance,
@@ -1247,7 +1411,7 @@ def phase_full_row_index_checks(idx, bidx, queries, cal_nprobe) -> dict:
         topk_smallest,
     )
 
-    out = {"sorted": [], "pairs": []}
+    out = {"sorted": [], "pairs": [], "grouped": []}
     for tag, index, kernels in (("int8", idx, ("sorted",)),
                                 ("bf16", bidx, ("sorted", "pairs"))):
         a = index.arena
@@ -1267,6 +1431,12 @@ def phase_full_row_index_checks(idx, bidx, queries, cal_nprobe) -> dict:
                         index.metric, kernel, m_budget=index.config.m_budget,
                         scan_capacity=a.scan_capacity_hint(),
                         label="phase11b"))
+        if tag == "bf16":
+            for nprobe in (cal_nprobe, 32):
+                res = check_index_scan(index, queries, nprobe, 10)
+                log("phase11b", json.dumps({"case": f"index_bf16_grouped_p"
+                                            f"{nprobe}_k10", **res}))
+                out["grouped"].append(res)
     return out
 
 
@@ -1331,8 +1501,7 @@ def phase_streaming(dev, idx, q_np, truth, cal_nprobe) -> dict:
             res["trace"] = trace_search(
                 tier, q_np, vdb.SearchParams(nprobe=nprobe, k=k),
                 res["ms_per_batch_median"], stage_names=STREAM_STAGES,
-                kernel_stages=(("grouped_scan_kernel", "grouped_scan.rows"),
-                               ("sorted_scan_kernel", "sorted_scan.rows")))
+                kernel_stages=K1_KERNEL_STAGES + K3_KERNEL_STAGES)
             out[f"{key}_{np_label}"] = res
         out[f"{key}_peak_gb_over_resident"] = (
             torch.cuda.max_memory_allocated() - base_bytes) / 1e9
@@ -1749,9 +1918,12 @@ def main(argv=None) -> int:
     report = {"kernels": [{
         "name": "grouped_scan", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": max(k1["max_abs_err"],
-                           checks["index_scan_auto"]["max_abs_err"],
-                           checks["index_scan_p32"]["max_abs_err"]),
+        "max_abs_err": max([k1["max_abs_err"],
+                            k1["bf16_raw"]["max_abs_err"],
+                            checks["index_scan_auto"]["max_abs_err"],
+                            checks["index_scan_p32"]["max_abs_err"]]
+                           + [c["max_abs_err"]
+                              for c in full_row_checks["grouped"]]),
         **timing(k1),
     }, {
         "name": "grouped_pq_scan", "route": "cuda", "source": K2_SOURCE,
@@ -1764,7 +1936,8 @@ def main(argv=None) -> int:
         "name": "sorted_scan", "route": "cuda", "source": K34_SOURCE,
         "replaces": K3_REPLACES, "launches": launches11["k3"],
         "max_abs_err": max([k34["small_max_abs_err"]["sorted"],
-                            k34["k3"]["max_abs_err"]]
+                            k34["k3"]["max_abs_err"],
+                            k34["k3_bf16"]["max_abs_err"]]
                            + [c["max_abs_err"]
                               for c in full_row_checks["sorted"]]),
         **timing(k34["k3"]),
@@ -1787,7 +1960,9 @@ def main(argv=None) -> int:
             "streaming": streaming, "launches_phase11": launches11,
             "launches_phase12": launches12,
             "pq_main_path": pq_path, "pq_index_checks": pq_checks,
-            "opq": opq, **report}, indent=1))
+            "opq": opq, "f64_worst_share_of_tol": F64_WORST, **report},
+            indent=1))
+    log("f64_worst_share_of_tol", json.dumps(F64_WORST))
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,15 +19,29 @@
 // Design. The TPU kernel sorted the pairs by list so consecutive grid steps
 // could reuse one VMEM block. Here the wrapper sorts the pairs by list on
 // the device and packs runs of same-list pairs into list-rows of at most M
-// pairs (the packing of K1). One CTA takes one list-row: it reads its pairs'
-// query rows into shared memory, then walks the list in tiles of 32 * SPL
-// slots, staging each tile once in shared memory for all the pairs of the
-// row (coalesced 16-byte loads, arena dtype, widened to fp32 in the dot
-// loop). Dots are fp32 on CUDA cores, int8 and bf16 widened exactly, the
-// query kept fp32: no bf16 or TF32 rounding. Lane t of a warp owns slots t
-// and t + 32 of the tile, so the row of each pair is written 32 consecutive
-// floats at a time. Pairs of probe -1 sit in sentinel rows (list id nlist),
-// which read nothing and write +inf rows.
+// pairs (the packing of K1). One CTA takes one list-row. On int8 and bf16
+// arenas (sorted_scan_tc_kernel) the dots run on the tensor cores, on exact
+// bf16 products, on the engine K1 shares (tc_scan.cuh): the wrapper splits
+// the fp32
+// queries into three bf16 planes once per call; two producer warps stream
+// 256-slot tiles, D in chunks of 64, and the row's plane chunks through a
+// cp.async ring ordered by mbarriers; eight consumer warps run mma.sync
+// m16n8k16 bf16 with fp32 accumulators (a fresh one per 64-wide chunk of
+// D, the chunks summed on the CUDA cores), write each tile's distances to
+// shared memory, then write each pair's row segment to its (b, p) place
+// with coalesced stores. fp32 arenas keep the CUDA-core kernel
+// (sorted_scan_kernel: fp32 query rows and 32-slot tiles staged in shared
+// memory, grouped_common.cuh's tile_dots). Pairs of probe -1 sit in
+// sentinel rows (list id nlist), which read nothing and write +inf rows.
+//
+// What bounds K3 on the H100 (SXM, 700 W). At the IVF-Flat main shape
+// (B 1024, nprobe 32, about 1000 rows a list, D 768, int8) it must read the
+// probed lists once and write 185 MB of rows, about 1 GB: 0.30 ms at
+// 3.35 TB/s; its three bf16 products (3 x 53 GFLOP) need 0.16 ms at
+// 989 TFLOP/s, so bytes bound it. The fp32 loop of the first version took
+// 17.0 ms against an operation floor of 0.79 ms; timed builds of K1 with
+// parts edited out put that time in the shared dot loop, which this design
+// replaces.
 //
 // K4, vdb_pair_scan, replaces pallas_scan.py::scan_probed_lists_pallas
 // (kernel body _kernel). Wrapper and plain version: ops/pair_scan.py.
@@ -44,24 +58,19 @@
 // wrapper hands the pairs over in list order, so CTAs that run together
 // read the same list and find it in L2.
 //
-// What bounds them on the H100. Both do fp32 FMAs on the CUDA cores
-// (scans stay exact in fp32, so no bf16 or TF32 tensor cores), and the
-// least time is the operation bound: at the IVF-Flat main shape (B 1024, nprobe 32,
-// about 1000 rows a list, D 768) K3 does 2 * D FLOPs per (pair, occupied
-// slot), about 53 GFLOP, 0.79 ms at 67 TFLOP/s, while it must move about
-// 1 GB (the probed lists once, 185 MB of rows out), 0.30 ms at 3.35 TB/s.
-// K4's function needs the same dots plus, under L2, |x|^2 of each distinct
-// occupied slot once (2 * D a slot; it does not depend on the query): about
-// 54 GFLOP, 0.81 ms. K4 recomputes |x|^2 for every pair, 4 * D a (pair,
-// slot), so it does about twice the work its bound counts. K3's design
-// keeps its bytes near that floor: one staged tile serves every pair of a
-// list-row, so a list is read once per M pairs. K4 reads a list once per
-// pair and relies on neighbouring CTAs (pairs in list order) finding it in
-// L2. Neither
-// uses tensor cores or TMA yet; both run far above the operation bound
-// and what limits them is not measured (PERF.md has the times).
+// What bounds K4. It does fp32 FMAs on the CUDA cores: 2 * D FLOPs per
+// (pair, occupied slot), plus, under L2, |x|^2 of each distinct occupied
+// slot once (2 * D a slot; it does not depend on the query): about
+// 54 GFLOP at the main shape. Its operands are exact in bf16 as K1's are,
+// so the least time counts the operations at the three-plane bf16 rate
+// (3 x 54 GFLOP at 989 TFLOP/s, 0.16 ms) against the bytes (about 1.78 GB,
+// 0.53 ms): bytes bound it. K4 recomputes |x|^2 for every pair, 4 * D a
+// (pair, slot), and reads a list once per pair, relying on neighbouring
+// CTAs (pairs in list order) finding it in L2. What later versions change:
+// K4 on the tensor-core engine, and a list tile shared by all pairs.
 
 #include "grouped_common.cuh"
+#include "tc_scan.cuh"
 
 #include <cuda_bf16.h>
 
@@ -169,6 +178,110 @@ sorted_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
     float* o = out + static_cast<size_t>(p) * cap_s;
     for (int s = lim + lane; s < cap_s; s += 32) o[s] = INFINITY;
   }
+}
+
+// Tensor-core sorted scan (int8 / bf16 arenas): full rows out.
+template <typename T>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+sorted_scan_tc_kernel(const float* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ planes,
+                      const T* __restrict__ arena,
+                      const float* __restrict__ arena_sq,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ anchors,
+                      const int* __restrict__ counts,
+                      const int* __restrict__ row_list,
+                      const int* __restrict__ pair_table,
+                      float* __restrict__ out, int batch, int m, int dim,
+                      int nlist, int cap, int cap_s, int nprobe, int metric,
+                      int stages, int vec) {
+  const int row = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = tc::kThreads / 32;
+
+  const int* prow = pair_table + static_cast<size_t>(row) * m;
+  const int list = row_list[row];
+  if (list < 0 || list >= nlist) {  // sentinel row: pairs of probe -1
+    for (int mm = warp; mm < m; mm += nwarps) {
+      const int p = prow[mm];
+      if (p < 0) continue;
+      float* o = out + static_cast<size_t>(p) * cap_s;
+      for (int s = lane; s < cap_s; s += 32) o[s] = INFINITY;
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const tc::Smem sm(smem, m, sizeof(T), stages);
+  tc::row_setup(sm, prow, m, dim, nprobe);
+  const int lim = min(counts[list], cap_s);
+  const T* lbase = arena + static_cast<size_t>(list) * cap * dim;
+  if (warp >= tc::kConsumerWarps) {  // the producer warps
+    tc::produce<T>(sm, lbase, planes, batch, dim, lim, vec != 0);
+    return;
+  }
+
+  tc::query_norms(sm, q,
+                  anchors != nullptr
+                      ? anchors + static_cast<size_t>(list) * dim
+                      : nullptr,
+                  dim);
+  const int ntl = tc::live_query_tiles(sm);
+  const int nlive = min(m, 8 * ntl);
+  const float* sq_l = arena_sq + static_cast<size_t>(list) * cap;
+  const float* sc_l =
+      scale != nullptr ? scale + static_cast<size_t>(list) * cap : nullptr;
+  const int nchunks = (dim + tc::kDK - 1) / tc::kDK;
+
+  int item = 0;
+  for (int s0 = 0; s0 < lim; s0 += tc::kTS) {
+    const int nt = min(tc::kTS, lim - s0);
+    const int mtl = tc::live_slot_tiles(nt);
+    float acc[2][8][4];
+    tc::tile_mma<T>(acc, sm, item, nchunks, mtl, ntl);
+    tc::consumer_sync();  // the previous tile's rows are written
+    tc::tile_distances(sm, acc, sq_l, sc_l, s0, nt, mtl, ntl, metric);
+    tc::consumer_sync();
+    for (int mm = warp; mm < nlive; mm += tc::kConsumerWarps) {
+      const int p = sm.qi[mm];
+      if (p < 0) continue;
+      const float* dr = sm.dist + mm * tc::kSStride;
+      float* o = out + static_cast<size_t>(p) * cap_s + s0;
+      for (int t = lane; t < nt; t += 32) o[t] = dr[t];
+    }
+  }
+
+  // --- slots past the list's count: +inf -----------------------------------
+  for (int mm = warp; mm < m; mm += tc::kConsumerWarps) {
+    const int p = sm.qi[mm];
+    if (p < 0) continue;
+    float* o = out + static_cast<size_t>(p) * cap_s;
+    for (int s = lim + lane; s < cap_s; s += 32) o[s] = INFINITY;
+  }
+}
+
+template <typename T>
+cudaError_t launch_sorted_tc(const float* q, const __nv_bfloat16* planes,
+                             const void* arena, const float* arena_sq,
+                             const float* scale, const float* anchors,
+                             const int* counts, const int* row_list,
+                             const int* pair_table, float* out, int n_rows,
+                             int batch, int m, int dim, int nlist, int cap,
+                             int cap_s, int nprobe, int metric,
+                             cudaStream_t stream) {
+  const tc::Launch l = tc::launch_shape(m, sizeof(T), dim, arena, planes);
+  if (l.stages < 2) return cudaErrorInvalidValue;
+  auto kernel = sorted_scan_tc_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(l.smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<n_rows, tc::kThreads, l.smem, stream>>>(
+      q, planes, static_cast<const T*>(arena), arena_sq, scale, anchors,
+      counts, row_list, pair_table, out, batch, m, dim, nlist, cap, cap_s,
+      nprobe, metric, l.stages, l.vec);
+  return cudaGetLastError();
 }
 
 template <typename T, int MPT, int SPL>
@@ -314,30 +427,39 @@ cudaError_t launch_pair(const float* q, const void* arena, const int* counts,
 extern "C" {
 
 // Largest list-row width M of the sorted scan at this dimension and arena
-// dtype: its M queries and one slot tile must fit one CTA (0: none fits).
+// dtype (0: none fits): 64 on int8 / bf16 arenas (tensor cores, D staged in
+// chunks), the shared-memory bound of M fp32 query rows on fp32 arenas.
 int vdb_sorted_scan_max_m(int dim, int dtype) {
+  if (dim <= 0) return 0;
+  if (dtype == kInt8) return tc::max_m(1);
+  if (dtype == kBf16) return tc::max_m(2);
   return flat_row_max_m(dim, dtype);
 }
 
 // Launch the sorted scan (K3) on `stream`. Returns a cudaError_t (0 =
-// launched). Pointers: q [B, dim] f32; arena [nlist, cap, dim] of `dtype`
-// (0 int8, 1 bf16, 2 f32); arena_sq [nlist, cap] f32; scale [nlist, cap] f32
-// or null; anchors [nlist, dim] f32 or null; counts [nlist] i32 (local);
-// row_list [n_rows] i32 (nlist = sentinel row); pair_table [n_rows, m] i32
-// (pair index b * nprobe + p, -1 = empty); out [B * nprobe, cap_s] f32,
-// every row of a listed pair written.
-int vdb_sorted_scan(const void* q, const void* arena, const void* arena_sq,
-                    const void* scale, const void* anchors, const void* counts,
+// launched). Pointers: q [B, dim] f32; planes [3, B, dim] bf16, the query's
+// hi / mid / lo split (int8 / bf16 arenas; ignored on f32); arena
+// [nlist, cap, dim] of `dtype` (0 int8, 1 bf16, 2 f32); arena_sq
+// [nlist, cap] f32; scale [nlist, cap] f32 or null; anchors [nlist, dim]
+// f32 or null; counts [nlist] i32 (local); row_list [n_rows] i32 (nlist =
+// sentinel row); pair_table [n_rows, m] i32 (pair index b * nprobe + p,
+// -1 = empty); out [B * nprobe, cap_s] f32, every row of a listed pair
+// written.
+int vdb_sorted_scan(const void* q, const void* planes, const void* arena,
+                    const void* arena_sq, const void* scale,
+                    const void* anchors, const void* counts,
                     const void* row_list, const void* pair_table, void* out,
-                    int n_rows, int m, int dim, int nlist, int cap, int cap_s,
-                    int nprobe, int metric, int dtype, void* stream) {
-  if (n_rows <= 0 || m <= 0 || m > flat_row_max_m(dim, dtype) || cap_s <= 0 ||
-      cap_s > cap || nlist <= 0 || nprobe <= 0 || metric < kL2 ||
-      metric > kCosine) {
+                    int n_rows, int batch, int m, int dim, int nlist, int cap,
+                    int cap_s, int nprobe, int metric, int dtype,
+                    void* stream) {
+  if (n_rows <= 0 || batch <= 0 || m <= 0 ||
+      m > vdb_sorted_scan_max_m(dim, dtype) || cap_s <= 0 || cap_s > cap ||
+      nlist <= 0 || nprobe <= 0 || metric < kL2 || metric > kCosine ||
+      (dtype != kF32 && planes == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int mpt = (m + kWarps - 1) / kWarps;
   const float* qf = static_cast<const float*>(q);
+  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(planes);
   const float* sq = static_cast<const float*>(arena_sq);
   const float* sc = static_cast<const float*>(scale);
   const float* an = static_cast<const float*>(anchors);
@@ -348,17 +470,19 @@ int vdb_sorted_scan(const void* q, const void* arena, const void* arena_sq,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kInt8:
-      return static_cast<int>(dispatch_sorted<int8_t, 2>(
-          mpt, qf, arena, sq, sc, an, cn, rl, pt, o, n_rows, m, dim, nlist,
-          cap, cap_s, nprobe, metric, dtype, st));
+      return static_cast<int>(launch_sorted_tc<int8_t>(
+          qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim,
+          nlist, cap, cap_s, nprobe, metric, st));
     case kBf16:
-      return static_cast<int>(dispatch_sorted<__nv_bfloat16, 2>(
-          mpt, qf, arena, sq, sc, an, cn, rl, pt, o, n_rows, m, dim, nlist,
-          cap, cap_s, nprobe, metric, dtype, st));
-    default:
+      return static_cast<int>(launch_sorted_tc<__nv_bfloat16>(
+          qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim,
+          nlist, cap, cap_s, nprobe, metric, st));
+    case kF32:
       return static_cast<int>(dispatch_sorted<float, 1>(
-          mpt, qf, arena, sq, sc, an, cn, rl, pt, o, n_rows, m, dim, nlist,
-          cap, cap_s, nprobe, metric, dtype, st));
+          (m + kWarps - 1) / kWarps, qf, arena, sq, sc, an, cn, rl, pt, o,
+          n_rows, m, dim, nlist, cap, cap_s, nprobe, metric, dtype, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -20,45 +20,57 @@
 // [n_rows, M, k] distances and slots, +inf / -1 where a list has fewer than
 // k rows, for sentinel rows (list id >= nlist) and for empty query slots.
 //
-// Design. The CTA loads its own list id and query indices and reads its M
-// query rows straight from q [B, D] into shared memory (no pre-gather), with
-// |q|^2 and q . anchor once per query. It then walks the list in tiles of
-// TS = 32 * SPL slots: each tile's rows are staged in shared memory in the
-// arena dtype with coalesced 16-byte loads, and widened to fp32 in the dot
-// loop. Query stays fp32, accumulation is fp32: the exact contract of the
-// reference gather scan (no tensor cores, no bf16 rounding of the query in
-// this version). Warp w owns queries w, w+8, ...; lane t owns slots t and
-// t+32 of the tile, so each warp ends a tile holding the tile's candidate
-// distances of its queries in registers. A real cross-lane top-k follows:
-// each query's running top-k lives spread over the lanes of its warp (entry
-// r at lane r % 32), a tile whose best candidate cannot beat the current
-// k-th is skipped with one ballot, and otherwise k rounds of shuffle argmin
-// over running + tile candidates rebuild the list.
+// Design. On int8 and bf16 arenas (the IVF-Flat main path) the dots run on
+// the tensor cores, on exact bf16 products (tc_scan.cuh): the wrapper
+// splits the fp32 queries into three bf16 planes [3, B, D] once per call,
+// and grouped_scan_tc_kernel gives one CTA of 10 warps to one list-row.
+// Warps 8-9 stream the list's tiles of 256 slots, D in chunks of 64, and the
+// row's query-plane chunks through a 2-4 stage cp.async ring ordered by
+// mbarriers; warps 0-7 multiply them with mma.sync m16n8k16 bf16 (a fresh
+// fp32 accumulator per chunk, the chunks summed on the CUDA cores; int8
+// widened to bf16 once in registers), turn each tile's
+// accumulators into distances in shared memory, and keep each query's top-k
+// with warp_merge: the running list of query w + 8 i spread over the lanes
+// of warp w (entry r at lane r % 32), a tile whose best candidate cannot
+// beat the current k-th skipped with one ballot, k rounds of shuffle argmin
+// otherwise, ties to the smaller slot. |q|^2 and q . anchor stay fp32 on
+// the CUDA cores. The row width is at most 64 at any D (the ring holds D
+// chunks), reported by vdb_grouped_scan_max_m.
 //
-// What bounds it on the H100. Each list-row reads its list's cap_s * D
-// arena bytes once (plus norms and scales) and does 2 * M * cap_s * D fp32
-// FLOPs on them: arithmetic intensity 2M FLOP per int8 byte, so on paper
-// HBM reads bind below ~10 queries per row and the fp32 FMA pipes above.
-// Rows of one list are separate CTAs, so a list with several rows is read
-// several times (mostly from L2). Measured on an H100 80GB HBM3 at 700 W,
-// the kernel reaches neither bound: about 1 TB/s of list reads at 1-4
-// queries per row, about 3 TFLOP/s of fp32 at 48 queries per row. What
-// limits it has not been measured (no hardware-counter profile yet). The
-// candidates: idle warps when a row holds fewer than 8 queries (warp w owns
-// queries w, w+8, ...), the shared-memory loads of the dot loop, the
-// shuffle rounds of the top-k, and occupancy.
+// fp32 arenas are not exact in bf16 and keep the CUDA-core kernel
+// (grouped_scan_kernel): the CTA reads its M fp32 query rows into shared
+// memory, stages 32-slot tiles and runs grouped_common.cuh's tile_dots
+// (warp w owns queries w, w+8, ...; lane t slot t) before the same
+// warp_merge.
 //
-// The pieces shared with the K2 and K3 kernels (grouped_pq_scan.cu,
-// full_row_scan.cu): shared-memory layout, query and tile staging, the fp32
-// tile dots and warp_merge, are in grouped_common.cuh.
+// What bounds it on the H100 (SXM, 700 W). At the IVF-Flat main shape
+// (int8 residual, D 768, nlist 1024, cap 1408, B 1024, nprobe 32, k 10) a
+// call must read the probed lists once, about 0.82 GB: 0.245 ms at
+// 3.35 TB/s. The three bf16 products are 3 x 52.5 GFLOP, 0.16 ms at
+// 989 TFLOP/s, so bytes bound it. The fp32 loop of the first version could
+// never beat 0.78 ms (52.5 GFLOP at 67 TFLOP/s) and took 16.9 ms: builds of
+// it with parts edited out, timed on an NVIDIA H100 80GB HBM3 at 700 W,
+// showed the dot loop's issue rate as the limiter (16.9 ms with staging
+// skipped, 2.5 ms with the dots skipped, 2.1 ms with both, 7.2 ms at M 16),
+// not the tile loads and not the top-k.
 //
-// What later versions change: wgmma on int8 codes widened to bf16 (exact)
-// against a hi/lo bf16 split of the query, which keeps near-fp32 accuracy
-// at tensor-core rate; TMA loads into a multi-stage ring with mbarriers; and
-// one list tile shared by all rows of the list (a persistent CTA per list),
-// so that a list is read from HBM once per batch.
+// The pieces shared with K3 (full_row_scan.cu): the tensor-core engine in
+// tc_scan.cuh; with K2 and K3, the helpers, tile staging, fp32 tile dots
+// and warp_merge in grouped_common.cuh.
+//
+// What later versions change. The tensor-core kernel takes 1.95 ms at the
+// main shape, 8x its bound, in three parts of about equal size that run
+// one after another (tc_scan.cuh): the ring, the mma and the top-k merge.
+// So: merge warps of their own behind a double-buffered distance tile, so
+// that one tile's merge overlaps the next tile's mma; wgmma instead of
+// mma.sync (the slot tile as the register operand, the planes in shared
+// memory); the query planes kept resident where M allows, instead of
+// re-read for every tile; and one list tile shared by all rows of a list
+// (a persistent CTA per list), so that a list is read from HBM once per
+// batch.
 
 #include "grouped_common.cuh"
+#include "tc_scan.cuh"
 
 #include <cuda_bf16.h>
 
@@ -195,6 +207,141 @@ grouped_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
   }
 }
 
+// Tensor-core list-row scan with the fused top-k (int8 / bf16 arenas).
+template <typename T, int KPL>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+grouped_scan_tc_kernel(const float* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ planes,
+                       const T* __restrict__ arena,
+                       const float* __restrict__ arena_sq,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ anchors,
+                       const int* __restrict__ counts,
+                       const int* __restrict__ row_list,
+                       const int* __restrict__ qrow_table,
+                       float* __restrict__ out_d, int* __restrict__ out_s,
+                       int batch, int m, int dim, int nlist, int cap,
+                       int cap_s, int k, int metric, int stages, int vec) {
+  constexpr int SPL = tc::kTS / 32;  // tile slots per lane in the merge
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  float* od = out_d + static_cast<size_t>(row) * m * k;
+  int* os = out_s + static_cast<size_t>(row) * m * k;
+  const int list = row_list[row];
+  if (list < 0 || list >= nlist) {  // sentinel row: nothing to scan
+    for (int i = tid; i < m * k; i += tc::kThreads) {
+      od[i] = INFINITY;
+      os[i] = -1;
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const tc::Smem sm(smem, m, sizeof(T), stages);
+  tc::row_setup(sm, qrow_table + static_cast<size_t>(row) * m, m, dim, 1);
+  const int lim = min(counts[list], cap_s);
+  const T* lbase = arena + static_cast<size_t>(list) * cap * dim;
+  if (warp >= tc::kConsumerWarps) {  // the producer warps
+    tc::produce<T>(sm, lbase, planes, batch, dim, lim, vec != 0);
+    return;
+  }
+
+  tc::query_norms(sm, q,
+                  anchors != nullptr
+                      ? anchors + static_cast<size_t>(list) * dim
+                      : nullptr,
+                  dim);
+  const int ntl = tc::live_query_tiles(sm);
+  const int nlive = min(m, 8 * ntl);  // query slots worth merging
+  const float* sq_l = arena_sq + static_cast<size_t>(list) * cap;
+  const float* sc_l =
+      scale != nullptr ? scale + static_cast<size_t>(list) * cap : nullptr;
+  const int nchunks = (dim + tc::kDK - 1) / tc::kDK;
+
+  float bd[8][KPL];
+  int bs[8][KPL];
+  float kth[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    kth[i] = INFINITY;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      bd[i][j] = INFINITY;
+      bs[i][j] = INT_MAX;
+    }
+  }
+
+  int item = 0;
+  for (int s0 = 0; s0 < lim; s0 += tc::kTS) {
+    const int nt = min(tc::kTS, lim - s0);
+    const int mtl = tc::live_slot_tiles(nt);
+    float acc[2][8][4];
+    tc::tile_mma<T>(acc, sm, item, nchunks, mtl, ntl);
+    tc::consumer_sync();  // the previous tile's distances are merged
+    tc::tile_distances(sm, acc, sq_l, sc_l, s0, nt, mtl, ntl, metric);
+    tc::consumer_sync();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int mm = warp + tc::kConsumerWarps * i;
+      if (mm < nlive) {
+        const float* dr = sm.dist + mm * tc::kSStride;
+        float cd[SPL];
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const int t = lane + 32 * j;
+          cd[j] = t < nt ? dr[t] : INFINITY;
+        }
+        warp_merge<SPL, KPL>(bd[i], bs[i], kth[i], cd, s0 + lane, k);
+      }
+    }
+  }
+
+  // --- write the per-query top-k -------------------------------------------
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int mm = warp + tc::kConsumerWarps * i;
+    if (mm < m) {
+      const bool live = sm.qi[mm] >= 0;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int r = lane + 32 * j;
+        if (r < k) {
+          const bool hit = live && bd[i][j] != INFINITY;
+          od[mm * k + r] = hit ? bd[i][j] : INFINITY;
+          os[mm * k + r] = hit ? bs[i][j] : -1;
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_tc(const float* q, const __nv_bfloat16* planes,
+                      const void* arena, const float* arena_sq,
+                      const float* scale, const float* anchors,
+                      const int* counts, const int* row_list,
+                      const int* qrow_table, float* out_d, int* out_s,
+                      int n_rows, int batch, int m, int dim, int nlist,
+                      int cap, int cap_s, int k, int metric,
+                      cudaStream_t stream) {
+  const tc::Launch l = tc::launch_shape(m, sizeof(T), dim, arena, planes);
+  if (l.stages < 2) return cudaErrorInvalidValue;
+  auto kernel = k <= 32 ? grouped_scan_tc_kernel<T, 1>
+                        : grouped_scan_tc_kernel<T, 2>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(l.smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<n_rows, tc::kThreads, l.smem, stream>>>(
+      q, planes, static_cast<const T*>(arena), arena_sq, scale, anchors,
+      counts, row_list, qrow_table, out_d, out_s, batch, m, dim, nlist, cap,
+      cap_s, k, metric, l.stages, l.vec);
+  return cudaGetLastError();
+}
+
 template <typename T, int MPT, int SPL, int KPL>
 cudaError_t launch(const float* q, const void* arena, const float* arena_sq,
                    const float* scale, const float* anchors, const int* counts,
@@ -259,30 +406,38 @@ cudaError_t dispatch_k(int mpt, const float* q, const void* arena,
 
 extern "C" {
 
-// Largest list-row width M whose queries and slot tile fit the shared memory
-// of one CTA at this dimension and arena dtype (0: none fits).
+// Largest list-row width M the scan takes at this dimension and arena dtype
+// (0: none fits): 64 on int8 / bf16 arenas (tensor cores, D staged in
+// chunks), the shared-memory bound of M fp32 query rows on fp32 arenas.
 int vdb_grouped_scan_max_m(int dim, int dtype) {
+  if (dim <= 0) return 0;
+  if (dtype == kInt8) return tc::max_m(1);
+  if (dtype == kBf16) return tc::max_m(2);
   return flat_row_max_m(dim, dtype);
 }
 
 // Launch the grouped scan on `stream`. Returns a cudaError_t (0 = launched).
-// Pointers: q [B, dim] f32; arena [nlist, cap, dim] of `dtype` (0 int8,
-// 1 bf16, 2 f32); arena_sq [nlist, cap] f32; scale [nlist, cap] f32 or null;
-// anchors [nlist, dim] f32 or null; counts [nlist] i32; row_list [n_rows]
-// i32; qrow_table [n_rows, m] i32; out_d / out_s [n_rows, m, k].
-int vdb_grouped_scan(const void* q, const void* arena, const void* arena_sq,
-                     const void* scale, const void* anchors,
-                     const void* counts, const void* row_list,
-                     const void* qrow_table, void* out_d, void* out_s,
-                     int n_rows, int m, int dim, int nlist, int cap, int cap_s,
-                     int k, int metric, int dtype, void* stream) {
-  if (n_rows <= 0 || m <= 0 || m > vdb_grouped_scan_max_m(dim, dtype) ||
-      k <= 0 || k > 64 || cap_s <= 0 || cap_s > cap || nlist <= 0 ||
-      metric < kL2 || metric > kCosine) {
+// Pointers: q [B, dim] f32; planes [3, B, dim] bf16, the query's hi / mid /
+// lo split (int8 / bf16 arenas; ignored on f32); arena [nlist, cap, dim] of
+// `dtype` (0 int8, 1 bf16, 2 f32); arena_sq [nlist, cap] f32; scale
+// [nlist, cap] f32 or null; anchors [nlist, dim] f32 or null; counts
+// [nlist] i32; row_list [n_rows] i32; qrow_table [n_rows, m] i32; out_d /
+// out_s [n_rows, m, k].
+int vdb_grouped_scan(const void* q, const void* planes, const void* arena,
+                     const void* arena_sq, const void* scale,
+                     const void* anchors, const void* counts,
+                     const void* row_list, const void* qrow_table,
+                     void* out_d, void* out_s, int n_rows, int batch, int m,
+                     int dim, int nlist, int cap, int cap_s, int k,
+                     int metric, int dtype, void* stream) {
+  if (n_rows <= 0 || batch <= 0 || m <= 0 ||
+      m > vdb_grouped_scan_max_m(dim, dtype) || k <= 0 || k > 64 ||
+      cap_s <= 0 || cap_s > cap || nlist <= 0 || metric < kL2 ||
+      metric > kCosine || (dtype != kF32 && planes == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int mpt = (m + kWarps - 1) / kWarps;
   const float* qf = static_cast<const float*>(q);
+  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(planes);
   const float* sq = static_cast<const float*>(arena_sq);
   const float* sc = static_cast<const float*>(scale);
   const float* an = static_cast<const float*>(anchors);
@@ -295,19 +450,22 @@ int vdb_grouped_scan(const void* q, const void* arena, const void* arena_sq,
   cudaError_t err;
   switch (dtype) {
     case kInt8:
-      err = dispatch_k<int8_t, 2>(mpt, qf, arena, sq, sc, an, cn, rl, qt, od,
-                                  os, n_rows, m, dim, nlist, cap, cap_s, k,
-                                  metric, dtype, st);
+      err = launch_tc<int8_t>(qf, qp, arena, sq, sc, an, cn, rl, qt, od, os,
+                              n_rows, batch, m, dim, nlist, cap, cap_s, k,
+                              metric, st);
       break;
     case kBf16:
-      err = dispatch_k<__nv_bfloat16, 2>(mpt, qf, arena, sq, sc, an, cn, rl,
-                                         qt, od, os, n_rows, m, dim, nlist,
-                                         cap, cap_s, k, metric, dtype, st);
+      err = launch_tc<__nv_bfloat16>(qf, qp, arena, sq, sc, an, cn, rl, qt,
+                                     od, os, n_rows, batch, m, dim, nlist,
+                                     cap, cap_s, k, metric, st);
+      break;
+    case kF32:
+      err = dispatch_k<float, 1>((m + kWarps - 1) / kWarps, qf, arena, sq,
+                                 sc, an, cn, rl, qt, od, os, n_rows, m, dim,
+                                 nlist, cap, cap_s, k, metric, dtype, st);
       break;
     default:
-      err = dispatch_k<float, 1>(mpt, qf, arena, sq, sc, an, cn, rl, qt, od,
-                                 os, n_rows, m, dim, nlist, cap, cap_s, k,
-                                 metric, dtype, st);
+      err = cudaErrorInvalidValue;
       break;
   }
   return static_cast<int>(err);

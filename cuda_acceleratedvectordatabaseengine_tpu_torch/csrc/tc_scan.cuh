@@ -1,0 +1,587 @@
+// The tensor-core dot engine of the flat list-row scans K1 (grouped_scan.cu)
+// and K3 (full_row_scan.cu, vdb_sorted_scan) on int8 and bf16 arenas, for
+// Hopper (sm_90a).
+//
+// Replaces the fp32 CUDA-core dot loop (grouped_common.cuh tile_dots) that
+// K1 and K3 shared, which took the place of the TPU kernels' MXU dots in
+// cuda_acceleratedvectordatabaseengine_tpu/ops/pallas_scan.py
+// (_grouped_kernel, _sorted_kernel).
+//
+// Exact bf16 products. Every int8 code and every bf16 arena value is exact
+// in bf16. The wrapper splits each fp32 query into three bf16 planes
+// (hi = bf16(q), mid = bf16(q - hi), lo = bf16(q - hi - mid); hi + mid + lo
+// == q exactly), so q . x is the sum of three bf16 x bf16 tensor-core
+// products, each product exact. The query is not rounded. The sums are
+// fp32, but not an fp32 loop's: an mma's add into its accumulator
+// truncates instead of rounding to nearest, so the error of one
+// accumulator grows with the number of mma calls and with |q . x| (with one
+// accumulator over D 768, 144 calls, the scan differed from its plain fp32
+// version by 97% of the scans' tolerance on a raw bf16 arena with
+// |q|^2 ~ 823). Each 64-wide chunk of D therefore gets a
+// fresh accumulator (12 calls, the small planes first), and the chunks'
+// partial dots are added on the CUDA cores, rounded to nearest: as close to
+// float64 as the plain fp32 version or closer, 6% of the tolerance at worst
+// at the main shapes (PERF.md).
+//
+// Design. One CTA of 10 warps takes one list-row (up to M <= 64 queries that
+// probe the same list). The list is walked in tiles of TS = 256 slots, and
+// each tile's D axis in chunks of DK = 64 elements. A ring of 2-4 stages in
+// shared memory holds, per (tile, chunk), the slot rows' chunk
+// (arena[list, s0:s0+256, d0:d0+64]) and the row's query planes' chunk
+// ([3][M][64] bf16, re-read from L2 for every tile). Warps 8-9 are the
+// producers: their lanes fill a stage with cp.async (zero-filled past the
+// list's count, past D and for empty query slots) and signal the stage's
+// "full" mbarrier through cp.async.mbarrier.arrive; the consumers release
+// it through its "empty" mbarrier. Warps 0-7 are the consumers: warp w owns
+// slots 32w .. 32w+31 of the tile (two m16 tiles) and every query of the
+// row (up to eight n8 tiles), and runs mma.sync.m16n8k16 bf16 with fp32
+// accumulators; an int8 tile element is widened to bf16 once, in registers
+// (exact, by the fp32 magic-number trick). The fp32 accumulator tile goes
+// through shared memory as distances (scale, anchor, |x|^2, metric and the
+// valid-slot mask applied as before) to the kernel's epilogue: K1's
+// warp_merge top-k, K3's coalesced full-row writes. Only live query tiles
+// and live slot tiles are multiplied.
+//
+// Inside a 64-element chunk, lane t % 4 of a warp owns the 16 elements
+// 16 (t % 4) .. 16 (t % 4) + 15 of its rows, so one 16-byte shared load
+// gives it four k-steps of an int8 row. A k-step's logical k index maps to
+// the physical element the same way for the slot (A) and the query (B)
+// fragments, so the permutation cancels in the dot.
+//
+// What bounds it (H100 SXM, 700 W, the IVF-Flat main shape: int8 residual,
+// D 768, nlist 1024, cap 1408, B 1024, nprobe 32): HBM bytes, 0.245 ms for
+// K1 and 0.30 ms for K3 (the probed lists once, plus K3's 185 MB of rows);
+// the three bf16 products need 3 x 52.5 GFLOP, 0.16 ms at 989 TFLOP/s.
+//
+// Where K1's time goes (builds with parts of the kernel edited out, timed
+// at that shape on an NVIDIA H100 80GB HBM3 at 700 W, 1.95 ms as is):
+// 0.82 ms with both the mma and the top-k merge removed (the ring, the
+// distances, the query norms), 1.32 ms without the mma, 1.31 ms without
+// the merge. The three parts add up because the consumer warps run them
+// one after another; the fp32 loop this engine replaced took 17 ms, 2.1 ms
+// of it outside the dots.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+
+#include "grouped_common.cuh"
+
+namespace vdb {
+namespace tc {
+
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerWarps = 2;
+constexpr int kProducerThreads = 32 * kProducerWarps;
+constexpr int kThreads = 32 * (kConsumerWarps + kProducerWarps);
+constexpr int kTS = 256;           // slots per tile: 32 per consumer warp
+constexpr int kDK = 64;            // D elements per chunk
+constexpr int kMaxM = 64;          // queries per list-row: 8 n8 tiles
+constexpr int kMaxStages = 4;
+constexpr int kQStride = kDK + 8;  // bf16 elements per plane row (144 B)
+constexpr int kSStride = kTS + 4;  // floats per distance row (bank spread)
+
+// Bytes per slot row in a stage: int8 64 (the 8 rows a load phase reads
+// fall in distinct banks), bf16 128 + 16 of pad.
+__host__ __device__ constexpr int slot_stride(int elem) {
+  return elem == 1 ? kDK : kDK * 2 + 16;
+}
+
+__host__ __device__ inline int padded_m(int m) { return (m + 7) & ~7; }
+
+// Shared memory of one list-row CTA: barriers, per-query row offset / index
+// / |q|^2 / q.anchor, the distance tile [mpad][kSStride] fp32, the ring.
+struct Layout {
+  int mpad;
+  int stages;
+  size_t head;         // barriers + qi + qsq + qa
+  size_t dist_bytes;
+  size_t stage_bytes;  // slot chunk + plane chunk
+
+  __host__ __device__ Layout(int m, int elem, int n_stages) {
+    mpad = padded_m(m);
+    head = align16(2 * kMaxStages * sizeof(uint64_t) +
+                   static_cast<size_t>(mpad) * (8 + 3 * 4));
+    dist_bytes = static_cast<size_t>(mpad) * kSStride * 4;
+    stage_bytes = static_cast<size_t>(kTS) * slot_stride(elem) +
+                  3 * static_cast<size_t>(mpad) * kQStride * 2;
+    stages = n_stages;
+  }
+  __host__ __device__ size_t fixed_bytes() const { return head + dist_bytes; }
+  __host__ __device__ size_t bytes() const {
+    return fixed_bytes() + stages * stage_bytes;
+  }
+};
+
+// Ring depth that fits the 227 KB of one CTA (at most kMaxStages; below 2
+// the row does not fit).
+__host__ inline int fit_stages(int m, int elem) {
+  const Layout l(m, elem, 0);
+  const size_t room = kSmemLimit - l.fixed_bytes();
+  const int s = static_cast<int>(room / l.stage_bytes);
+  return s < kMaxStages ? s : kMaxStages;
+}
+
+// Widest list-row the tensor-core scans take on an arena of `elem` bytes
+// per value (independent of D: the D axis is staged in chunks).
+__host__ inline int max_m(int elem) {
+  int m = 0;
+  while (m < kMaxM && fit_stages(m + 1, elem) >= 2) ++m;
+  return m;
+}
+
+// How a list-row kernel of width m on `elem`-byte arena values launches:
+// ring depth, dynamic shared memory, and whether the ring is filled with
+// 16-byte copies (rows and planes 16-byte aligned) or element by element.
+struct Launch {
+  int stages;
+  size_t smem;
+  int vec;
+};
+
+__host__ inline Launch launch_shape(int m, int elem, int dim,
+                                    const void* arena, const void* planes) {
+  Launch l;
+  l.stages = fit_stages(m, elem);
+  l.smem = Layout(m, elem, l.stages).bytes();
+  // a 16-byte piece never straddles two rows of the arena or the planes
+  l.vec = dim * elem % 16 == 0 && dim % 8 == 0 &&
+          reinterpret_cast<uintptr_t>(arena) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(planes) % 16 == 0;
+  return l;
+}
+
+// --- PTX helpers ------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread issued has landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of `bar` with this parity has completed. A wait of
+// seconds can only be a broken ring: trap instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > 10000000000LL) __trap();
+  }
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The consumer warps' barrier (named barrier 1; the producer is not in it).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
+}
+
+// c += a . b on the tensor cores: m16n8k16, bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four int8 (one word, lowest byte first) to two bf16x2 words, exactly:
+// byte u = x + 128 goes into the mantissa of 2^23 (0x4B0000uu), and
+// subtracting 2^23 + 128 leaves x, an integer that bf16 holds exactly, so
+// the fp32's upper half is its bf16.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                             uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) -
+                   8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) -
+                   8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) -
+                   8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) -
+                   8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// --- shared memory views ------------------------------------------------------
+
+struct Smem {
+  uint64_t* full;   // [kMaxStages]
+  uint64_t* empty;  // [kMaxStages]
+  long long* qoff;  // [mpad] element offset of the query's row, -1 = empty
+  int* qi;          // [mpad] pair / query index, -1 = empty
+  float* qsq;       // [mpad] |q|^2
+  float* qa;        // [mpad] q . anchor
+  float* dist;      // [mpad][kSStride]
+  unsigned char* ring;
+  Layout lay;
+  int elem;
+
+  __device__ Smem(unsigned char* base, int m, int elem_size, int stages)
+      : lay(m, elem_size, stages), elem(elem_size) {
+    full = reinterpret_cast<uint64_t*>(base);
+    empty = full + kMaxStages;
+    qoff = reinterpret_cast<long long*>(empty + kMaxStages);
+    qi = reinterpret_cast<int*>(qoff + lay.mpad);
+    qsq = reinterpret_cast<float*>(qi + lay.mpad);
+    qa = qsq + lay.mpad;
+    dist = reinterpret_cast<float*>(base + lay.head);
+    ring = base + lay.fixed_bytes();
+  }
+  __device__ unsigned char* slots(int stage) const {
+    return ring + stage * lay.stage_bytes;
+  }
+  __device__ __nv_bfloat16* planes(int stage) const {
+    return reinterpret_cast<__nv_bfloat16*>(
+        slots(stage) + static_cast<size_t>(kTS) * slot_stride(elem));
+  }
+};
+
+// Every thread: barriers set up (thread 0), the row's query slots loaded
+// (qi[mm] = qrow[mm], -1 past m; query qi / qdiv, whose rows start at
+// element qoff = (qi / qdiv) * dim of q and of each plane). Ends with
+// __syncthreads().
+__device__ __forceinline__ void row_setup(const Smem& sm, const int* qrow,
+                                          int m, int dim, int qdiv) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMaxStages; ++s) {
+      mbar_init(&sm.full[s], kProducerThreads);   // every producer lane
+      mbar_init(&sm.empty[s], kConsumerWarps);    // one arrive per consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < sm.lay.mpad; i += kThreads) {
+    const int qv = i < m ? qrow[i] : -1;
+    sm.qi[i] = qv;
+    sm.qoff[i] = qv >= 0 ? static_cast<long long>(qv / qdiv) * dim : -1;
+  }
+  __syncthreads();
+}
+
+// --- the producer warps ---------------------------------------------------------
+
+// Fill the ring for every (tile, chunk) of slots [0, lim) of one list, in
+// the order the consumers take them; run by the kProducerWarps warps after
+// the consumers. `vec`: rows and planes are 16-byte aligned (cp.async, each
+// lane a fixed 16-byte column of the chunk, so its loops only step
+// pointers); otherwise plain copies, element by element.
+template <typename T>
+__device__ void produce(const Smem& sm, const T* __restrict__ lbase,
+                        const __nv_bfloat16* __restrict__ planes, int batch,
+                        int dim, int lim, bool vec) {
+  const int pl = threadIdx.x - 32 * kConsumerWarps;  // 0 .. kProducerThreads
+  const int nchunks = (dim + kDK - 1) / kDK;
+  const int mpad = sm.lay.mpad;
+  const int sstride = slot_stride(sizeof(T));
+  const size_t plane_elems = static_cast<size_t>(batch) * dim;
+  int item = 0;
+  for (int s0 = 0; s0 < lim; s0 += kTS) {
+    const int nt = min(kTS, lim - s0);
+    for (int c = 0; c < nchunks; ++c, ++item) {
+      const int stage = item % sm.lay.stages;
+      if (item >= sm.lay.stages) {
+        mbar_wait(&sm.empty[stage], ((item / sm.lay.stages) - 1) & 1);
+      }
+      const int d0 = c * kDK;
+      unsigned char* xs = sm.slots(stage);
+      __nv_bfloat16* qp = sm.planes(stage);
+      if (vec) {
+        constexpr int kEps = 16 / sizeof(T);   // elements per 16 bytes
+        constexpr int kSegs = kDK / kEps;      // 16-byte pieces per row chunk
+        constexpr int kRowStep = kProducerThreads / kSegs;
+        const int seg = pl % kSegs;
+        const int d = d0 + seg * kEps;
+        const bool dok = d < dim;
+        int t = pl / kSegs;
+        const T* src = lbase + static_cast<size_t>(s0 + t) * dim + d;
+        unsigned char* dst = xs + t * sstride + seg * 16;
+        for (; t < kTS; t += kRowStep) {
+          const bool ok = dok && t < nt;
+          cp_async16(dst, ok ? src : lbase, ok);
+          src += static_cast<size_t>(kRowStep) * dim;
+          dst += kRowStep * sstride;
+        }
+        const int pseg = pl & 7;               // 8 bf16 a piece, 8 a row
+        const bool pok = d0 + 8 * pseg < dim;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          const __nv_bfloat16* pbase = planes + p * plane_elems + d0 + 8 * pseg;
+          for (int mm = pl >> 3; mm < mpad; mm += kProducerThreads / 8) {
+            const long long off = sm.qoff[mm];
+            const bool ok = pok && off >= 0;
+            cp_async16(qp + (p * mpad + mm) * kQStride + 8 * pseg,
+                       ok ? pbase + off : planes, ok);
+          }
+        }
+        cp_async_arrive(&sm.full[stage]);
+      } else {
+        for (int i = pl; i < kTS * kDK; i += kProducerThreads) {
+          const int t = i / kDK;
+          const int d = d0 + i % kDK;
+          T v = Vec4<T>::zero();
+          if (t < nt && d < dim) v = lbase[static_cast<size_t>(s0 + t) * dim + d];
+          reinterpret_cast<T*>(xs + t * sstride)[i % kDK] = v;
+        }
+        for (int i = pl; i < 3 * mpad * kDK; i += kProducerThreads) {
+          const int r = i / kDK;
+          const int p = r / mpad;
+          const long long off = sm.qoff[r - p * mpad];
+          const int d = d0 + i % kDK;
+          __nv_bfloat16 v = __ushort_as_bfloat16(0);
+          if (off >= 0 && d < dim) v = planes[p * plane_elems + off + d];
+          qp[r * kQStride + i % kDK] = v;
+        }
+        mbar_arrive(&sm.full[stage]);
+      }
+    }
+  }
+  cp_async_wait_all();
+}
+
+// --- the consumer warps -----------------------------------------------------------
+
+// |q|^2 and q . anchor of the row's queries in fp32 (warp w takes queries
+// w, w+8, ...; 0 for empty slots), from q [B, D]; ends with consumer_sync().
+__device__ __forceinline__ void query_norms(const Smem& sm,
+                                            const float* __restrict__ q,
+                                            const float* __restrict__ anc,
+                                            int dim) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int mm = warp; mm < sm.lay.mpad; mm += kConsumerWarps) {
+    const long long off = sm.qoff[mm];
+    float s = 0.f;
+    float a = 0.f;
+    if (off >= 0) {
+      const float* qr = q + off;
+      for (int d = lane; d < dim; d += 32) {
+        const float v = qr[d];
+        s = fmaf(v, v, s);
+        if (anc != nullptr) a = fmaf(v, anc[d], a);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(kFull, s, off);
+      a += __shfl_xor_sync(kFull, a, off);
+    }
+    if (lane == 0) {
+      sm.qsq[mm] = s;
+      sm.qa[mm] = a;
+    }
+  }
+  consumer_sync();
+}
+
+// Live n8 query tiles of the row: up to the last non-empty query slot.
+__device__ __forceinline__ int live_query_tiles(const Smem& sm) {
+  int last = -1;
+  for (int mm = 0; mm < sm.lay.mpad; ++mm) {
+    if (sm.qi[mm] >= 0) last = mm;
+  }
+  return (last + 8) >> 3;
+}
+
+// One tile's dots: acc[mt][n] is the m16 x n8 block of slots
+// 32 w + 16 mt + (0..15) and queries 8 n + (0..7), summed over every chunk
+// of D (each chunk's three plane products on the tensor cores, the chunks'
+// partial dots in fp32 on the CUDA cores). `item` counts ring stages
+// consumed.
+// `mtl` live m16 tiles of this warp, `ntl` live n8 tiles of the row.
+template <typename T>
+__device__ __forceinline__ void tile_mma(float (&acc)[2][8][4], const Smem& sm,
+                                         int& item, int nchunks, int mtl,
+                                         int ntl) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;   // fragment row group
+  const int c4 = lane & 3;   // owns elements 16 c4 .. 16 c4 + 15 of a chunk
+  const int mpad = sm.lay.mpad;
+  const int sstride = slot_stride(sizeof(T));
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+
+  for (int c = 0; c < nchunks; ++c, ++item) {
+    const int stage = item % sm.lay.stages;
+    mbar_wait(&sm.full[stage], (item / sm.lay.stages) & 1);
+    const unsigned char* xs = sm.slots(stage);
+    const __nv_bfloat16* qp = sm.planes(stage);
+
+    // A fragments of the four k-steps: a[mt][j] for rows g and g + 8
+    uint32_t a[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt < mtl) {
+        const int r0 = 32 * warp + 16 * mt + g;
+        if constexpr (sizeof(T) == 1) {
+          const uint4 x0 = *reinterpret_cast<const uint4*>(
+              xs + r0 * sstride + 16 * c4);
+          const uint4 x1 = *reinterpret_cast<const uint4*>(
+              xs + (r0 + 8) * sstride + 16 * c4);
+          const uint32_t w0[4] = {x0.x, x0.y, x0.z, x0.w};
+          const uint32_t w1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            i8x4_to_bf16(w0[j], a[mt][j][0], a[mt][j][2]);
+            i8x4_to_bf16(w1[j], a[mt][j][1], a[mt][j][3]);
+          }
+        } else {
+          const uint4* p0 = reinterpret_cast<const uint4*>(
+              xs + r0 * sstride + 32 * c4);
+          const uint4* p1 = reinterpret_cast<const uint4*>(
+              xs + (r0 + 8) * sstride + 32 * c4);
+          const uint4 x0a = p0[0], x0b = p0[1], x1a = p1[0], x1b = p1[1];
+          const uint32_t w0[8] = {x0a.x, x0a.y, x0a.z, x0a.w,
+                                  x0b.x, x0b.y, x0b.z, x0b.w};
+          const uint32_t w1[8] = {x1a.x, x1a.y, x1a.z, x1a.w,
+                                  x1b.x, x1b.y, x1b.z, x1b.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            a[mt][j][0] = w0[2 * j];
+            a[mt][j][2] = w0[2 * j + 1];
+            a[mt][j][1] = w1[2 * j];
+            a[mt][j][3] = w1[2 * j + 1];
+          }
+        }
+      }
+    }
+    if (mtl > 0) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (n < ntl) {
+          // The chunk's dot in a fresh accumulator, lo and mid planes
+          // first, then added to acc on the CUDA cores (round to nearest):
+          // the tensor cores' accumulating adds truncate, so one
+          // accumulator over all of D would lose about an ulp of the whole
+          // dot per mma.
+          float part[2][4] = {};
+#pragma unroll
+          for (int p = 2; p >= 0; --p) {
+            const uint4* bp = reinterpret_cast<const uint4*>(
+                qp + (p * mpad + 8 * n + g) * kQStride + 16 * c4);
+            const uint4 ba = bp[0], bb = bp[1];
+            const uint32_t b[8] = {ba.x, ba.y, ba.z, ba.w,
+                                   bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                if (mt < mtl) mma_bf16(part[mt], a[mt][j], b[2 * j],
+                                       b[2 * j + 1]);
+              }
+            }
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][n][e] += part[mt][e];
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[stage]);
+  }
+}
+
+// The tile's distances into sm.dist[mm][t] (t < nt; scale, anchor, |x|^2
+// and the metric applied as flat_distance does), for this warp's live m16
+// tiles and the row's live n8 tiles. The caller brackets it with
+// consumer_sync().
+__device__ __forceinline__ void tile_distances(
+    const Smem& sm, const float (&acc)[2][8][4], const float* __restrict__ sq_l,
+    const float* __restrict__ sc_l, int s0, int nt, int mtl, int ntl,
+    int metric) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    if (mt < mtl) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = 32 * warp + 16 * mt + g + 8 * h;
+        const bool valid = t < nt;
+        const float xsq = valid ? sq_l[s0 + t] : 0.f;
+        const float sc = (valid && sc_l != nullptr) ? sc_l[s0 + t] : 1.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          if (n < ntl) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int mm = 8 * n + 2 * c4 + e;
+              sm.dist[mm * kSStride + t] =
+                  valid ? flat_distance(metric,
+                                        acc[mt][n][2 * h + e] * sc + sm.qa[mm],
+                                        sm.qsq[mm], xsq)
+                        : INFINITY;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// Live m16 tiles of this warp in a tile of nt slots.
+__device__ __forceinline__ int live_slot_tiles(int nt) {
+  const int base = 32 * (threadIdx.x >> 5);
+  return nt > base + 16 ? 2 : (nt > base ? 1 : 0);
+}
+
+}  // namespace tc
+}  // namespace vdb

@@ -27,6 +27,18 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
+# The library's C interface: argument kinds (``p`` a pointer or the stream,
+# ``i`` an int) and the result kind of each exported function, in the order
+# of its prototype in ``csrc/*.cu``.
+SIGNATURES = {
+    "vdb_grouped_scan": ("p" * 11 + "i" * 10 + "p", "i"),
+    "vdb_grouped_scan_max_m": ("ii", "i"),
+    "vdb_grouped_pq_scan": ("p" * 10 + "i" * 11 + "p", "i"),
+    "vdb_grouped_pq_scan_max_m": ("i", "i"),
+    "vdb_sorted_scan": ("p" * 10 + "i" * 10 + "p", "i"),
+    "vdb_sorted_scan_max_m": ("ii", "i"),
+    "vdb_pair_scan": ("p" * 6 + "i" * 8 + "p", "i"),
+}
 
 
 def find_nvcc() -> str:
@@ -107,21 +119,12 @@ def build_library(build_root: Path = BUILD_ROOT) -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with its C signatures
-    declared (pointers and the stream as ``c_void_p``)."""
+    (:data:`SIGNATURES`) declared (pointers and the stream as
+    ``c_void_p``)."""
     lib = ctypes.CDLL(str(build_library()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vdb_grouped_scan.argtypes = [p] * 10 + [i] * 9 + [p]
-    lib.vdb_grouped_scan.restype = i
-    lib.vdb_grouped_scan_max_m.argtypes = [i, i]
-    lib.vdb_grouped_scan_max_m.restype = i
-    lib.vdb_grouped_pq_scan.argtypes = [p] * 10 + [i] * 11 + [p]
-    lib.vdb_grouped_pq_scan.restype = i
-    lib.vdb_grouped_pq_scan_max_m.argtypes = [i]
-    lib.vdb_grouped_pq_scan_max_m.restype = i
-    lib.vdb_sorted_scan.argtypes = [p] * 9 + [i] * 9 + [p]
-    lib.vdb_sorted_scan.restype = i
-    lib.vdb_sorted_scan_max_m.argtypes = [i, i]
-    lib.vdb_sorted_scan_max_m.restype = i
-    lib.vdb_pair_scan.argtypes = [p] * 6 + [i] * 8 + [p]
-    lib.vdb_pair_scan.restype = i
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    for name, (args, res) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [kinds[a] for a in args]
+        fn.restype = kinds[res]
     return lib

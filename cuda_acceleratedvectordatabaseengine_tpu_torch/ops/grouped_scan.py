@@ -12,7 +12,10 @@ smallest per (query, list); an epilogue takes the final top-k over
 Two implementations of the per-row step sit side by side:
 
 - :func:`_grouped_rows_cuda` launches the hand-written Hopper kernel in
-  ``csrc/grouped_scan.cu`` and adds one to :data:`LAUNCHES` per launch;
+  ``csrc/grouped_scan.cu`` and adds one to :data:`LAUNCHES` per launch; on
+  int8 and bf16 arenas it first splits the fp32 queries into three bf16
+  planes (:func:`split_query_bf16x3`), which the kernel multiplies with
+  the codes on the tensor cores (exact products, fp32 sums);
 - :func:`_grouped_rows_reference` is the plain PyTorch version of the same
   function.
 
@@ -200,10 +203,28 @@ def _grouped_rows_reference(q, arena, arena_sq, counts, row_list, qrow_table,
     return out_d, out_s
 
 
+def split_query_bf16x3(q: torch.Tensor) -> torch.Tensor:
+    """The query's three bf16 planes ``[3, B, D]``: hi = bf16(q), mid =
+    bf16(q - hi), lo = bf16(q - hi - mid). Both differences are exact in
+    fp32 and hi + mid + lo == q exactly (three 8-bit significands cover
+    fp32's 24, barring underflow far below any distance that matters), so
+    the three bf16 products with an int8 or bf16 code are exact and their
+    fp32 sum is the dot up to fp32 accumulation: what the tensor-core scans
+    (K1, K3) compute."""
+    q = q.float()
+    hi = q.to(torch.bfloat16)
+    r = q - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
+
+
 def kernel_max_m(dim: int, arena_dtype: torch.dtype) -> int:
     """Widest list-row the CUDA kernel takes at this dimension and arena
-    dtype: its M queries and one slot tile must fit the 227 KB of shared
-    memory of one CTA. Builds the kernel library if needed."""
+    dtype: 64 on int8 / bf16 arenas (the tensor-core kernel stages D in
+    chunks), on fp32 arenas the most fp32 query rows that fit the 227 KB of
+    shared memory of one CTA beside a slot tile. Builds the kernel library
+    if needed."""
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops._build import (
         load_library,
     )
@@ -269,6 +290,15 @@ def check_list_row_args(check, q, arena, arena_sq, counts, row_list, table,
           f"bound at D={dim}, {arena.dtype}")
 
 
+def query_planes(q: torch.Tensor, arena_dtype: torch.dtype):
+    """The ``[3, B, D]`` bf16 planes the tensor-core kernels read (int8 /
+    bf16 arenas, contiguous), None for an fp32 arena (the CUDA-core
+    kernel reads the fp32 queries)."""
+    if arena_dtype == torch.float32:
+        return None
+    return split_query_bf16x3(q).contiguous()
+
+
 def _grouped_rows_cuda(q, arena, arena_sq, counts, row_list, qrow_table, k,
                        metric, cap_s, arena_scale=None, arena_anchors=None):
     """Launch the hand-written kernel (same contract as
@@ -292,6 +322,7 @@ def _grouped_rows_cuda(q, arena, arena_sq, counts, row_list, qrow_table, k,
 
     out_d = torch.empty((n_rows, m, k), dtype=torch.float32, device=dev)
     out_s = torch.empty((n_rows, m, k), dtype=torch.int32, device=dev)
+    planes = query_planes(q, arena.dtype)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -299,10 +330,10 @@ def _grouped_rows_cuda(q, arena, arena_sq, counts, row_list, qrow_table, k,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = load_library().vdb_grouped_scan(
-            ptr(q), ptr(arena), ptr(arena_sq), ptr(arena_scale),
+            ptr(q), ptr(planes), ptr(arena), ptr(arena_sq), ptr(arena_scale),
             ptr(arena_anchors), ptr(counts), ptr(row_list), ptr(qrow_table),
-            ptr(out_d), ptr(out_s), n_rows, m, dim, nlist, cap, cap_s, k,
-            _METRIC_IDS[metric], _DTYPE_IDS[arena.dtype], stream,
+            ptr(out_d), ptr(out_s), n_rows, q.shape[0], m, dim, nlist, cap,
+            cap_s, k, _METRIC_IDS[metric], _DTYPE_IDS[arena.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"grouped-scan kernel launch failed: cudaError {err}")

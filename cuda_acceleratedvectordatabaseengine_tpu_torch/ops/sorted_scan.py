@@ -15,6 +15,9 @@ of the step sit side by side:
 
 - :func:`_sorted_rows_cuda` launches the hand-written Hopper kernel in
   ``csrc/full_row_scan.cu`` and adds one to :data:`LAUNCHES` per launch;
+  on int8 and bf16 arenas it passes the query's three bf16 planes
+  (``grouped_scan.split_query_bf16x3``), which the kernel multiplies with
+  the codes on the tensor cores (exact products, fp32 sums);
 - :func:`_sorted_rows_reference` is the plain PyTorch version.
 
 :func:`scan_probed_lists_sorted` takes the plain version for CPU tensors and
@@ -43,6 +46,7 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_scan import (
     _pack_pairs_into_rows,
     auto_m_budget,
     check_list_row_args,
+    query_planes,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import merge_topk
 
@@ -147,8 +151,9 @@ def _sorted_rows_reference(q, arena, arena_sq, counts, row_list, pair_table,
 
 def kernel_max_m(dim: int, arena_dtype: torch.dtype) -> int:
     """Widest list-row the CUDA kernel takes at this dimension and arena
-    dtype (its M queries and one slot tile fit one CTA's shared memory).
-    Builds the kernel library if needed."""
+    dtype: 64 on int8 / bf16 arenas (tensor cores, D staged in chunks), on
+    fp32 arenas the most fp32 query rows that fit one CTA's shared memory
+    beside a slot tile. Builds the kernel library if needed."""
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops._build import (
         load_library,
     )
@@ -189,6 +194,7 @@ def _sorted_rows_cuda(q, arena, arena_sq, counts, row_list, pair_table,
     n_rows, m = pair_table.shape
 
     out = torch.empty((n_pairs, cap_s), dtype=torch.float32, device=dev)
+    planes = query_planes(q, arena.dtype)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -196,9 +202,9 @@ def _sorted_rows_cuda(q, arena, arena_sq, counts, row_list, pair_table,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = load_library().vdb_sorted_scan(
-            ptr(q), ptr(arena), ptr(arena_sq), ptr(arena_scale),
+            ptr(q), ptr(planes), ptr(arena), ptr(arena_sq), ptr(arena_scale),
             ptr(arena_anchors), ptr(counts), ptr(row_list), ptr(pair_table),
-            ptr(out), n_rows, m, dim, nlist, cap, cap_s, nprobe,
+            ptr(out), n_rows, q.shape[0], m, dim, nlist, cap, cap_s, nprobe,
             _METRIC_IDS[metric], _DTYPE_IDS[arena.dtype], stream,
         )
     if err != 0:

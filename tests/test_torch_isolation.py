@@ -126,3 +126,31 @@ def test_kernel_sources_are_hashed(tmp_path, monkeypatch):
     with open(csrc / "grouped_common.cuh", "a") as f:
         f.write("// edited\n")
     assert _build.source_hash() != h
+
+
+def _c_prototypes():
+    """``{name: (argument kinds, result kind)}`` of every exported function
+    in ``csrc/*.cu`` (``p`` a pointer, ``i`` an int)."""
+    import re
+
+    protos = {}
+    for src in _build.CSRC.glob("*.cu"):
+        body = src.read_text().split('extern "C" {', 1)[1]
+        for res, name, params in re.findall(
+                r"^(int|void\*?)\s+(vdb_\w+)\(([^)]*)\)\s*\{", body, re.M):
+            kinds = "".join("p" if "*" in a else "i"
+                            for a in params.split(",") if a.strip())
+            protos[name] = (kinds, "p" if "*" in res else "i")
+    return protos
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_ctypes_signature_matches_the_c_prototype(name):
+    """The ctypes declaration of each kernel entry point takes the
+    arguments its C prototype takes: a mismatch would pass garbage to the
+    kernel on the card, where no CPU test reaches."""
+    assert _c_prototypes()[name] == _build.SIGNATURES[name]
+
+
+def test_every_c_entry_point_is_declared():
+    assert set(_c_prototypes()) == set(_build.SIGNATURES)
