@@ -11,15 +11,22 @@ fails (non-zero exit, no result line) when any phase fails:
 2. K1 vs plain: the grouped-scan kernel against its plain PyTorch version
    on the card, at the main-path shape, at a raw bf16 arena of that
    geometry and at small shapes that cover every metric, arena dtype and
-   edge case; both times. Here and in phases 2c, 5 and 11b, each K1 / K3
-   result's distances are also held against float64: a kernel's distance
-   outside the tolerance ``RTOL · |d| + ATOL_QSQ · ‖q‖²`` fails the run,
-   and the worst share of it per scan is printed before the report;
-2b. K2 vs plain: the grouped ADC kernel against its plain version, on small
+   edge case; both times. Here and in phases 2b, 2c, 5, 8 and 11b, each
+   kernel result's distances are also held against float64: a kernel's
+   distance outside the tolerance ``RTOL · |d| + ATOL_QSQ · ‖q‖²`` fails
+   the run, and the worst share of it per scan is printed before the
+   report;
+2b. K2 vs plain: the grouped ADC scan (table kernel, then the query-major
+   table-lookup scan) against its plain decode-and-dot version, on small
    cases (IP, -1 probes, short lists, ``k_inner``, emit_full, the
-   scan-capacity prefix, a hot list, D 30 with m 6, k 64) and at the
-   IVF-PQ main shape in top-k (k 10) and emit_full (keep 40) modes; both
-   times;
+   scan-capacity prefix, a hot list, D 30 with m 6, k 64, a batch in
+   several query chunks, capacities off the 128-slot warp step and off a
+   multiple of 4, an m whose table does not fit shared memory) and at the
+   IVF-PQ main shape in top-k (k 10), ``k_inner`` and emit_full (keep 40)
+   modes, with both times, the table kernel's own time and the bound of
+   what the function needs (tables and m adds a pair-slot; the bound of
+   the decode-and-dot formulation beside it) and the scan at 4 to 32
+   probes a CTA; then B 1 and B 16 of the main shape;
 3. README quick start through the port (bf16 arena, 100K x 128);
 4. the IVF-Flat main path at a deployment size (default 1M x 768, int8
    residual, nlist 1024): ``train_from_device``, ``append_balanced`` in
@@ -43,11 +50,13 @@ fails (non-zero exit, no result line) when any phase fails:
 10. a small OPQ index (100K x 768, nlist 256) beside plain PQ: the rotation
    must be an isometry (max|R^T R - I| <= 2e-5); ADC-only recall of both;
 2c. K3 (sorted full-row scan) and K4 (pair full-row scan) against their
-   plain versions on small cases (every metric, int8 with scale +- anchor,
-   bf16 / fp32, -1 probes, short lists, the scan-capacity prefix, a hot
-   list, slot striping, k 100) and at the main shapes (K3 on the int8
-   geometry of phase 4 and on a raw bf16 arena of it, K4 on the bf16
-   arena): rows and top-k, both times and the roofline bound;
+   plain versions on small cases (every metric, int8 with scale +- anchor
+   for K3 and as raw codes for K4, bf16 / fp32, -1 probes, short lists, the
+   scan-capacity prefix, a hot list, slot striping, k 100, D 30 / D 100)
+   and at the main shapes (K3 on the int8 geometry of phase 4 and on a raw
+   bf16 arena of it; K4 on the bf16 arena, on raw int8 and on fp32): rows
+   and top-k, both times and the roofline bound (K4's ``ms`` spans its
+   wrapper, pair packing included; ``packed_ms`` the launch alone);
 11. IVF-Flat through the scan names of K3 and K4 at full width, run right
    after phase 6 on the phase-4 index: ``"pallas_sorted"`` (K3) at the
    calibrated nprobe and 32, equal to K1's results, recall@10 >= 0.95; a
@@ -104,10 +113,10 @@ K4_REPLACES = "cuda_acceleratedvectordatabaseengine_tpu/ops/pallas_scan.py:844"
 RTOL = 1e-5          # distance tolerance, relative ...
 ATOL_QSQ = 1e-5      # ... plus this × ‖q‖² (fp32 sums in another order)
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): fp32 on the
-# CUDA cores (K2's dots against decoded fp32 codebooks, and K1 / K3 on fp32
-# arenas run there), dense bf16 on the tensor cores (K1 and K3 on int8 and
-# bf16 arenas run there as three exact bf16 products per multiply-add; K4's
-# operands are as exact), and HBM3 bandwidth.
+# CUDA cores (K2's dots of fp32 queries with fp32 codebook entries, however
+# the kernel sums them, and K1 / K3 / K4 on fp32 arenas run there), dense
+# bf16 on the tensor cores (K1, K3 and K4 on int8 and bf16 arenas run there
+# as three exact bf16 products per multiply-add), and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 BF16_PLANES = 3      # hi / mid / lo bf16 planes of an fp32 query
@@ -128,18 +137,22 @@ def ptxas_summary(nvcc_log: str) -> dict:
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", nvcc_log)]
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
                                          nvcc_log)]
-    # per kernel of the tensor-core flat scans: registers, spill stores
-    tensor_core = {}
+    # per kernel of the tensor-core flat scans (K1, K3, K4) and of the ADC
+    # scan (K2: table kernel, table-lookup scan): registers, spill stores
+    tensor_core, adc = {}, {}
     for block in nvcc_log.split("Compiling entry function")[1:]:
-        name = re.search(r"((?:grouped|sorted)_scan_tc_kernel)I(\w+?)E+vPK",
-                         block)
+        name = re.search(
+            r"\d+((?:grouped|sorted)_scan_tc_kernel|pq_table_scan_kernel|"
+            r"pq_table_kernel)(?:I(\w+?)E+vPK|EPK)", block)
         used = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         if name and used:
-            # mangled template arguments: a = int8, Li<n> = an int
-            targs = re.sub(r"Li(\d+)", r",\1", name.group(2).replace(
-                "13__nv_bfloat16", "bf16").replace("a", "int8", 1))
-            tensor_core[f"{name.group(1)}<{targs}>"] = [
+            # mangled template arguments: a = int8, Li<n> / Lb<n> literals
+            targs = (name.group(2) or "").replace("13__nv_bfloat16", "bf16,")
+            targs = re.sub(r"^a", "int8,", targs)
+            targs = re.sub(r"L[ib](\d+)E?", r"\1,", targs).strip(",")
+            into = adc if name.group(1).startswith("pq_") else tensor_core
+            into[f"{name.group(1)}<{targs}>"] = [
                 int(used.group(1)), int(spill.group(1)) if spill else None]
     return {
         "ptxas_functions": len(regs),
@@ -148,6 +161,7 @@ def ptxas_summary(nvcc_log: str) -> dict:
         "functions_spilling": sum(s > 0 for s in spills),
         "spill_store_bytes_max": max(spills, default=None),
         "tensor_core_kernels": tensor_core,
+        "adc_kernels": adc,
     }
 
 
@@ -306,42 +320,20 @@ def make_scan_case(gen, dev, *, nlist, cap, dim, batch, nprobe, dtype,
 F64_WORST: dict[str, float] = {}
 
 
-def f64_distance_error(case, d, pos, metric, who=None) -> dict:
-    """How far a flat scan's top-k distances lie from the same distances
-    recomputed in float64 (q . code and q . anchor in float64; the stored
-    norms and scales as given), over the finite entries of ``(d, pos)``,
-    positions ``list · cap + slot``: the largest absolute difference, the
-    largest over ‖q‖², and the largest share of the scans' tolerance
-    ``RTOL · |d| + ATOL_QSQ · ‖q‖²``. ``who`` names the scan in
-    :data:`F64_WORST`; a kernel's distances outside the tolerance raise."""
-    import torch
-
+def _f64_report(d, qx, qsq, xsq, metric, who) -> dict:
+    """The tail of the float64 checks: fp32 distances ``d`` against the
+    float64 ``qx``, ``‖q‖²`` and ``|x|²`` of the same entries."""
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
         Metric,
     )
 
-    arena = case["arena"]
-    cap = arena.shape[1]
-    pos = pos.long()
-    ok = (pos >= 0) & torch.isfinite(d)
-    b = torch.arange(pos.shape[0], device=pos.device)[:, None].expand_as(
-        pos)[ok]
-    lst, slot = pos[ok] // cap, pos[ok] % cap
-    qb = case["q"].double()[b]
-    qx = (qb * arena[lst, slot].double()).sum(1)
-    if case["arena_scale"] is not None:
-        qx = qx * case["arena_scale"][lst, slot].double()
-    if case["arena_anchors"] is not None:
-        qx = qx + (qb * case["arena_anchors"][lst].double()).sum(1)
-    qsq = (qb * qb).sum(1)
     if metric == Metric.L2:
-        d64 = (qsq - 2.0 * qx + case["arena_sq"][lst, slot].double()).clamp(
-            min=0.0)
+        d64 = (qsq - 2.0 * qx + xsq).clamp(min=0.0)
     elif metric == Metric.INNER_PRODUCT:
         d64 = -qx
     else:
         d64 = 1.0 - qx
-    err = (d[ok].double() - d64).abs()
+    err = (d.double() - d64).abs()
     if not err.numel():
         return {"max_abs": 0.0, "max_over_qsq": 0.0, "max_share_of_tol": 0.0}
     share = float((err / (RTOL * d64.abs() + ATOL_QSQ * qsq)).max())
@@ -353,6 +345,59 @@ def f64_distance_error(case, d, pos, metric, who=None) -> dict:
     return {"max_abs": float(err.max()),
             "max_over_qsq": float((err / qsq.clamp(min=1e-30)).max()),
             "max_share_of_tol": share}
+
+
+def _topk_entries(case, d, pos, cap):
+    """The finite entries of a top-k result ``(d, pos)``, positions ``list ·
+    cap + slot``: their distances, float64 queries, lists and slots."""
+    import torch
+
+    pos = pos.long()
+    ok = (pos >= 0) & torch.isfinite(d)
+    b = torch.arange(pos.shape[0], device=pos.device)[:, None].expand_as(
+        pos)[ok]
+    return d[ok], case["q"].double()[b], pos[ok] // cap, pos[ok] % cap
+
+
+def f64_distance_error(case, d, pos, metric, who=None,
+                       block_norms=False) -> dict:
+    """How far a flat scan's top-k distances lie from the same distances
+    recomputed in float64 (q . code and q . anchor in float64; the stored
+    norms and scales as given), over the finite entries of ``(d, pos)``,
+    positions ``list · cap + slot``: the largest absolute difference, the
+    largest over ‖q‖², and the largest share of the scans' tolerance
+    ``RTOL · |d| + ATOL_QSQ · ‖q‖²``. ``block_norms`` (K4): the stored
+    values alone, |x|² from them in float64, no scale, no anchor. ``who``
+    names the scan in :data:`F64_WORST`; a kernel's distances outside the
+    tolerance raise."""
+    arena = case["arena"]
+    dk, qb, lst, slot = _topk_entries(case, d, pos, arena.shape[1])
+    x = arena[lst, slot].double()
+    qx = (qb * x).sum(1)
+    if block_norms:
+        xsq = (x * x).sum(1)
+    else:
+        if case["arena_scale"] is not None:
+            qx = qx * case["arena_scale"][lst, slot].double()
+        if case["arena_anchors"] is not None:
+            qx = qx + (qb * case["arena_anchors"][lst].double()).sum(1)
+        xsq = case["arena_sq"][lst, slot].double()
+    return _f64_report(dk, qx, (qb * qb).sum(1), xsq, metric, who)
+
+
+def pq_f64_distance_error(case, d, pos, metric, who=None) -> dict:
+    """:func:`f64_distance_error` for the ADC scan (K2): q . centroid and
+    q . (decoded residual) in float64, the stored ``code_sq`` as given."""
+    import torch
+
+    codes_t, cb = case["codes_t"], case["cb"]
+    msub = codes_t.shape[1]
+    dk, qb, lst, slot = _topk_entries(case, d, pos, codes_t.shape[2])
+    codes = codes_t[lst, :, slot].long()                          # [n, j]
+    dec = cb.double()[torch.arange(msub, device=cb.device)[None, :], codes]
+    x = dec.reshape(dec.shape[0], -1) + case["cen"].double()[lst]
+    return _f64_report(dk, (qb * x).sum(1), (qb * qb).sum(1),
+                       case["code_sq"][lst, slot].double(), metric, who)
 
 
 def check_scan_case(name, case, k, metric, m_budget=None, scan_capacity=None,
@@ -575,11 +620,16 @@ def compare_full_rows(rk, rp, atol: float) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def check_pq_case(name, case, k, metric, m_budget=None, scan_capacity=None,
-                  k_inner=None, emit_full=False, time_it=False):
+def check_pq_case(name, case, k, metric, scan_capacity=None, k_inner=None,
+                  emit_full=False, time_it=False, label="phase2b",
+                  table_bytes=None):
     """K2 against its plain version on one case (whole scan, and with
-    ``time_it`` the per-row step alone, with both times); raises on
-    disagreement."""
+    ``time_it`` the row step alone: table kernel and scan kernel, with both
+    times, and the table kernel on its own); raises on disagreement. The
+    kernel's distances, and the plain version's, are also held against
+    float64. ``table_bytes`` lowers the wrapper's bound on the table
+    transient for this case, so that a small batch goes through in several
+    query chunks."""
     import torch
 
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
@@ -592,9 +642,17 @@ def check_pq_case(name, case, k, metric, m_budget=None, scan_capacity=None,
 
     args = (case["q"], case["codes_t"], case["code_sq"], case["counts"],
             case["cen"], case["cb"], case["probe"], k, metric)
-    kw = dict(m_budget=m_budget, scan_capacity=scan_capacity,
-              k_inner=k_inner, emit_full=emit_full)
-    d_k, p_k = gps.scan_probed_codes_grouped(*args, **kw)
+    kw = dict(scan_capacity=scan_capacity, k_inner=k_inner,
+              emit_full=emit_full)
+    launches0, bound = gps.LAUNCHES, gps.TABLE_BYTES
+    try:
+        gps.TABLE_BYTES = table_bytes or bound
+        d_k, p_k = gps.scan_probed_codes_grouped(*args, **kw)
+    finally:
+        gps.TABLE_BYTES = bound
+    chunks = gps.LAUNCHES - launches0
+    if table_bytes and chunks < 2:
+        raise AssertionError(f"{name}: the batch went through in one chunk")
     torch.cuda.synchronize()
     d_p, p_p = gps.scan_probed_codes_grouped_reference(*args, **kw)
     q = case["q"]
@@ -602,63 +660,106 @@ def check_pq_case(name, case, k, metric, m_budget=None, scan_capacity=None,
     cmp = assert_topk_match(d_k.cpu().numpy(), p_k.cpu().numpy(),
                             d_p.cpu().numpy(), p_p.cpu().numpy(),
                             rtol=RTOL, atol=atol)
+    nlist, msub, cap = case["codes_t"].shape
+    dim = msub * case["cb"].shape[2]
+    batch, nprobe = case["probe"].shape
     out = {"case": name, "k": k, "mode": "emit_full" if emit_full else (
         "k_inner" if k_inner else "topk"), "max_abs_err": cmp.max_abs_err,
         "id_differences_at_ties": cmp.n_id_differences,
-        "entries": cmp.n_entries}
+        "entries": cmp.n_entries, "query_chunks": chunks,
+        "table_in_smem": gps.table_fits_smem(msub, dim),
+        "f64_err": pq_f64_distance_error(case, d_k, p_k, metric, "K2"),
+        "plain_f64_err": pq_f64_distance_error(case, d_p, p_p, metric,
+                                               "K2 plain")}
     if time_it:
-        nlist, msub, cap = case["codes_t"].shape
-        dim = msub * case["cb"].shape[2]
-        batch, nprobe = case["probe"].shape
-        m = min(m_budget or gs.auto_m_budget(batch * nprobe, nlist),
-                gps.kernel_max_m(dim))
-        pack = gs._pack_pairs_into_rows(
-            case["probe"], nlist, m, gs._n_rows_bound(batch * nprobe, nlist,
-                                                      m))
         cap_s = gs._effective_cap(cap, scan_capacity)
-        rows_args = (q.contiguous(), case["codes_t"], case["code_sq"],
-                     case["counts"], case["cen"], case["cb"], pack.row_list,
-                     pack.qrow_table, k, metric, cap_s)
-        rk = gps._grouped_pq_rows_cuda(*rows_args, emit_full=emit_full)
-        rp = gps._grouped_pq_rows_reference(*rows_args, emit_full=emit_full)
-        n_rows = pack.row_list.shape[0]
+        ki = k if k_inner is None or emit_full else min(
+            max(k_inner, -(-k // nprobe)), cap_s, k)
+        qc = q.contiguous()
+        rows_args = (qc, case["codes_t"], case["code_sq"], case["counts"],
+                     case["cen"], case["cb"], case["probe"], ki, metric,
+                     cap_s)
+        rk = gps._pq_pair_rows_cuda(*rows_args, emit_full=emit_full)
+        rp = gps._pq_pair_rows_reference(*rows_args, emit_full=emit_full)
         if emit_full:
             rows_err = compare_full_rows(rk[0], rp[0], float(atol.max()))
         else:
             rows_err = assert_topk_match(
-                rk[0].reshape(n_rows * m, k).cpu().numpy(),
-                rk[1].reshape(n_rows * m, k).cpu().numpy(),
-                rp[0].reshape(n_rows * m, k).cpu().numpy(),
-                rp[1].reshape(n_rows * m, k).cpu().numpy(),
+                rk[0].cpu().numpy(), rk[1].cpu().numpy(),
+                rp[0].cpu().numpy(), rp[1].cpu().numpy(),
                 rtol=RTOL, atol=float(atol.max())).max_abs_err
+        tk, tp = gps._pq_tables_cuda(qc, case["cb"]), gps._pq_tables_reference(
+            qc, case["cb"])
+        table_err = float((tk - tp).abs().max())
+        if table_err > float(atol.max()):
+            raise AssertionError(f"{name}: table kernel differs from its "
+                                 f"plain version by {table_err}")
         pair_slots, list_slots, n_lists = scan_work(
             case["probe"], case["counts"], cap_s)
-        flops = 2 * dim * pair_slots
+        # What the function needs: the tables (2·dsub operations an entry,
+        # B·m·256 entries) and m adds per (pair, occupied slot); each input
+        # (codes and norms of the distinct probed lists, their centroids,
+        # codebooks, queries) read once and the output written once. The
+        # table is the kernels' own intermediate and counts no bytes.
+        dsub = dim // msub
+        flops = 2 * dsub * tk.numel() + msub * pair_slots
         nbytes = ((msub + 4) * list_slots
                   + (case["cb"].numel() + n_lists * dim + q.numel()) * 4
-                  + batch * nprobe * (cap_s * 4 if emit_full else k * 8))
+                  + batch * nprobe * (cap_s * 4 if emit_full else ki * 8))
+        # beside it, labelled: the bound of the decode-and-dot formulation
+        # (2·D operations per pair-slot, the table written and read once),
+        # which the kernel's table lookups do not have to meet
+        decode_dot = roofline(2 * dim * pair_slots,
+                              nbytes + 2 * tk.numel() * 4)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         out.update(
-            m=m, n_rows=n_rows, cap_s=cap_s, rows_max_abs_err=rows_err,
+            per_pair_k=ki, cap_s=cap_s, rows_max_abs_err=rows_err,
+            table_max_abs_err=table_err,
+            probes_per_cta=gps.probes_per_cta(batch, nprobe, sms),
             **roofline(flops, nbytes),
-            ms=cuda_ms(lambda: gps._grouped_pq_rows_cuda(
+            decode_dot_bound_ms=decode_dot["bound_ms"],
+            decode_dot_flops=decode_dot["flops"],
+            ms=cuda_ms(lambda: gps._pq_pair_rows_cuda(
                 *rows_args, emit_full=emit_full), 10),
-            plain_ms=cuda_ms(lambda: gps._grouped_pq_rows_reference(
-                *rows_args, emit_full=emit_full), 5),
+            table_ms=cuda_ms(lambda: gps._pq_tables_cuda(qc, case["cb"]),
+                             10),
+            table_plain_ms=cuda_ms(
+                lambda: gps._pq_tables_reference(qc, case["cb"]), 5),
+            plain_ms=cuda_ms(lambda: gps._pq_pair_rows_reference(
+                *rows_args, emit_full=emit_full), 3),
             scan_ms=cuda_ms(lambda: gps.scan_probed_codes_grouped(
                 *args, **kw), 10),
             scan_plain_ms=cuda_ms(
                 lambda: gps.scan_probed_codes_grouped_reference(*args, **kw),
-                5),
+                3),
         )
-    log("phase2b", json.dumps(out))
+        # the rule of `probes_per_cta` against fixed group sizes (the rule
+        # is replaced for these launches only, as TABLE_BYTES is above)
+        rule, by_ppc = gps.probes_per_cta, {}
+        try:
+            for ppc in (4, 8, 16, 32):
+                if ppc <= nprobe:
+                    gps.probes_per_cta = lambda *_, n=ppc: n
+                    by_ppc[str(ppc)] = cuda_ms(
+                        lambda: gps._pq_pair_rows_cuda(
+                            *rows_args, emit_full=emit_full), 10)
+        finally:
+            gps.probes_per_cta = rule
+        out["ms_by_probes_per_cta"] = by_ppc
+    log(label, json.dumps(out))
     return out
 
 
 def phase_pq_kernel_vs_plain(seed: int, dev) -> dict:
-    """K2 on small cases covering each metric, mode and edge, then at the
-    main shape of the IVF-PQ path (nlist 4096, m 96, D 768, cap 384, lists
-    filled as a 1M build fills them, B 512, nprobe 32) in top-k mode at
-    k 10 and in emit_full mode at keep 40, with both times."""
+    """K2 on small cases covering each metric, mode and edge (IP, -1
+    probes, short lists, ``k_inner``, emit_full, the scan-capacity prefix, a
+    hot list, an odd ``dsub``, a capacity that is no multiple of the
+    128-slot warp step and one that is no multiple of 4, k 64, an m whose
+    table does not fit shared memory), then at the main shape of the IVF-PQ
+    path (nlist 4096, m 96, D 768, cap 384, lists filled as a 1M build
+    fills them, B 512, nprobe 32) in top-k mode at k 10, in ``k_inner``
+    mode and in emit_full mode at keep 40, with both times, and on B 1 and
+    B 16 of its queries (probe groups down to one probe a CTA)."""
     import torch
 
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
@@ -671,7 +772,7 @@ def phase_pq_kernel_vs_plain(seed: int, dev) -> dict:
         ("l2_neg_short", dict(base, metric=Metric.L2, neg=True, short=True),
          dict(k=10)),
         ("ip_neg", dict(base, metric=Metric.INNER_PRODUCT, neg=True),
-         dict(k=10, m_budget=16)),
+         dict(k=10)),
         ("l2_k_inner", dict(base, metric=Metric.L2), dict(k=40, k_inner=4)),
         ("l2_emit_full_short", dict(base, metric=Metric.L2, short=True,
                                     neg=True), dict(k=40, emit_full=True)),
@@ -681,12 +782,33 @@ def phase_pq_kernel_vs_plain(seed: int, dev) -> dict:
                                   metric=Metric.L2),
          dict(k=10, scan_capacity=200)),
         ("l2_hot_list", dict(base, nlist=4, batch=256, nprobe=2, hot=True,
-                             metric=Metric.L2), dict(k=10, m_budget=16)),
+                             metric=Metric.L2), dict(k=10)),
         ("l2_dim30_m6", dict(base, msub=6, dsub=5, metric=Metric.L2,
-                             short=True), dict(k=7, m_budget=8)),
+                             short=True), dict(k=7)),
         ("l2_dim30_m6_full", dict(base, msub=6, dsub=5, metric=Metric.L2),
          dict(k=40, emit_full=True)),
         ("l2_k64", dict(base, metric=Metric.L2), dict(k=64)),
+        # a table bound of 5 queries: the batch goes through in chunks
+        ("l2_query_chunks", dict(base, metric=Metric.L2, neg=True),
+         dict(k=10, table_bytes=5 * 16 * 256 * 4)),
+        ("ip_query_chunks_full", dict(base, metric=Metric.INNER_PRODUCT),
+         dict(k=40, emit_full=True, table_bytes=5 * 16 * 256 * 4)),
+        # capacities off the 128-slot warp step: 200 (32-bit code loads) and
+        # 250 (no multiple of 4: byte loads, scalar row stores)
+        ("l2_cap200", dict(base, cap=200, metric=Metric.L2), dict(k=10)),
+        ("ip_cap200_full", dict(base, cap=200, metric=Metric.INNER_PRODUCT),
+         dict(k=40, emit_full=True)),
+        ("l2_cap250", dict(base, cap=250, metric=Metric.L2, neg=True),
+         dict(k=10)),
+        ("l2_cap250_full", dict(base, cap=250, metric=Metric.L2),
+         dict(k=40, emit_full=True)),
+        # m 256: a 256 KB table, read in place instead of from shared memory
+        ("l2_m256_table_in_place", dict(base, msub=256, dsub=2,
+                                        metric=Metric.L2, neg=True),
+         dict(k=10)),
+        ("ip_m256_table_in_place_full", dict(base, msub=256, dsub=2,
+                                             metric=Metric.INNER_PRODUCT),
+         dict(k=40, emit_full=True)),
     ]
     for name, spec, kw in small:
         k = kw.pop("k")
@@ -698,10 +820,20 @@ def phase_pq_kernel_vs_plain(seed: int, dev) -> dict:
     res = {
         "topk_k10": check_pq_case("main_topk_k10", main, 10, Metric.L2,
                                   time_it=True),
+        "k_inner4_keep40": check_pq_case("main_k_inner4_keep40", main, 40,
+                                         Metric.L2, k_inner=4, time_it=True),
         "emit_full_keep40": check_pq_case("main_emit_full_keep40", main, 40,
                                           Metric.L2, emit_full=True,
                                           time_it=True),
     }
+    for nb in (1, 16):
+        few = dict(main, q=main["q"][:nb].contiguous(),
+                   probe=main["probe"][:nb].contiguous())
+        res[f"b{nb}_topk_k10"] = check_pq_case(f"main_b{nb}_topk_k10", few,
+                                               10, Metric.L2)
+        res[f"b{nb}_emit_full_keep40"] = check_pq_case(
+            f"main_b{nb}_emit_full_keep40", few, 40, Metric.L2,
+            emit_full=True)
     del main
     torch.cuda.empty_cache()
     return res
@@ -753,10 +885,12 @@ def check_full_row_case(name, case, k, metric, kernel, m_budget=None,
            "max_abs_err": cmp.max_abs_err,
            "id_differences_at_ties": cmp.n_id_differences,
            "entries": cmp.n_entries}
-    if kernel == "sorted" and not striping:  # positions list · cap + slot
-        out.update(f64_err=f64_distance_error(case, d_k, p_k, metric, "K3"),
-                   plain_f64_err=f64_distance_error(case, d_p, p_p, metric,
-                                                    "K3 plain"))
+    if not striping:                         # positions list · cap + slot
+        who, block = ("K3", False) if kernel == "sorted" else ("K4", True)
+        out.update(
+            f64_err=f64_distance_error(case, d_k, p_k, metric, who, block),
+            plain_f64_err=f64_distance_error(case, d_p, p_p, metric,
+                                             f"{who} plain", block))
     if time_it:
         nlist, cap, dim = case["arena"].shape
         batch, nprobe = case["probe"].shape
@@ -778,6 +912,21 @@ def check_full_row_case(name, case, k, metric, kernel, m_budget=None,
                          metric, cap_s)
             rows_kw = {}
             kern, ref = ps._pair_rows_cuda, ps._pair_rows_reference
+        if kernel == "pairs" and case["arena"].dtype != torch.float32:
+            # int8 / bf16: the wrapper packs the pairs into list-rows (K3's
+            # packing) and launches the list-row kernel. `ms` below times
+            # the wrapper, packing included; `packed_ms` is the launch on
+            # rows packed beforehand (what K3's `ms` spans)
+            m = min(gs.auto_m_budget(batch * nprobe, nlist),
+                    ss.kernel_max_m(dim, case["arena"].dtype))
+            row_list, table = ss._pair_table(case["probe"], nlist, m)
+            packed = (qc, case["arena"], case["counts"], row_list, table,
+                      nprobe, batch * nprobe, metric, cap_s)
+            compare_full_rows(ps._pair_list_rows_cuda(*packed),
+                              kern(*rows_args), 0.0)
+            out.update(m=m, n_rows=int(row_list.shape[0]),
+                       packed_ms=cuda_ms(
+                           lambda: ps._pair_list_rows_cuda(*packed), 10))
         rows_err = compare_full_rows(kern(*rows_args, **rows_kw),
                                      ref(*rows_args, **rows_kw),
                                      float(atol.max()))
@@ -798,8 +947,9 @@ def phase_full_row_kernels_vs_plain(seed: int, dev) -> dict:
     anchor (K3), bf16 and fp32 arenas (K4), -1 probes, lists shorter than
     k, the scan-capacity prefix, a hot list over many pairs, slot striping
     and k 100; then at the main shapes: K3 on the IVF-Flat int8 geometry
-    (nlist 1024, cap 1408, D 768, B 1024, nprobe 32, k 10), K4 on a bf16
-    arena of the same geometry."""
+    (nlist 1024, cap 1408, D 768, B 1024, nprobe 32, k 10) and on a raw
+    bf16 arena of it, K4 on bf16, raw int8 and fp32 arenas of the same
+    geometry."""
     import torch
 
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
@@ -874,6 +1024,37 @@ def phase_full_row_kernels_vs_plain(seed: int, dev) -> dict:
         ("k4_l2_f32_k100_short", "pairs",
          dict(base, dtype=f32, metric=Metric.L2, short=True), 100, None,
          None, None),
+        # int8 scanned as raw code values (the scale is not read)
+        ("k4_l2_i8_raw_neg_short", "pairs",
+         dict(base, dtype=i8, metric=Metric.L2, anchors=False, neg=True,
+              short=True), 10, None, None, None),
+        ("k4_ip_i8_raw", "pairs",
+         dict(base, dtype=i8, metric=Metric.INNER_PRODUCT, anchors=False),
+         10, None, None, None),
+        ("k4_cos_f32", "pairs",
+         dict(base, dtype=f32, metric=Metric.COSINE), 10, None, None, None),
+        # D not a multiple of 8: the ring's element-wise fill, D ending
+        # inside a chunk, two slot tiles
+        ("k4_l2_i8_raw_dim100", "pairs",
+         dict(base, cap=300, dim=100, dtype=i8, metric=Metric.L2,
+              anchors=False, neg=True), 10, None, None, None),
+        ("k4_l2_bf16_dim30", "pairs",
+         dict(base, cap=300, dim=30, dtype=bf, metric=Metric.L2), 7, None,
+         None, None),
+        ("k4_cos_bf16_dim30", "pairs",
+         dict(base, cap=300, dim=30, dtype=bf, metric=Metric.COSINE), 7,
+         None, None, None),
+        # D 768: a hot list over many rows of the widest list-row, and IP
+        ("k4_l2_i8_raw_768_hot_list", "pairs",
+         dict(nlist=64, cap=512, dim=768, batch=512, nprobe=8, dtype=i8,
+              metric=Metric.L2, anchors=False, hot=True), 10, None, None,
+         None),
+        ("k4_ip_bf16_768", "pairs",
+         dict(nlist=64, cap=384, dim=768, batch=256, nprobe=8, dtype=bf,
+              metric=Metric.INNER_PRODUCT), 10, None, None, None),
+        ("k4_l2_f32_768", "pairs",
+         dict(nlist=64, cap=384, dim=768, batch=256, nprobe=8, dtype=f32,
+              metric=Metric.L2), 10, None, None, None),
     ]
     out = {"small_max_abs_err": {"sorted": 0.0, "pairs": 0.0}}
     for name, kernel, spec, k, m, scap, strp in small:
@@ -884,10 +1065,12 @@ def phase_full_row_kernels_vs_plain(seed: int, dev) -> dict:
         err[kernel] = max(err[kernel], res["max_abs_err"])
     for key, kernel, dtype, tag in (("k3", "sorted", i8, "int8_residual"),
                                     ("k3_bf16", "sorted", bf, "bf16_raw"),
-                                    ("k4", "pairs", bf, "bf16")):
+                                    ("k4", "pairs", bf, "bf16"),
+                                    ("k4_i8", "pairs", i8, "int8_raw"),
+                                    ("k4_f32", "pairs", f32, "f32")):
         main = make_scan_case(gen, dev, nlist=1024, cap=1408, dim=768,
                               batch=1024, nprobe=32, dtype=dtype,
-                              metric=Metric.L2)
+                              metric=Metric.L2, anchors=kernel != "pairs")
         name = f"main_{key.split('_')[0]}_{tag}_768"
         out[key] = check_full_row_case(name, main, 10,
                                        Metric.L2, kernel, time_it=True)
@@ -989,6 +1172,14 @@ K1_KERNEL_STAGES = (("grouped_scan_tc_kernel", "grouped_scan.rows"),
                     ("grouped_scan_kernel", "grouped_scan.rows"))
 K3_KERNEL_STAGES = (("sorted_scan_tc_kernel", "sorted_scan.rows"),
                     ("sorted_scan_kernel", "sorted_scan.rows"))
+# K4 runs K3's tensor-core kernel in its block-norm variant inside its own
+# range (int8 / bf16 arenas), its pair-per-CTA kernel on fp32 arenas
+K4_KERNEL_STAGES = (("sorted_scan_tc_kernel", "pair_scan.rows"),
+                    ("pair_scan_kernel", "pair_scan.rows"))
+K4_SEARCH_STAGES = ("ivf_flat.upload", "ivf_flat.coarse_probe",
+                    "pair_scan.rows", "pair_scan.topk", "ivf_flat.finalize")
+K2_KERNEL_STAGES = (("pq_table_scan_kernel", "grouped_pq_scan.rows"),
+                    ("pq_table_kernel", "grouped_pq_scan.rows"))
 # ... of one StreamingIVFFlatIndex.search (the scan's own ranges opened
 # once per wave) ...
 STREAM_STAGES = ("streaming.coarse_probe", "streaming.stage",
@@ -997,7 +1188,7 @@ STREAM_STAGES = ("streaming.coarse_probe", "streaming.stage",
                  "sorted_scan.topk", "streaming.merge")
 # ... and of one IVFPQIndex.search.
 PQ_SEARCH_STAGES = ("ivf_pq.upload", "ivf_pq.coarse_probe",
-                    "grouped_pq_scan.pack", "grouped_pq_scan.rows",
+                    "grouped_pq_scan.rows",
                     "grouped_pq_scan.epilogue", "ivf_pq.rerank",
                     "ivf_pq.finalize")
 
@@ -1381,6 +1572,17 @@ def phase_full_row_paths(args, dev, idx, q_np, truth, cal_nprobe, centers,
             got = serve(bidx, impl, f"{key}_{np_label}", nprobe, into="bf16")
             out["bf16"][f"{key}_{np_label}"].update(same_results(
                 f"bf16 {key} vs K1 at nprobe {nprobe}", got, k1, q_np))
+    # where a bf16 batch's time goes through K1 and through K4
+    out["bf16_traces"] = {}
+    for np_label, nprobe in (("auto", cal_nprobe), ("p32", 32)):
+        for impl, key, stages, kernels in (
+                ("auto", "k1", SEARCH_STAGES, K1_KERNEL_STAGES),
+                ("pallas", "k4", K4_SEARCH_STAGES, K4_KERNEL_STAGES)):
+            bidx.config.scan_impl = impl
+            out["bf16_traces"][f"{key}_{np_label}"] = trace_search(
+                bidx, q_np, vdb.SearchParams(nprobe=nprobe, k=k),
+                out["bf16"][f"{key}_{np_label}"]["ms_per_batch_median"],
+                stage_names=stages, kernel_stages=kernels)
     bidx.config.scan_impl = "auto"
     for tier in ("int8", "bf16"):
         for label, res in out[tier].items():
@@ -1704,12 +1906,17 @@ def check_index_pq_scan(idx, q_dev, nprobe, keep) -> dict:
     cmp = assert_topk_match(d_k.cpu().numpy(), p_k.cpu().numpy(),
                             d_p.cpu().numpy(), p_p.cpu().numpy(),
                             rtol=RTOL, atol=atol)
+    case = dict(q=q, codes_t=idx.code_arena_t, cb=idx.codebooks,
+                cen=idx.centroids, code_sq=idx.code_sq)
     return {
         "nprobe": nprobe, "keep": keep,
         "mode": "emit_full" if keep > 32 else "topk",
         "max_abs_err": cmp.max_abs_err,
         "id_differences_at_ties": cmp.n_id_differences,
         "entries": cmp.n_entries,
+        "f64_err": pq_f64_distance_error(case, d_k, p_k, Metric.L2, "K2"),
+        "plain_f64_err": pq_f64_distance_error(case, d_p, p_p, Metric.L2,
+                                               "K2 plain"),
         "scan_ms": cuda_ms(lambda: gps.scan_probed_codes_grouped(*args, **kw),
                            10),
         "scan_plain_ms": cuda_ms(
@@ -1736,15 +1943,14 @@ def phase_pq_index_checks(idx, queries, q_np, cal_nprobe, main_path,
                                         use_exact_rerank=rr),
             main_path[f"ms_per_batch_median_{label}"],
             stage_names=PQ_SEARCH_STAGES,
-            kernel_stages=(("grouped_pq_scan_kernel",
-                            "grouped_pq_scan.rows"),))
+            kernel_stages=K2_KERNEL_STAGES)
         log("phase9", label, json.dumps(out[f"trace_{label}"]))
     return out
 
 
 def phase_opq(args, dev) -> dict:
-    """A small OPQ index (100K×768, nlist 256, m 96) beside plain PQ on the
-    same anisotropic data: the learned rotation must be an isometry to
+    """A small OPQ index (100K×768, nlist 256, m 96, trained at half the
+    default depth) beside plain PQ on the same anisotropic data: the learned rotation must be an isometry to
     fp32 roundoff (max|RᵀR − I| ≤ 2e-5); ADC-only recall@10 of both."""
     import numpy as np
     import torch
@@ -1761,8 +1967,11 @@ def phase_opq(args, dev) -> dict:
     out = {"n": n, "nlist": nlist}
     for opq in (False, True):
         name = "opq" if opq else "pq"
+        # 20 Lloyd iterations instead of the default 40: the trainings are
+        # launch-bound and this phase gates the rotation, not the recall
         idx = vdb.IVFPQIndex(vdb.IVFPQConfig(dimension=dim, nlist=nlist,
-                                             m=96, opq=opq), device=dev)
+                                             m=96, opq=opq, train_iters=20),
+                             device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         idx.train_from_device(x)
@@ -1830,6 +2039,14 @@ def main(argv=None) -> int:
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
+    # wall seconds of each phase, so that a slower whole run says where
+    phase_s, last = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+
     # phase 0: device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1848,16 +2065,21 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lib_path = _build.build_library()
     _build.load_library()
-    log("phase1", json.dumps({
-        "library": str(lib_path.relative_to(REPO)), "compiled_now": fresh,
-        "build_s": time.perf_counter() - t0,
-        **ptxas_summary((lib_path.parent / "nvcc.log").read_text())}))
+    build = {"library": str(lib_path.relative_to(REPO)),
+             "compiled_now": fresh, "build_s": time.perf_counter() - t0,
+             **ptxas_summary((lib_path.parent / "nvcc.log").read_text())}
+    log("phase1", json.dumps(build))
+    mark("0_1_device_build")
 
     dev = torch.device("cuda")
     k1 = phase_kernel_vs_plain(args.seed, dev)     # phase 2
+    mark("2_k1")
     k2 = phase_pq_kernel_vs_plain(args.seed, dev)  # phase 2b
+    mark("2b_k2")
     k34 = phase_full_row_kernels_vs_plain(args.seed, dev)  # phase 2c
+    mark("2c_k3_k4")
     phase_quickstart(dev)                          # phase 3
+    mark("3_quickstart")
     # The IVF-PQ phases run before the IVF-Flat ones, so that the streaming
     # tier (phase 12, heavy host copies) runs last and no later phase is
     # timed after it.
@@ -1867,11 +2089,14 @@ def main(argv=None) -> int:
     log("phase7_k2_launches", pq_launches)
     if pq_launches <= 0:
         raise AssertionError("the IVF-PQ path never launched the K2 kernel")
+    mark("7_pq_main_path")
     pq_checks = phase_pq_index_checks(pq_idx, pq_q, pq_q_np,  # 8, 9
                                       pq_cal, pq_path)
     del pq_idx, pq_q
     torch.cuda.empty_cache()
+    mark("8_9_pq_checks")
     opq = phase_opq(args, dev)                     # phase 10
+    mark("10_opq")
     grouped_scan.LAUNCHES = 0                      # phase 4: the main path
     (main_path, idx, queries, q_np, cal_nprobe, truth, centers,
      capacity) = phase_main_path(args, dev)
@@ -1879,8 +2104,10 @@ def main(argv=None) -> int:
     log("phase4_k1_launches", launches)
     if launches <= 0:
         raise AssertionError("the main path never launched the K1 kernel")
+    mark("4_main_path")
     checks = phase_index_checks(idx, queries, q_np, cal_nprobe,  # 5, 6
                                 main_path)
+    mark("5_6_checks")
     # phase 11 (run while the phase-4 index is alive): IVF-Flat through
     # the scan names of K3 and K4, and deep k
     counters = scan_counters()
@@ -1890,6 +2117,7 @@ def main(argv=None) -> int:
                                            cal_nprobe, centers, capacity)
     launches11 = {n: m.LAUNCHES for n, m in counters.items()}
     log("phase11_launches", json.dumps(launches11))
+    mark("11_full_row_paths")
     for key in ("k3", "k4"):
         if launches11[key] <= 0:
             raise AssertionError(f"phase 11 never launched {key.upper()}")
@@ -1897,11 +2125,14 @@ def main(argv=None) -> int:
         idx, bidx, queries, cal_nprobe)
     del bidx
     torch.cuda.empty_cache()
+    mark("11b_full_row_checks")
     for mod in counters.values():                  # phase 12: streaming
         mod.LAUNCHES = 0
     streaming = phase_streaming(dev, idx, q_np, truth, cal_nprobe)
     launches12 = {n: m.LAUNCHES for n, m in counters.items()}
     log("phase12_launches", json.dumps(launches12))
+    mark("12_streaming")
+    log("phase_seconds", json.dumps(phase_s))
     for key in ("k1", "k3"):
         if launches12[key] <= 0:
             raise AssertionError(f"phase 12 never launched {key.upper()}")
@@ -1953,14 +2184,16 @@ def main(argv=None) -> int:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({
-            "nvidia_smi": smi, "k1_main_shape": k1, "main_path": main_path,
+            "nvidia_smi": smi, "build": build, "k1_main_shape": k1,
+            "main_path": main_path,
             "index_checks": checks, "k2_main_shape": k2,
             "k34_main_shapes": k34, "full_row_paths": full_rows,
             "full_row_index_checks": full_row_checks,
             "streaming": streaming, "launches_phase11": launches11,
             "launches_phase12": launches12,
             "pq_main_path": pq_path, "pq_index_checks": pq_checks,
-            "opq": opq, "f64_worst_share_of_tol": F64_WORST, **report},
+            "opq": opq, "f64_worst_share_of_tol": F64_WORST,
+            "phase_seconds": phase_s, **report},
             indent=1))
     log("f64_worst_share_of_tol", json.dumps(F64_WORST))
     log(json.dumps(report))

@@ -43,31 +43,41 @@
 // parts edited out put that time in the shared dot loop, which this design
 // replaces.
 //
-// K4, vdb_pair_scan, replaces pallas_scan.py::scan_probed_lists_pallas
-// (kernel body _kernel). Wrapper and plain version: ops/pair_scan.py.
+// K4, vdb_pair_scan and vdb_pair_scan_f32, replaces pallas_scan.py::
+// scan_probed_lists_pallas (kernel body _kernel). Wrapper and plain version:
+// ops/pair_scan.py.
 //
 // What it computes. The same rows from the stored block alone: norms are
-// recomputed in fp32 from the stored values (arena_sq is not read), there is
-// no scale and no anchor (an int8 arena is scanned as raw code values),
+// recomputed from the stored values (arena_sq is not read), there is no scale
+// and no anchor (an int8 arena is scanned as raw code values),
 //     L2: max(|q|^2 - 2 q.x + |x|^2, 0)   IP: -q.x   cosine: 1 - q.x.
 //
-// Design. One CTA per (query, probe) pair, as the TPU grid had one step per
-// pair; no dedup. The CTA keeps its query in shared memory; each warp takes
-// one slot at a time, its lanes reading consecutive 4-element groups of the
-// slot's row (coalesced), and reduces q.x and x.x with shuffles. The
-// wrapper hands the pairs over in list order, so CTAs that run together
-// read the same list and find it in L2.
+// Design. The TPU grid had one step per (query, probe) pair, each reading its
+// list's block again. A pair-per-CTA kernel on this card is bound by that
+// re-reading: at the bf16 main shape (32 768 pairs over 1024 lists of about
+// 1000 rows, D 768) it pulled 53 GB through L2 in 8.1 ms, took twice as long
+// when handed the pairs out of list order, and no less without its |x|^2
+// FMAs. So on int8 and bf16 arenas K4 runs K3's list-rows on K3's kernel:
+// sorted_scan_tc_kernel<T, BLOCK = true> reads a list once per row of up to
+// 64 same-list pairs, multiplies on the tensor cores (its operands are exact
+// in bf16 as K3's are), and takes the one thing K3 has not, |x|^2 of each
+// slot, from the A fragments tile_mma loads anyway: int8 exactly in int32
+// (dp4a), bf16 as fp32 FMAs of exact products, once per tile and not once
+// per pair, summed over the D chunks as the ring delivers them and over the
+// four lanes that share a slot row. IP and cosine form no norms. What bounds
+// it then is what bounds K3: the bytes (each probed list once, the rows out;
+// 1.8 GB, 0.54 ms at the bf16 main shape).
 //
-// What bounds K4. It does fp32 FMAs on the CUDA cores: 2 * D FLOPs per
-// (pair, occupied slot), plus, under L2, |x|^2 of each distinct occupied
-// slot once (2 * D a slot; it does not depend on the query): about
-// 54 GFLOP at the main shape. Its operands are exact in bf16 as K1's are,
-// so the least time counts the operations at the three-plane bf16 rate
-// (3 x 54 GFLOP at 989 TFLOP/s, 0.16 ms) against the bytes (about 1.78 GB,
-// 0.53 ms): bytes bound it. K4 recomputes |x|^2 for every pair, 4 * D a
-// (pair, slot), and reads a list once per pair, relying on neighbouring
-// CTAs (pairs in list order) finding it in L2. What later versions change:
-// K4 on the tensor-core engine, and a list tile shared by all pairs.
+// fp32 arenas keep the pair-per-CTA kernel (pair_scan_kernel: the query in
+// shared memory, one warp per slot, lanes over consecutive 4-element groups,
+// q.x and x.x reduced with shuffles, pairs handed over in list order so that
+// CTAs running together find their list in L2). Their operands are not exact
+// in bf16, so the tensor cores are out, and K3's CUDA-core list-row kernel
+// with block norms was timed beside it at the fp32 main shape: 20.8 ms
+// against 10.0 ms (NVIDIA H100 80GB HBM3, 700 W), and its lane-serial norm
+// sums lay at 0.34 of the scans' tolerance from float64 where this kernel's
+// shuffle-reduced ones lie at 0.03. The fp32 dot loop over a shared tile is
+// bound by its instruction rate, as it was in K1 and K3 before they left it.
 
 #include "grouped_common.cuh"
 #include "tc_scan.cuh"
@@ -180,8 +190,10 @@ sorted_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
   }
 }
 
-// Tensor-core sorted scan (int8 / bf16 arenas): full rows out.
-template <typename T>
+// Tensor-core list-row scan (int8 / bf16 arenas): full rows out. BLOCK is
+// the norm source: false, K3 (arena_sq, with scale and anchor); true, K4
+// (|x|^2 formed from the staged chunks by tile_mma, nothing else read).
+template <typename T, bool BLOCK>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 sorted_scan_tc_kernel(const float* __restrict__ q,
                       const __nv_bfloat16* __restrict__ planes,
@@ -229,19 +241,23 @@ sorted_scan_tc_kernel(const float* __restrict__ q,
                   dim);
   const int ntl = tc::live_query_tiles(sm);
   const int nlive = min(m, 8 * ntl);
-  const float* sq_l = arena_sq + static_cast<size_t>(list) * cap;
+  const float* sq_l =
+      BLOCK ? nullptr : arena_sq + static_cast<size_t>(list) * cap;
   const float* sc_l =
       scale != nullptr ? scale + static_cast<size_t>(list) * cap : nullptr;
   const int nchunks = (dim + tc::kDK - 1) / tc::kDK;
+  const bool block_norms = BLOCK && metric == kL2;
 
   int item = 0;
   for (int s0 = 0; s0 < lim; s0 += tc::kTS) {
     const int nt = min(tc::kTS, lim - s0);
     const int mtl = tc::live_slot_tiles(nt);
     float acc[2][8][4];
-    tc::tile_mma<T>(acc, sm, item, nchunks, mtl, ntl);
+    float xs[2][2];
+    tc::tile_mma<T, BLOCK>(acc, sm, item, nchunks, mtl, ntl, xs, block_norms);
     tc::consumer_sync();  // the previous tile's rows are written
-    tc::tile_distances(sm, acc, sq_l, sc_l, s0, nt, mtl, ntl, metric);
+    tc::tile_distances(sm, acc, sq_l, sc_l, s0, nt, mtl, ntl, metric,
+                       BLOCK ? xs : nullptr);
     tc::consumer_sync();
     for (int mm = warp; mm < nlive; mm += tc::kConsumerWarps) {
       const int p = sm.qi[mm];
@@ -261,7 +277,7 @@ sorted_scan_tc_kernel(const float* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, bool BLOCK>
 cudaError_t launch_sorted_tc(const float* q, const __nv_bfloat16* planes,
                              const void* arena, const float* arena_sq,
                              const float* scale, const float* anchors,
@@ -272,7 +288,7 @@ cudaError_t launch_sorted_tc(const float* q, const __nv_bfloat16* planes,
                              cudaStream_t stream) {
   const tc::Launch l = tc::launch_shape(m, sizeof(T), dim, arena, planes);
   if (l.stages < 2) return cudaErrorInvalidValue;
-  auto kernel = sorted_scan_tc_kernel<T>;
+  auto kernel = sorted_scan_tc_kernel<T, BLOCK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(l.smem));
@@ -324,24 +340,9 @@ cudaError_t dispatch_sorted(int mpt, const float* q, const void* arena,
 #undef VDB_LAUNCH
 }
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<int8_t>(int8_t v) {
-  return static_cast<float>(v);
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-
-template <typename T>
+// K4 on fp32 arenas: one CTA per (query, probe) pair, one warp per slot.
 __global__ void __launch_bounds__(kThreads)
-pair_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
+pair_scan_kernel(const float* __restrict__ q, const float* __restrict__ arena,
                  const int* __restrict__ counts,
                  const int* __restrict__ probe,
                  const int* __restrict__ order, float* __restrict__ out,
@@ -369,16 +370,16 @@ pair_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) qsq += __shfl_xor_sync(kFull, qsq, off);
 
-  const T* lbase = arena + static_cast<size_t>(list) * cap * dim;
-  const bool vec4 = (dim % 4 == 0) &&
-                    (reinterpret_cast<uintptr_t>(arena) % (4 * sizeof(T)) == 0);
+  const float* lbase = arena + static_cast<size_t>(list) * cap * dim;
+  const bool vec4 =
+      (dim % 4 == 0) && (reinterpret_cast<uintptr_t>(arena) % 16 == 0);
   for (int s = warp; s < lim; s += kWarps) {
-    const T* x = lbase + static_cast<size_t>(s) * dim;
+    const float* x = lbase + static_cast<size_t>(s) * dim;
     float dot = 0.f;
     float xsq = 0.f;
     if (vec4) {
       for (int d = 4 * lane; d < dim; d += 128) {
-        const float4 xv = Vec4<T>::load(x + d);
+        const float4 xv = *reinterpret_cast<const float4*>(x + d);
         const float4 qq = *reinterpret_cast<const float4*>(qv + d);
         dot = fmaf(qq.x, xv.x, dot);
         dot = fmaf(qq.y, xv.y, dot);
@@ -391,7 +392,7 @@ pair_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
       }
     } else {
       for (int d = lane; d < dim; d += 32) {
-        const float xf = to_f32<T>(x[d]);
+        const float xf = x[d];
         dot = fmaf(qv[d], xf, dot);
         xsq = fmaf(xf, xf, xsq);
       }
@@ -405,30 +406,48 @@ pair_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
   }
 }
 
-template <typename T>
-cudaError_t launch_pair(const float* q, const void* arena, const int* counts,
-                        const int* probe, const int* order, float* out,
-                        int n_pairs, int nprobe, int dim, int nlist, int cap,
-                        int cap_s, int metric, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * padded_dim(dim);
-  auto kernel = pair_scan_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<n_pairs, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(arena), counts, probe, order, out, nprobe, dim,
-      nlist, cap, cap_s, metric);
-  return cudaGetLastError();
+// One launch of the tensor-core list-row kernel on an int8 / bf16 arena, with
+// either norm source.
+template <bool BLOCK>
+cudaError_t launch_list_rows_tc(const void* q, const void* planes,
+                                const void* arena, const void* arena_sq,
+                                const void* scale, const void* anchors,
+                                const void* counts, const void* row_list,
+                                const void* pair_table, void* out, int n_rows,
+                                int batch, int m, int dim, int nlist, int cap,
+                                int cap_s, int nprobe, int metric, int dtype,
+                                void* stream) {
+  const float* qf = static_cast<const float*>(q);
+  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(planes);
+  const float* sq = static_cast<const float*>(arena_sq);
+  const float* sc = static_cast<const float*>(scale);
+  const float* an = static_cast<const float*>(anchors);
+  const int* cn = static_cast<const int*>(counts);
+  const int* rl = static_cast<const int*>(row_list);
+  const int* pt = static_cast<const int*>(pair_table);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kInt8) {
+    return launch_sorted_tc<int8_t, BLOCK>(
+        qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim, nlist,
+        cap, cap_s, nprobe, metric, st);
+  }
+  if (dtype == kBf16) {
+    return launch_sorted_tc<__nv_bfloat16, BLOCK>(
+        qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim, nlist,
+        cap, cap_s, nprobe, metric, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest list-row width M of the sorted scan at this dimension and arena
-// dtype (0: none fits): 64 on int8 / bf16 arenas (tensor cores, D staged in
-// chunks), the shared-memory bound of M fp32 query rows on fp32 arenas.
+// Largest list-row width M of the full-row scans (K3, K4) at this dimension
+// and arena dtype (0: none fits): 64 on int8 / bf16 arenas (tensor cores, D
+// staged in chunks), the shared-memory bound of M fp32 query rows on fp32
+// arenas.
 int vdb_sorted_scan_max_m(int dim, int dtype) {
   if (dim <= 0) return 0;
   if (dtype == kInt8) return tc::max_m(1);
@@ -455,74 +474,75 @@ int vdb_sorted_scan(const void* q, const void* planes, const void* arena,
   if (n_rows <= 0 || batch <= 0 || m <= 0 ||
       m > vdb_sorted_scan_max_m(dim, dtype) || cap_s <= 0 || cap_s > cap ||
       nlist <= 0 || nprobe <= 0 || metric < kL2 || metric > kCosine ||
-      (dtype != kF32 && planes == nullptr)) {
+      arena_sq == nullptr || (dtype != kF32 && planes == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* qf = static_cast<const float*>(q);
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(planes);
-  const float* sq = static_cast<const float*>(arena_sq);
-  const float* sc = static_cast<const float*>(scale);
-  const float* an = static_cast<const float*>(anchors);
-  const int* cn = static_cast<const int*>(counts);
-  const int* rl = static_cast<const int*>(row_list);
-  const int* pt = static_cast<const int*>(pair_table);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kInt8:
-      return static_cast<int>(launch_sorted_tc<int8_t>(
-          qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim,
-          nlist, cap, cap_s, nprobe, metric, st));
-    case kBf16:
-      return static_cast<int>(launch_sorted_tc<__nv_bfloat16>(
-          qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim,
-          nlist, cap, cap_s, nprobe, metric, st));
-    case kF32:
-      return static_cast<int>(dispatch_sorted<float, 1>(
-          (m + kWarps - 1) / kWarps, qf, arena, sq, sc, an, cn, rl, pt, o,
-          n_rows, m, dim, nlist, cap, cap_s, nprobe, metric, dtype, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kF32) {
+    return static_cast<int>(dispatch_sorted<float, 1>(
+        (m + kWarps - 1) / kWarps, static_cast<const float*>(q), arena,
+        static_cast<const float*>(arena_sq), static_cast<const float*>(scale),
+        static_cast<const float*>(anchors), static_cast<const int*>(counts),
+        static_cast<const int*>(row_list),
+        static_cast<const int*>(pair_table), static_cast<float*>(out), n_rows,
+        m, dim, nlist, cap, cap_s, nprobe, metric, dtype,
+        static_cast<cudaStream_t>(stream)));
   }
+  return static_cast<int>(launch_list_rows_tc<false>(
+      q, planes, arena, arena_sq, scale, anchors, counts, row_list, pair_table,
+      out, n_rows, batch, m, dim, nlist, cap, cap_s, nprobe, metric, dtype,
+      stream));
 }
 
-// Launch the pair scan (K4) on `stream`. Returns a cudaError_t (0 =
-// launched). Pointers: q [B, dim] f32; arena [nlist, cap, dim] of `dtype`;
-// counts [nlist] i32 (local); probe [B * nprobe] i32 (-1 = no probe);
-// order [n_pairs] i32, the pair each CTA takes (a permutation of
-// 0 .. n_pairs - 1); out [n_pairs, cap_s] f32, every row written.
-int vdb_pair_scan(const void* q, const void* arena, const void* counts,
-                  const void* probe, const void* order, void* out,
-                  int n_pairs, int nprobe, int dim, int nlist, int cap,
-                  int cap_s, int metric, int dtype, void* stream) {
+// Launch the pair scan (K4) of an int8 or bf16 arena on `stream`: K3's
+// tensor-core list-row kernel with the norms taken from the stored block.
+// Returns a cudaError_t (0 = launched). Pointers as for vdb_sorted_scan,
+// without arena_sq, scale and anchors; dtype 0 (int8) or 1 (bf16).
+int vdb_pair_scan(const void* q, const void* planes, const void* arena,
+                  const void* counts, const void* row_list,
+                  const void* pair_table, void* out, int n_rows, int batch,
+                  int m, int dim, int nlist, int cap, int cap_s, int nprobe,
+                  int metric, int dtype, void* stream) {
+  if (n_rows <= 0 || batch <= 0 || m <= 0 || dim <= 0 ||
+      (dtype != kInt8 && dtype != kBf16) ||
+      m > vdb_sorted_scan_max_m(dim, dtype) || cap_s <= 0 || cap_s > cap ||
+      nlist <= 0 || nprobe <= 0 || metric < kL2 || metric > kCosine ||
+      planes == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_list_rows_tc<true>(
+      q, planes, arena, nullptr, nullptr, nullptr, counts, row_list,
+      pair_table, out, n_rows, batch, m, dim, nlist, cap, cap_s, nprobe,
+      metric, dtype, stream));
+}
+
+// Launch the pair scan (K4) of an fp32 arena on `stream`: one CTA per pair.
+// Returns a cudaError_t (0 = launched). Pointers: q [B, dim] f32; arena
+// [nlist, cap, dim] f32; counts [nlist] i32 (local); probe [B * nprobe] i32
+// (-1 = no probe); order [n_pairs] i32, the pair each CTA takes (a
+// permutation of 0 .. n_pairs - 1); out [n_pairs, cap_s] f32, every row
+// written.
+int vdb_pair_scan_f32(const void* q, const void* arena, const void* counts,
+                      const void* probe, const void* order, void* out,
+                      int n_pairs, int nprobe, int dim, int nlist, int cap,
+                      int cap_s, int metric, void* stream) {
   if (n_pairs <= 0 || nprobe <= 0 || dim <= 0 ||
       sizeof(float) * padded_dim(dim) > static_cast<size_t>(kSmemLimit) ||
       cap_s <= 0 || cap_s > cap || nlist <= 0 || metric < kL2 ||
       metric > kCosine) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* qf = static_cast<const float*>(q);
-  const int* cn = static_cast<const int*>(counts);
-  const int* pr = static_cast<const int*>(probe);
-  const int* od = static_cast<const int*>(order);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kInt8:
-      return static_cast<int>(launch_pair<int8_t>(
-          qf, arena, cn, pr, od, o, n_pairs, nprobe, dim, nlist, cap, cap_s,
-          metric, st));
-    case kBf16:
-      return static_cast<int>(launch_pair<__nv_bfloat16>(
-          qf, arena, cn, pr, od, o, n_pairs, nprobe, dim, nlist, cap, cap_s,
-          metric, st));
-    case kF32:
-      return static_cast<int>(launch_pair<float>(
-          qf, arena, cn, pr, od, o, n_pairs, nprobe, dim, nlist, cap, cap_s,
-          metric, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const size_t smem = sizeof(float) * padded_dim(dim);
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pair_scan_kernel<<<n_pairs, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(arena),
+      static_cast<const int*>(counts), static_cast<const int*>(probe),
+      static_cast<const int*>(order), static_cast<float*>(out), nprobe, dim,
+      nlist, cap, cap_s, metric);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -263,8 +263,10 @@ __device__ __forceinline__ bool lex_less(float ad, int as, float bd, int bs) {
 // warp: entry r of the sorted list lives at lane r % 32, register r / 32.
 // Candidates are (distance, slot) pairs ordered lexicographically; slots
 // are unique, so the lane that owns the warp-wide minimum is the one whose
-// local minimum carries that slot.
-template <int SPL, int KPL>
+// local minimum carries that slot. A lane's candidate j is slot
+// slot0 + JSTRIDE j: 32 where a lane owns every 32nd slot of a tile (K1), 1
+// where it owns consecutive slots (K2).
+template <int SPL, int KPL, int JSTRIDE = 32>
 __device__ __forceinline__ void warp_merge(float (&bd)[KPL], int (&bs)[KPL],
                                            float& kth, const float (&cd)[SPL],
                                            int slot0, int k) {
@@ -287,7 +289,7 @@ __device__ __forceinline__ void warp_merge(float (&bd)[KPL], int (&bs)[KPL],
   for (int j = 0; j < SPL; ++j) {
     const bool in = cd[j] < kth;
     ld[KPL + j] = in ? cd[j] : INFINITY;
-    ls[KPL + j] = in ? slot0 + 32 * j : INT_MAX;
+    ls[KPL + j] = in ? slot0 + JSTRIDE * j : INT_MAX;
   }
   float nd[KPL];
   int ns[KPL];

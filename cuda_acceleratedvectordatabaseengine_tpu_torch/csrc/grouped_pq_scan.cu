@@ -1,5 +1,6 @@
 // Grouped ADC scan over product-quantized inverted lists, for Hopper
-// (sm_90a).
+// (sm_90a): a per-query inner-product table kernel and a query-major scan
+// kernel that looks the table up from shared memory.
 //
 // Replaces the TPU kernel K2,
 // cuda_acceleratedvectordatabaseengine_tpu/ops/pallas_scan.py::
@@ -8,50 +9,66 @@
 // grouped_pq_scan.py, which also holds the plain PyTorch version of the same
 // function.
 //
-// What it computes. The (query, probed list) pairs of a batch are packed by
-// the wrapper into list-rows of at most M queries that probe the same list.
-// One CTA handles one list-row. Codes are stored subspace-major, codes_t
+// What it computes. Codes are stored subspace-major, codes_t
 // [nlist, msub, cap] uint8; slot s of list l decodes to the residual
 //     r_s = concat_j codebooks[j, codes_t[l, j, s]]        (dsub floats each)
-// and for each of the row's queries and each occupied slot
-// s < min(counts[l], cap_s)
-//     qx = q . centroid[l] + q . r_s
-//     L2: max(|q|^2 - 2 qx + code_sq[l, s], 0)   IP: -qx   cosine: 1 - qx
-// (code_sq = |centroid[l] + r_s|^2). Two output modes:
-//   top-k: the k smallest (distance, slot) pairs per query, ascending, ties
-//          to the smaller slot, +inf / -1 past the list's end; out
-//          [n_rows, M, k];
-//   full:  the masked distance row of every query, +inf past the list's
-//          end; out [n_rows, M, cap_s] (one top-k over the probe union
-//          follows in torch).
-// Sentinel rows (list id >= nlist) and empty query slots come out +inf/-1.
+// and for each (query b, probe p) pair with list l = probe[b, p] and each
+// occupied slot s < min(counts[l], cap_s)
+//     qx = q_b . centroid[l] + q_b . r_s
+//     L2: max(|q_b|^2 - 2 qx + code_sq[l, s], 0)   IP: -qx   cosine: 1 - qx
+// (code_sq = |centroid[l] + r_s|^2). Two output modes, both per pair, in
+// (b, p) order:
+//   top-k: the k smallest (distance, slot) pairs, ascending, ties to the
+//          smaller slot, +inf / -1 past the list's end; out [B * P, k];
+//   full:  the masked distance row, +inf past the list's end; out
+//          [B * P, cap_s] (one top-k over the probe union follows in torch).
+// Pairs of probe -1 (or a list id >= nlist) come out +inf / -1.
 //
-// Design. As the K1 kernel (grouped_scan.cu): the CTA reads its M query rows
-// by index straight from q into shared memory, with |q|^2 and q . centroid
-// once per query, then walks the list in tiles of TS = 32 slots. The tile is
-// decode-staged: for each slot of the tile and each subspace j, the dsub
-// floats of codebooks[j, code] are copied into a [TS, D] fp32 tile in shared
-// memory (16-byte copies when dsub % 4 == 0). The codes of one subspace for
-// consecutive slots are consecutive bytes of codes_t, and the codebooks
-// (786 KB at m 96, dsub 8) stay in L2. The tile stays fp32, so the distance
-// is the exact fp32 dot against the decoded vector, as the JAX kernel's.
-// Warp w owns queries w, w+8, ...; lane t owns slot t of the tile; the
-// running top-k is K1's warp_merge. Query slots that hold no query are
-// skipped.
+// Design. The TPU kernel decoded each list with one-hot MXU products
+// because Mosaic has no gather, and dotted the decoded block with the
+// queries. The residual codebooks are shared by all lists, so
+//     q_b . r_s = sum_j T[b, j, codes_t[l, j, s]],
+//     T[b, j, c] = sum_e q[b, j dsub + e] codebooks[j, c, e],
+// and the list enters only through q_b . centroid[l] and code_sq[l, s].
+// pq_table_kernel makes T [B, msub, 256] in fp32 (one CTA per subspace and
+// group of 16 queries, one thread per codeword, the sum over e in order).
+// pq_table_scan_kernel is query-major: a CTA takes one query and a group of
+// its probes, copies the query's table (msub KB; 96 KB at m 96, two CTAs an
+// SM) into shared memory with 16-byte cp.async, and each of its 8 warps
+// takes probed lists one at a time. A lane owns 4 consecutive slots: per
+// subspace one 32-bit load of codes_t[l, j, s .. s+3] (128 coalesced bytes a
+// warp: the subspace-major layout is made for this; 8 subspaces' loads are in
+// flight at once), four shared-memory lookups, four adds, j ascending; then
+// qx = sum + q . centroid. The running top-k is warp_merge (grouped_common.
+// cuh) over the lane's 4 candidates. No pair packing, no decode, no D-long
+// dot; full rows land in (b, p) order.
 //
-// What bounds it on the H100. A slot costs m bytes of codes from HBM (96 B
-// at D 768, 8x fewer than K1's int8 rows), D * 4 bytes of codebook reads
-// from L2 to decode it, and D FMAs per query of the row. So the decode and
-// the dots bind, not HBM. Rows of one list are separate CTAs, each decoding
-// the list again. When a list-row holds fewer than 8 queries, warps idle
-// during the dots (the known K1 issue at small M).
+// Where the table does not fit the shared memory of a CTA (msub KB + the
+// query > 227 KB, msub > 220 or so), the same kernel reads the table in
+// place, from global memory through L2 (template SMEM_TABLE = false); the
+// wrapper chooses by shape.
 //
-// What later versions change: a per-query inner-product table [m, 256] in
-// shared memory (m adds per slot instead of D FMAs, no decode), or wgmma on
-// decoded tiles split into bf16 hi/lo parts; one decode shared by all rows
-// of a list.
+// What bounds it on the H100. The function needs the table product (0.2
+// GFLOP) and m adds per (pair, occupied slot) (0.4 G at the IVF-PQ main
+// shape: D 768, m 96, nlist 4096, cap 384, B 512, nprobe 32), 0.009 ms at
+// the fp32 CUDA-core peak, and its inputs once (codes and norms of the
+// probed lists, centroids, codebooks, queries; 0.08 GB with the rows out),
+// 0.023 ms at the HBM rate: the bound is the bytes'. (Counted as a decode
+// and a D-long dot per pair-slot, as the replaced kernel did it, the same
+// function is 6.2 GFLOP, 0.09 ms.) The kernel's 0.4 G lookups hit 32 random
+// banks a warp, and each pair reads its list's codes again. The
+// kernel it replaces decoded 32-slot tiles into fp32 shared memory and ran D
+// FMAs a (query, slot): timed builds with parts edited out (NVIDIA H100 80GB
+// HBM3, 700 W, 3.40 ms as it was) put 1.1 ms in the decode, 1.1 ms in the
+// dots and 0.95 ms in the rest (query rows, norms, top-k). This one takes
+// 0.45 ms (table kernel 0.04 ms in it), and the same kind of edited builds
+// find no single limiter: without the shared-memory lookups 0.35 ms, without
+// the code loads (each pair reads its list again, 0.4 GB from L2 / HBM)
+// 0.33, without the top-k merge 0.37, without the table copy 0.44, with none
+// of the four 0.14 (table kernel, q . centroid, norms, stores, launch).
 
 #include "grouped_common.cuh"
+#include "tc_scan.cuh"
 
 #include <cstdint>
 
@@ -59,315 +76,339 @@ namespace {
 
 using namespace vdb;
 
-constexpr int kTile = 32;  // slots per tile: one per lane
+constexpr int kKs = 256;           // codewords per subspace: 8-bit codes
+constexpr int kTableQueries = 16;  // queries per CTA of the table kernel
+constexpr int kSlotsPerLane = 4;   // one 32-bit code load per subspace
+constexpr int kStep = 32 * kSlotsPerLane;  // slots per warp step
+constexpr int kUnroll = 8;         // subspaces whose code loads are in flight
 
-inline size_t pq_smem_bytes(int m, int dim) {
-  return query_smem_bytes(m, dim) + tile_smem_bytes(dim, sizeof(float), kTile);
+// T[b, j, c] = sum_e q[b, j dsub + e] codebooks[j, c, e], e ascending.
+// Grid (query groups, msub); thread c owns codeword c of subspace j.
+__global__ void __launch_bounds__(kKs)
+pq_table_kernel(const float* __restrict__ q,
+                const float* __restrict__ codebooks,
+                float* __restrict__ table, int batch, int dim, int msub,
+                int dsub) {
+  const int b0 = blockIdx.x * kTableQueries;
+  const int j = blockIdx.y;
+  const int c = threadIdx.x;
+  const int nq = min(kTableQueries, batch - b0);
+
+  extern __shared__ __align__(16) float qsub[];  // [kTableQueries][dsub]
+  for (int i = c; i < kTableQueries * dsub; i += kKs) {
+    const int qb = i / dsub;
+    const int e = i - qb * dsub;
+    qsub[i] = qb < nq ? q[static_cast<size_t>(b0 + qb) * dim + j * dsub + e]
+                      : 0.f;
+  }
+  __syncthreads();
+
+  float acc[kTableQueries];
+#pragma unroll
+  for (int qb = 0; qb < kTableQueries; ++qb) acc[qb] = 0.f;
+  const float* cw = codebooks + (static_cast<size_t>(j) * kKs + c) * dsub;
+  for (int e = 0; e < dsub; ++e) {
+    const float v = __ldg(cw + e);
+#pragma unroll
+    for (int qb = 0; qb < kTableQueries; ++qb) {
+      acc[qb] = fmaf(qsub[qb * dsub + e], v, acc[qb]);
+    }
+  }
+#pragma unroll
+  for (int qb = 0; qb < kTableQueries; ++qb) {
+    if (qb < nq) {
+      table[(static_cast<size_t>(b0 + qb) * msub + j) * kKs + c] = acc[qb];
+    }
+  }
 }
 
-template <int MPT, int KPL, bool FULL>
-__global__ void __launch_bounds__(kThreads)
-grouped_pq_scan_kernel(const float* __restrict__ q,
-                       const uint8_t* __restrict__ codes_t,
-                       const float* __restrict__ code_sq,
-                       const int* __restrict__ counts,
-                       const float* __restrict__ centroids,
-                       const float* __restrict__ codebooks,
-                       const int* __restrict__ row_list,
-                       const int* __restrict__ qrow_table,
-                       float* __restrict__ out_d, int* __restrict__ out_s,
-                       int m, int dim, int msub, int ks, int nlist, int cap,
-                       int cap_s, int k, int metric) {
-  const int row = blockIdx.x;
+// Shared memory of a scan CTA: the query's table (when staged) and the query.
+inline size_t scan_smem_bytes(int msub, int dim, bool smem_table) {
+  return (smem_table ? static_cast<size_t>(msub) * kKs * sizeof(float) : 0) +
+         sizeof(float) * padded_dim(dim);
+}
+
+template <int KPL, bool FULL, bool SMEM_TABLE>
+__global__ void __launch_bounds__(kThreads, 2)
+pq_table_scan_kernel(const float* __restrict__ q,
+                     const float* __restrict__ table,
+                     const uint8_t* __restrict__ codes_t,
+                     const float* __restrict__ code_sq,
+                     const int* __restrict__ counts,
+                     const float* __restrict__ centroids,
+                     const int* __restrict__ probe,
+                     float* __restrict__ out_d, int* __restrict__ out_s,
+                     int nprobe, int ppc, int dim, int msub, int nlist,
+                     int cap, int cap_s, int k, int metric) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int dsub = dim / msub;
-  const int dp = padded_dim(dim);
-  const int tstride = dp + 4;
-  const int width = FULL ? cap_s : k;  // output entries per query slot
+  const int groups = (nprobe + ppc - 1) / ppc;
+  const int b = blockIdx.x / groups;
+  const int p0 = (blockIdx.x - b * groups) * ppc;
+  const int p1 = min(p0 + ppc, nprobe);
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [m][dp]
-  float* qsq = qs + static_cast<size_t>(m) * dp;
-  float* qa = qsq + m;
-  int* qi = reinterpret_cast<int*>(qa + m);
-  float* tile = reinterpret_cast<float*>(smem + query_smem_bytes(m, dim));
-
-  float* od = out_d + static_cast<size_t>(row) * m * width;
-  int* os = FULL ? nullptr : out_s + static_cast<size_t>(row) * m * k;
-  const int list = row_list[row];
-  if (list < 0 || list >= nlist) {  // sentinel row: nothing to scan
-    for (int i = tid; i < m * width; i += kThreads) {
-      od[i] = INFINITY;
-      if (!FULL) os[i] = -1;
+  float* tab = reinterpret_cast<float*>(smem);  // [msub][256] when staged
+  float* qs = tab + (SMEM_TABLE ? static_cast<size_t>(msub) * kKs : 0);
+  const float* tb = table + static_cast<size_t>(b) * msub * kKs;
+  if (SMEM_TABLE) {  // rows of 1 KB: 16-byte pieces, always aligned
+    for (int i = tid; i < msub * (kKs / 4); i += kThreads) {
+      tc::cp_async16(tab + 4 * i, tb + 4 * i, true);
     }
-    return;
   }
-
-  // --- this row's queries, straight from q [B, D] --------------------------
-  const int* qrow = qrow_table + static_cast<size_t>(row) * m;
-  for (int i = tid; i < m; i += kThreads) qi[i] = qrow[i];
+  for (int d = tid; d < dim; d += kThreads) {
+    qs[d] = q[static_cast<size_t>(b) * dim + d];
+  }
+  if (SMEM_TABLE) tc::cp_async_wait_all();
   __syncthreads();
-  for (int e = tid; e < m * dp; e += kThreads) {
-    const int mm = e / dp;
-    const int d = e - mm * dp;
-    const int b = qi[mm];
-    qs[e] = (b >= 0 && d < dim) ? q[static_cast<size_t>(b) * dim + d] : 0.f;
-  }
-  if (dp != dim) {  // zero the pad columns of the tile once
-    const int pw = dp - dim;
-    for (int e = tid; e < kTile * pw; e += kThreads) {
-      tile[(e / pw) * tstride + dim + e % pw] = 0.f;
-    }
-  }
-  __syncthreads();
-  const float* cen = centroids + static_cast<size_t>(list) * dim;
-  for (int mm = warp; mm < m; mm += kWarps) {
-    float s = 0.f;
-    float a = 0.f;
-    for (int d = lane; d < dim; d += 32) {
-      const float v = qs[mm * dp + d];
-      s = fmaf(v, v, s);
-      a = fmaf(v, cen[d], a);
-    }
+
+  float qsq = 0.f;  // every warp forms |q|^2 itself (dim / 32 FMAs a lane)
+  if (metric == kL2) {
+    for (int d = lane; d < dim; d += 32) qsq = fmaf(qs[d], qs[d], qsq);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(kFull, s, off);
-      a += __shfl_xor_sync(kFull, a, off);
-    }
-    if (lane == 0) {
-      qsq[mm] = s;
-      qa[mm] = a;
+      qsq += __shfl_xor_sync(kFull, qsq, off);
     }
   }
-  // Query slots of this warp that hold a query (warp-uniform flags).
-  bool live[MPT];
-#pragma unroll
-  for (int i = 0; i < MPT; ++i) {
-    const int mm = warp + kWarps * i;
-    live[i] = mm < m && qi[mm] >= 0;
-  }
-  // (the first tile's __syncthreads publishes qsq / qa)
+  const bool vec4 = (cap % 4 == 0) &&
+                    (reinterpret_cast<uintptr_t>(codes_t) % 4 == 0);
+  const int width = FULL ? cap_s : k;
 
-  // --- walk the occupied slot prefix in tiles of kTile slots ---------------
-  const int lim = min(counts[list], cap_s);
-  const uint8_t* lcodes = codes_t + static_cast<size_t>(list) * msub * cap;
-  const float* sq_l = code_sq + static_cast<size_t>(list) * cap;
-  const bool vec16 = (dsub % 4 == 0) &&
-                     (reinterpret_cast<uintptr_t>(codebooks) % 16 == 0);
+  for (int p = p0 + warp; p < p1; p += kWarps) {
+    const size_t pair = static_cast<size_t>(b) * nprobe + p;
+    const int list = probe[pair];
+    const bool real = list >= 0 && list < nlist;
+    const int lim = real ? min(counts[list], cap_s) : 0;
+    float* od = out_d + pair * width;
 
-  float bd[MPT][KPL];
-  int bs[MPT][KPL];
-  float kth[MPT];
+    float qa = 0.f;  // q . centroid[list]
+    if (lim > 0) {
+      const float* cen = centroids + static_cast<size_t>(list) * dim;
+      for (int d = lane; d < dim; d += 32) qa = fmaf(qs[d], __ldg(cen + d), qa);
 #pragma unroll
-  for (int i = 0; i < MPT; ++i) {
-    kth[i] = INFINITY;
+      for (int off = 16; off > 0; off >>= 1) {
+        qa += __shfl_xor_sync(kFull, qa, off);
+      }
+    }
+    const uint8_t* lcodes =
+        codes_t + static_cast<size_t>(real ? list : 0) * msub * cap;
+    const float* sq_l = code_sq + static_cast<size_t>(real ? list : 0) * cap;
+
+    float bd[KPL];
+    int bs[KPL];
+    float kth = INFINITY;
 #pragma unroll
     for (int j = 0; j < KPL; ++j) {
-      bd[i][j] = INFINITY;
-      bs[i][j] = INT_MAX;
+      bd[j] = INFINITY;
+      bs[j] = INT_MAX;
     }
-  }
 
-  for (int s0 = 0; s0 < lim; s0 += kTile) {
-    const int nt = min(kTile, lim - s0);
-    __syncthreads();  // the previous tile is consumed
-    // Decode-stage the tile: tile[t][j*dsub + e] = codebooks[j][code][e].
-    if (vec16) {
-      const int nq4 = dsub / 4;
-      const int per_j = nt * nq4;
-      for (int c = tid; c < msub * per_j; c += kThreads) {
-        const int j = c / per_j;
-        const int r = c - j * per_j;
-        const int t = r / nq4;
-        const int u = r - t * nq4;
-        const int code = lcodes[static_cast<size_t>(j) * cap + s0 + t];
-        const float4 v = __ldg(reinterpret_cast<const float4*>(
-                                   codebooks + (static_cast<size_t>(j) * ks +
-                                                code) * dsub) + u);
-        *reinterpret_cast<float4*>(tile + t * tstride + j * dsub + 4 * u) = v;
-      }
-    } else {
-      for (int c = tid; c < msub * nt; c += kThreads) {
-        const int j = c / nt;
-        const int t = c - j * nt;
-        const int code = lcodes[static_cast<size_t>(j) * cap + s0 + t];
-        const float* src =
-            codebooks + (static_cast<size_t>(j) * ks + code) * dsub;
-        float* dst = tile + t * tstride + j * dsub;
-        for (int e = 0; e < dsub; ++e) dst[e] = __ldg(src + e);
-      }
-    }
-    __syncthreads();
-
-    float acc[MPT];
+    // full rows are written over all of cap_s, +inf past the list's end
+    const int send = FULL ? cap_s : lim;
+    for (int s0 = 0; s0 < send; s0 += kStep) {
+      const int s = s0 + kSlotsPerLane * lane;
+      const int nv = min(max(lim - s, 0), kSlotsPerLane);  // valid slots here
+      float acc[kSlotsPerLane] = {0.f, 0.f, 0.f, 0.f};
+      if (s0 < lim) {  // warp-uniform
+        const uint8_t* lc = lcodes + s;
+        if (vec4) {
+          for (int j0 = 0; j0 < msub; j0 += kUnroll) {
+            uint32_t w[kUnroll];
 #pragma unroll
-    for (int i = 0; i < MPT; ++i) acc[i] = 0.f;
-    for (int d = 0; d < dp; d += 4) {
-      const float4 xv = Vec4<float>::load(tile + lane * tstride + d);
+            for (int u = 0; u < kUnroll; ++u) {
+              w[u] = (j0 + u < msub && nv > 0)
+                         ? __ldg(reinterpret_cast<const uint32_t*>(
+                               lc + static_cast<size_t>(j0 + u) * cap))
+                         : 0u;
+            }
 #pragma unroll
-      for (int i = 0; i < MPT; ++i) {
-        if (live[i]) {
-          const float4 qv = *reinterpret_cast<const float4*>(
-              qs + (warp + kWarps * i) * dp + d);
-          acc[i] = fmaf(qv.x, xv.x, acc[i]);
-          acc[i] = fmaf(qv.y, xv.y, acc[i]);
-          acc[i] = fmaf(qv.z, xv.z, acc[i]);
-          acc[i] = fmaf(qv.w, xv.w, acc[i]);
+            for (int u = 0; u < kUnroll; ++u) {
+              if (j0 + u < msub) {
+                if (SMEM_TABLE) {
+                  const float* tj = tab + (j0 + u) * kKs;
+                  acc[0] += tj[w[u] & 0xffu];
+                  acc[1] += tj[(w[u] >> 8) & 0xffu];
+                  acc[2] += tj[(w[u] >> 16) & 0xffu];
+                  acc[3] += tj[w[u] >> 24];
+                } else {
+                  const float* tj = tb + (j0 + u) * kKs;
+                  acc[0] += __ldg(tj + (w[u] & 0xffu));
+                  acc[1] += __ldg(tj + ((w[u] >> 8) & 0xffu));
+                  acc[2] += __ldg(tj + ((w[u] >> 16) & 0xffu));
+                  acc[3] += __ldg(tj + (w[u] >> 24));
+                }
+              }
+            }
+          }
+        } else {  // cap not a multiple of 4: byte loads
+          for (int j = 0; j < msub; ++j) {
+            const uint8_t* lj = lc + static_cast<size_t>(j) * cap;
+#pragma unroll
+            for (int i = 0; i < kSlotsPerLane; ++i) {
+              const int code = i < nv ? lj[i] : 0;
+              acc[i] += SMEM_TABLE ? tab[j * kKs + code]
+                                   : __ldg(tb + j * kKs + code);
+            }
+          }
         }
       }
-    }
-
-    const bool valid = lane < nt;
-    const float xsq = valid ? sq_l[s0 + lane] : 0.f;
+      float cd[kSlotsPerLane];
 #pragma unroll
-    for (int i = 0; i < MPT; ++i) {
-      if (live[i]) {
-        const int mm = warp + kWarps * i;
-        const float qx = acc[i] + qa[mm];
-        float dist;
-        if (metric == kL2) {
-          dist = fmaxf(qsq[mm] - 2.f * qx + xsq, 0.f);
-        } else if (metric == kIP) {
-          dist = -qx;
+      for (int i = 0; i < kSlotsPerLane; ++i) {
+        cd[i] = INFINITY;
+        if (i < nv) {
+          cd[i] = flat_distance(metric, acc[i] + qa, qsq, sq_l[s + i]);
+        }
+      }
+      if (FULL) {
+        if (cap_s % 4 == 0) {  // rows start 16-byte aligned
+          if (s < cap_s) {
+            *reinterpret_cast<float4*>(od + s) =
+                make_float4(cd[0], cd[1], cd[2], cd[3]);
+          }
         } else {
-          dist = 1.f - qx;
+#pragma unroll
+          for (int i = 0; i < kSlotsPerLane; ++i) {
+            if (s + i < cap_s) od[s + i] = cd[i];
+          }
         }
-        if (FULL) {
-          if (valid) od[static_cast<size_t>(mm) * cap_s + s0 + lane] = dist;
-        } else {
-          const float cd[1] = {valid ? dist : INFINITY};
-          warp_merge<1, KPL>(bd[i], bs[i], kth[i], cd, s0 + lane, k);
-        }
+      } else {
+        warp_merge<kSlotsPerLane, KPL, 1>(bd, bs, kth, cd, s, k);
       }
     }
-  }
 
-  // --- outputs --------------------------------------------------------------
-  __syncthreads();  // qi visible even when the list is empty
-  if (FULL) {
-    // the slots past the list's end, and the rows of empty query slots
-    for (int e = tid; e < m * cap_s; e += kThreads) {
-      const int mm = e / cap_s;
-      if (e - mm * cap_s >= lim || qi[mm] < 0) od[e] = INFINITY;
-    }
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < MPT; ++i) {
-    const int mm = warp + kWarps * i;
-    if (mm < m) {
+    if (!FULL) {
+      int* os = out_s + pair * k;
 #pragma unroll
       for (int j = 0; j < KPL; ++j) {
         const int r = lane + 32 * j;
         if (r < k) {
-          const bool hit = live[i] && bd[i][j] != INFINITY;
-          od[mm * k + r] = hit ? bd[i][j] : INFINITY;
-          os[mm * k + r] = hit ? bs[i][j] : -1;
+          const bool hit = bd[j] != INFINITY;
+          od[r] = hit ? bd[j] : INFINITY;
+          os[r] = hit ? bs[j] : -1;
         }
       }
     }
   }
 }
 
-template <int MPT, int KPL, bool FULL>
-cudaError_t launch(const float* q, const uint8_t* codes_t,
+template <int KPL, bool FULL, bool SMEM_TABLE>
+cudaError_t launch(const float* q, const float* table, const uint8_t* codes_t,
                    const float* code_sq, const int* counts,
-                   const float* centroids, const float* codebooks,
-                   const int* row_list, const int* qrow_table, float* out_d,
-                   int* out_s, int n_rows, int m, int dim, int msub, int ks,
-                   int nlist, int cap, int cap_s, int k, int metric,
+                   const float* centroids, const int* probe, float* out_d,
+                   int* out_s, int batch, int nprobe, int ppc, int dim,
+                   int msub, int nlist, int cap, int cap_s, int k, int metric,
                    cudaStream_t stream) {
-  auto kernel = grouped_pq_scan_kernel<MPT, KPL, FULL>;
-  const size_t smem = pq_smem_bytes(m, dim);
+  auto kernel = pq_table_scan_kernel<KPL, FULL, SMEM_TABLE>;
+  const size_t smem = scan_smem_bytes(msub, dim, SMEM_TABLE);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<n_rows, kThreads, smem, stream>>>(
-      q, codes_t, code_sq, counts, centroids, codebooks, row_list, qrow_table,
-      out_d, out_s, m, dim, msub, ks, nlist, cap, cap_s, k, metric);
+  const int groups = (nprobe + ppc - 1) / ppc;
+  kernel<<<batch * groups, kThreads, smem, stream>>>(
+      q, table, codes_t, code_sq, counts, centroids, probe, out_d, out_s,
+      nprobe, ppc, dim, msub, nlist, cap, cap_s, k, metric);
   return cudaGetLastError();
 }
 
 template <int KPL, bool FULL>
-cudaError_t dispatch_m(int mpt, const float* q, const uint8_t* codes_t,
-                       const float* code_sq, const int* counts,
-                       const float* centroids, const float* codebooks,
-                       const int* row_list, const int* qrow_table,
-                       float* out_d, int* out_s, int n_rows, int m, int dim,
-                       int msub, int ks, int nlist, int cap, int cap_s, int k,
-                       int metric, cudaStream_t stream) {
-#define VDB_LAUNCH(MPT)                                                     \
-  return launch<MPT, KPL, FULL>(q, codes_t, code_sq, counts, centroids,     \
-                                codebooks, row_list, qrow_table, out_d,     \
-                                out_s, n_rows, m, dim, msub, ks, nlist, cap, \
-                                cap_s, k, metric, stream)
-  if (mpt <= 1) VDB_LAUNCH(1);
-  if (mpt <= 2) VDB_LAUNCH(2);
-  if (mpt <= 4) VDB_LAUNCH(4);
-  VDB_LAUNCH(8);
-#undef VDB_LAUNCH
+cudaError_t dispatch_table(bool smem_table, const float* q, const float* table,
+                           const uint8_t* codes_t, const float* code_sq,
+                           const int* counts, const float* centroids,
+                           const int* probe, float* out_d, int* out_s,
+                           int batch, int nprobe, int ppc, int dim, int msub,
+                           int nlist, int cap, int cap_s, int k, int metric,
+                           cudaStream_t stream) {
+  if (smem_table) {
+    return launch<KPL, FULL, true>(q, table, codes_t, code_sq, counts,
+                                   centroids, probe, out_d, out_s, batch,
+                                   nprobe, ppc, dim, msub, nlist, cap, cap_s,
+                                   k, metric, stream);
+  }
+  return launch<KPL, FULL, false>(q, table, codes_t, code_sq, counts,
+                                  centroids, probe, out_d, out_s, batch,
+                                  nprobe, ppc, dim, msub, nlist, cap, cap_s, k,
+                                  metric, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest list-row width M whose queries and decoded slot tile fit the
-// shared memory of one CTA at this dimension (0: none fits).
-int vdb_grouped_pq_scan_max_m(int dim) {
-  if (dim <= 0) return 0;
-  int m = 0;
-  while (m < 64 && pq_smem_bytes(m + 1, dim) <= kSmemLimit) ++m;
-  return m;
+// Launch the table kernel on `stream`: table [batch, msub, 256] f32 from
+// q [batch, dim] f32 and codebooks [msub, 256, dim / msub] f32. Returns a
+// cudaError_t (0 = launched).
+int vdb_pq_tables(const void* q, const void* codebooks, void* table,
+                  int batch, int dim, int msub, void* stream) {
+  if (batch <= 0 || msub <= 0 || msub > 65535 || dim <= 0 ||
+      dim % msub != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int dsub = dim / msub;
+  const size_t smem = sizeof(float) * kTableQueries * dsub;
+  if (smem > static_cast<size_t>(kSmemLimit)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      pq_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((batch + kTableQueries - 1) / kTableQueries, msub);
+  pq_table_kernel<<<grid, kKs, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(codebooks),
+      static_cast<float*>(table), batch, dim, msub, dsub);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the grouped ADC scan on `stream`. Returns a cudaError_t (0 =
-// launched). Pointers: q [B, dim] f32; codes_t [nlist, msub, cap] u8;
-// code_sq [nlist, cap] f32; counts [nlist] i32; centroids [nlist, dim] f32;
-// codebooks [msub, ks, dim / msub] f32; row_list [n_rows] i32; qrow_table
-// [n_rows, m] i32; out_d [n_rows, m, full ? cap_s : k] f32; out_s
-// [n_rows, m, k] i32 (top-k mode only; null when full != 0).
-int vdb_grouped_pq_scan(const void* q, const void* codes_t,
+// launched). Pointers: q [batch, dim] f32; table [batch, msub, 256] f32
+// (vdb_pq_tables); codes_t [nlist, msub, cap] u8; code_sq [nlist, cap] f32;
+// counts [nlist] i32; centroids [nlist, dim] f32; probe [batch, nprobe] i32
+// (-1 = no probe); out_d [batch * nprobe, full ? cap_s : k] f32; out_s
+// [batch * nprobe, k] i32 (top-k mode only; null when full != 0). ppc: probes
+// per CTA (a CTA takes one query and ppc of its probes). smem_table != 0
+// stages the query's table in shared memory (it must fit); 0 reads it in
+// place.
+int vdb_grouped_pq_scan(const void* q, const void* table, const void* codes_t,
                         const void* code_sq, const void* counts,
-                        const void* centroids, const void* codebooks,
-                        const void* row_list, const void* qrow_table,
-                        void* out_d, void* out_s, int n_rows, int m, int dim,
-                        int msub, int ks, int nlist, int cap, int cap_s, int k,
-                        int full, int metric, void* stream) {
-  if (n_rows <= 0 || m <= 0 || m > vdb_grouped_pq_scan_max_m(dim) ||
-      msub <= 0 || dim % msub != 0 || ks <= 0 || ks > 256 || cap_s <= 0 ||
-      cap_s > cap || nlist <= 0 || metric < kL2 || metric > kCosine ||
+                        const void* centroids, const void* probe, void* out_d,
+                        void* out_s, int batch, int nprobe, int ppc, int dim,
+                        int msub, int nlist, int cap, int cap_s, int k,
+                        int full, int metric, int smem_table, void* stream) {
+  if (batch <= 0 || nprobe <= 0 || ppc <= 0 || msub <= 0 || dim <= 0 ||
+      dim % msub != 0 || cap_s <= 0 || cap_s > cap || nlist <= 0 ||
+      metric < kL2 || metric > kCosine ||
+      scan_smem_bytes(msub, dim, smem_table != 0) >
+          static_cast<size_t>(kSmemLimit) ||
       (!full && (k <= 0 || k > 64 || out_s == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int mpt = (m + kWarps - 1) / kWarps;
   const float* qf = static_cast<const float*>(q);
+  const float* tb = static_cast<const float*>(table);
   const uint8_t* ct = static_cast<const uint8_t*>(codes_t);
   const float* sq = static_cast<const float*>(code_sq);
   const int* cn = static_cast<const int*>(counts);
   const float* ce = static_cast<const float*>(centroids);
-  const float* cb = static_cast<const float*>(codebooks);
-  const int* rl = static_cast<const int*>(row_list);
-  const int* qt = static_cast<const int*>(qrow_table);
+  const int* pr = static_cast<const int*>(probe);
   float* od = static_cast<float*>(out_d);
   int* os = static_cast<int*>(out_s);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool st_tab = smem_table != 0;
   cudaError_t err;
   if (full) {
-    err = dispatch_m<1, true>(mpt, qf, ct, sq, cn, ce, cb, rl, qt, od, os,
-                              n_rows, m, dim, msub, ks, nlist, cap, cap_s, k,
-                              metric, st);
+    err = dispatch_table<1, true>(st_tab, qf, tb, ct, sq, cn, ce, pr, od, os,
+                                  batch, nprobe, ppc, dim, msub, nlist, cap,
+                                  cap_s, k, metric, st);
   } else if (k <= 32) {
-    err = dispatch_m<1, false>(mpt, qf, ct, sq, cn, ce, cb, rl, qt, od, os,
-                               n_rows, m, dim, msub, ks, nlist, cap, cap_s, k,
-                               metric, st);
+    err = dispatch_table<1, false>(st_tab, qf, tb, ct, sq, cn, ce, pr, od, os,
+                                   batch, nprobe, ppc, dim, msub, nlist, cap,
+                                   cap_s, k, metric, st);
   } else {
-    err = dispatch_m<2, false>(mpt, qf, ct, sq, cn, ce, cb, rl, qt, od, os,
-                               n_rows, m, dim, msub, ks, nlist, cap, cap_s, k,
-                               metric, st);
+    err = dispatch_table<2, false>(st_tab, qf, tb, ct, sq, cn, ce, pr, od, os,
+                                   batch, nprobe, ppc, dim, msub, nlist, cap,
+                                   cap_s, k, metric, st);
   }
   return static_cast<int>(err);
 }

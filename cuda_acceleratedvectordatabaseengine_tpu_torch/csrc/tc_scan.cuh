@@ -438,10 +438,17 @@ __device__ __forceinline__ int live_query_tiles(const Smem& sm) {
 // partial dots in fp32 on the CUDA cores). `item` counts ring stages
 // consumed.
 // `mtl` live m16 tiles of this warp, `ntl` live n8 tiles of the row.
-template <typename T>
+// With NORMS (K4) the lane's four slot rows (32 w + 16 mt + g + 8 h, the
+// rows tile_distances gives this lane) get xsq[mt][h]: when `norms` (L2),
+// |x|^2 formed on the CUDA cores from the A fragments each chunk loads
+// anyway (int8 exactly in int32 with dp4a, bf16 as fp32 FMAs of exact
+// products, summed over the chunks and then over the four lanes that share a
+// row), else 0.
+template <typename T, bool NORMS = false>
 __device__ __forceinline__ void tile_mma(float (&acc)[2][8][4], const Smem& sm,
                                          int& item, int nchunks, int mtl,
-                                         int ntl) {
+                                         int ntl, float (*xsq)[2] = nullptr,
+                                         bool norms = false) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;   // fragment row group
@@ -454,6 +461,9 @@ __device__ __forceinline__ void tile_mma(float (&acc)[2][8][4], const Smem& sm,
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+  norms = NORMS && norms;
+  float xf[2][2] = {};  // bf16 rows: partial |x|^2 of this lane's elements
+  int xi[2][2] = {};    // int8 rows
 
   for (int c = 0; c < nchunks; ++c, ++item) {
     const int stage = item % sm.lay.stages;
@@ -479,6 +489,15 @@ __device__ __forceinline__ void tile_mma(float (&acc)[2][8][4], const Smem& sm,
             i8x4_to_bf16(w0[j], a[mt][j][0], a[mt][j][2]);
             i8x4_to_bf16(w1[j], a[mt][j][1], a[mt][j][3]);
           }
+          if (norms) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              xi[mt][0] = __dp4a(static_cast<int>(w0[j]),
+                                 static_cast<int>(w0[j]), xi[mt][0]);
+              xi[mt][1] = __dp4a(static_cast<int>(w1[j]),
+                                 static_cast<int>(w1[j]), xi[mt][1]);
+            }
+          }
         } else {
           const uint4* p0 = reinterpret_cast<const uint4*>(
               xs + r0 * sstride + 32 * c4);
@@ -495,6 +514,19 @@ __device__ __forceinline__ void tile_mma(float (&acc)[2][8][4], const Smem& sm,
             a[mt][j][2] = w0[2 * j + 1];
             a[mt][j][1] = w1[2 * j];
             a[mt][j][3] = w1[2 * j + 1];
+          }
+          if (norms) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float l0 = __uint_as_float(w0[j] << 16);
+              const float h0 = __uint_as_float(w0[j] & 0xffff0000u);
+              const float l1 = __uint_as_float(w1[j] << 16);
+              const float h1 = __uint_as_float(w1[j] & 0xffff0000u);
+              xf[mt][0] = fmaf(l0, l0, xf[mt][0]);
+              xf[mt][0] = fmaf(h0, h0, xf[mt][0]);
+              xf[mt][1] = fmaf(l1, l1, xf[mt][1]);
+              xf[mt][1] = fmaf(h1, h1, xf[mt][1]);
+            }
           }
         }
       }
@@ -535,6 +567,25 @@ __device__ __forceinline__ void tile_mma(float (&acc)[2][8][4], const Smem& sm,
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[stage]);
   }
+  if constexpr (NORMS) {  // the four lanes of a quad share their rows
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v;
+        if constexpr (sizeof(T) == 1) {
+          int iv = xi[mt][h];
+          iv += __shfl_xor_sync(kFull, iv, 1);
+          iv += __shfl_xor_sync(kFull, iv, 2);
+          v = static_cast<float>(iv);
+        } else {
+          v = xf[mt][h];
+          v += __shfl_xor_sync(kFull, v, 1);
+          v += __shfl_xor_sync(kFull, v, 2);
+        }
+        xsq[mt][h] = v;  // 0 when not `norms`: nothing was summed
+      }
+  }
 }
 
 // The tile's distances into sm.dist[mm][t] (t < nt; scale, anchor, |x|^2
@@ -544,7 +595,7 @@ __device__ __forceinline__ void tile_mma(float (&acc)[2][8][4], const Smem& sm,
 __device__ __forceinline__ void tile_distances(
     const Smem& sm, const float (&acc)[2][8][4], const float* __restrict__ sq_l,
     const float* __restrict__ sc_l, int s0, int nt, int mtl, int ntl,
-    int metric) {
+    int metric, const float (*xs)[2] = nullptr) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -556,7 +607,10 @@ __device__ __forceinline__ void tile_distances(
       for (int h = 0; h < 2; ++h) {
         const int t = 32 * warp + 16 * mt + g + 8 * h;
         const bool valid = t < nt;
-        const float xsq = valid ? sq_l[s0 + t] : 0.f;
+        // |x|^2: the lane's own sums (tile_mma, K4), else the stored norm
+        const float xsq = xs != nullptr ? xs[mt][h]
+                          : (valid && sq_l != nullptr) ? sq_l[s0 + t]
+                                                       : 0.f;
         const float sc = (valid && sc_l != nullptr) ? sc_l[s0 + t] : 1.f;
 #pragma unroll
         for (int n = 0; n < 8; ++n) {

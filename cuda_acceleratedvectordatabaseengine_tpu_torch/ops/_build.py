@@ -33,11 +33,12 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 SIGNATURES = {
     "vdb_grouped_scan": ("p" * 11 + "i" * 10 + "p", "i"),
     "vdb_grouped_scan_max_m": ("ii", "i"),
-    "vdb_grouped_pq_scan": ("p" * 10 + "i" * 11 + "p", "i"),
-    "vdb_grouped_pq_scan_max_m": ("i", "i"),
+    "vdb_pq_tables": ("p" * 3 + "i" * 3 + "p", "i"),
+    "vdb_grouped_pq_scan": ("p" * 9 + "i" * 12 + "p", "i"),
     "vdb_sorted_scan": ("p" * 10 + "i" * 10 + "p", "i"),
     "vdb_sorted_scan_max_m": ("ii", "i"),
-    "vdb_pair_scan": ("p" * 6 + "i" * 8 + "p", "i"),
+    "vdb_pair_scan": ("p" * 7 + "i" * 10 + "p", "i"),
+    "vdb_pair_scan_f32": ("p" * 6 + "i" * 7 + "p", "i"),
 }
 
 

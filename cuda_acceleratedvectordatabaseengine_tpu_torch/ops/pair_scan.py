@@ -5,23 +5,43 @@ Counterpart of ``scan_probed_lists_pallas`` in
 (query, probe) pair gets a full distance row over the list's scanned slot
 prefix (``[B·P, cap_s]`` fp32, +inf for empty slots and ``-1`` probes),
 and the top-k is taken outside the kernel. Unlike K1 and K3, the rows come
-from the stored block alone: each slot's norm is recomputed in fp32 from
-the stored values (``arena_sq`` is accepted and ignored, as the TPU kernel
+from the stored block alone: each slot's norm is recomputed from the
+stored values (``arena_sq`` is accepted and ignored, as the TPU kernel
 ``del``-ed it), and there is no per-row scale and no anchor, so an int8
 arena is scanned as raw code values.
 
+The TPU grid had one step per pair, each reading its list's block again.
+On Hopper that re-reading is what bounds a pair-per-CTA kernel (L2
+bandwidth: handed the pairs out of list order it took twice as long), so
+on int8 and bf16 arenas the pairs are sorted by list and packed into
+list-rows of up to M same-list pairs, K3's packing
+(``ops/sorted_scan._pair_table``), and one CTA reads the list once for all
+pairs of its row. The kernel is K3's tensor-core kernel
+(``csrc/full_row_scan.cu`` on ``csrc/tc_scan.cuh``: three exact bf16 query
+planes, ``cp.async`` ring, ``mma.sync``) in its block-norm variant, which
+forms each slot's ``|x|²`` once per tile from the chunks it stages anyway
+(int8 exactly in int32, bf16 as fp32 sums of exact products). IP and cosine
+form no norms. What bounds it then: the bytes (the probed lists once, the
+rows out), as for K3. fp32 arenas, whose values are not exact in bf16, keep
+the pair-per-CTA CUDA-core kernel (one warp per slot, pairs in list order):
+at the fp32 main shape it took half the time of K3's CUDA-core list-row
+kernel with block norms. The kernel is chosen by the arena's dtype, in
+:func:`_pair_rows_cuda`.
+
 Two implementations of the row step sit side by side:
 
-- :func:`_pair_rows_cuda` launches the hand-written Hopper kernel in
-  ``csrc/full_row_scan.cu`` (one CTA per pair, no dedup, pairs handed over
-  in list order) and adds one to :data:`LAUNCHES` per launch;
-- :func:`_pair_rows_reference` is the plain PyTorch version.
+- :func:`_pair_rows_cuda` launches the hand-written kernel
+  (:func:`_pair_list_rows_cuda` on packed list-rows, or
+  :func:`_pair_rows_f32_cuda`), adding one to :data:`LAUNCHES` per launch;
+- :func:`_pair_rows_reference` is the plain PyTorch version, pair by pair
+  (:func:`_pair_list_rows_reference` is the plain version of the packed
+  step alone).
 
 :func:`scan_probed_lists_pairs` takes the plain version for CPU tensors and
 the kernel for CUDA tensors (it raises rather than fall back). The row
-transient is bounded by probe chunks, as in ``ops/sorted_scan.py``; the
-kernel runs in the ``torch.profiler`` range ``pair_scan.rows``, the top-k
-in ``pair_scan.topk``.
+transient is bounded by probe chunks, as in ``ops/sorted_scan.py``; packing
+and kernel run in the ``torch.profiler`` range ``pair_scan.rows``, the
+top-k in ``pair_scan.topk``.
 """
 
 from __future__ import annotations
@@ -35,12 +55,17 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_scan import (
     _REFERENCE_CHUNK_BYTES,
     _effective_cap,
     _local_counts,
+    auto_m_budget,
+    query_planes,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.sorted_scan import (
+    _pair_table,
+    _sorted_rows_reference,
+    kernel_max_m,
     scan_full_rows,
 )
 
-# Kernel launches made by _pair_rows_cuda since the process started (or
+# Kernel launches made by _pair_list_rows_cuda since the process started (or
 # since a caller last reset it): lets a run show it went through the kernel.
 LAUNCHES = 0
 
@@ -79,59 +104,142 @@ def _pair_rows_reference(q, arena, counts, probe, metric, cap_s):
     return out
 
 
+def _pair_list_rows_reference(q, arena, counts, row_list, pair_table, nprobe,
+                              n_pairs, metric, cap_s):
+    """Plain PyTorch version of the packed step the kernel runs: the rows of
+    :func:`_pair_rows_reference` computed list-row by list-row (``row_list
+    [n_rows]``, ``pair_table [n_rows, m]`` of pair indices ``b·P + p``, -1 =
+    empty, as ``ops/sorted_scan._pair_table`` makes them), each list's norms
+    taken once from its stored block. For small inputs: it forms the whole
+    arena's norms."""
+    x = arena[:, :cap_s].float()
+    block_sq = torch.zeros(arena.shape[:2], dtype=torch.float32,
+                           device=arena.device)
+    block_sq[:, :cap_s] = (x * x).sum(-1)
+    return _sorted_rows_reference(q, arena, block_sq, counts, row_list,
+                                  pair_table, nprobe, n_pairs, metric, cap_s)
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"pair-scan kernel: {msg}")
 
 
-def _pair_rows_cuda(q, arena, counts, probe, metric, cap_s):
-    """Launch the hand-written kernel (same contract as
-    :func:`_pair_rows_reference`) on the current CUDA stream, one CTA per
-    pair with the pairs in list order. Checks device, dtype, shape and
-    contiguity and raises on anything the kernel does not take; raises if
-    the launch is refused."""
+def _check_common(q, arena, counts, others, n_pairs, nprobe, metric, cap_s):
+    """Checks shared by the two kernel wrappers; returns ``(nlist, cap,
+    dim)``."""
+    dev = arena.device
+    _check(dev.type == "cuda", f"arena is on {dev}, not a CUDA device")
+    for name, t in {"q": q, "arena": arena, "counts": counts,
+                    **others}.items():
+        _check(t.device == dev, f"{name} is on {t.device}, arena on {dev}")
+        _check(t.is_contiguous(), f"{name} is not contiguous")
+        _check(name in ("q", "arena") or t.dtype == torch.int32,
+               f"{name} must be int32")
+    _check(arena.dim() == 3 and arena.dtype in _DTYPE_IDS,
+           f"arena must be [nlist, cap, D] int8/bf16/f32, got "
+           f"{tuple(arena.shape)} {arena.dtype}")
+    nlist, cap, dim = arena.shape
+    _check(q.dtype == torch.float32 and q.dim() == 2 and q.shape[1] == dim
+           and q.shape[0] * nprobe == n_pairs,
+           f"q must be [n_pairs / nprobe, {dim}] float32")
+    _check(tuple(counts.shape) == (nlist,), "counts must be [nlist] int32")
+    _check(1 <= cap_s <= cap, f"cap_s={cap_s} outside 1..{cap}")
+    _check(metric in _METRIC_IDS, f"unknown metric {metric}")
+    return nlist, cap, dim
+
+
+def _pair_list_rows_cuda(q, arena, counts, row_list, pair_table, nprobe,
+                         n_pairs, metric, cap_s):
+    """Launch the hand-written list-row kernel of int8 / bf16 arenas on
+    packed list-rows (same contract as :func:`_pair_list_rows_reference`)
+    on the current CUDA stream, passing the query's three bf16 planes.
+    Checks device, dtype, shape and contiguity and raises on anything the
+    kernel does not take; raises if the launch is refused."""
     global LAUNCHES
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops._build import (
         load_library,
     )
 
-    dev = arena.device
-    _check(dev.type == "cuda", f"arena is on {dev}, not a CUDA device")
-    for name, t in {"q": q, "arena": arena, "counts": counts,
-                    "probe": probe}.items():
-        _check(t.device == dev, f"{name} is on {t.device}, arena on {dev}")
-        _check(t.is_contiguous(), f"{name} is not contiguous")
-    _check(arena.dim() == 3 and arena.dtype in _DTYPE_IDS,
-           f"arena must be [nlist, cap, D] int8/bf16/f32, got "
-           f"{tuple(arena.shape)} {arena.dtype}")
-    nlist, cap, dim = arena.shape
-    batch, nprobe = probe.shape
-    _check(q.dtype == torch.float32 and tuple(q.shape) == (batch, dim),
-           f"q must be [{batch}, {dim}] float32")
-    _check(counts.dtype == torch.int32 and tuple(counts.shape) == (nlist,),
-           "counts must be [nlist] int32")
-    _check(probe.dtype == torch.int32, "probe must be int32")
-    _check(1 <= cap_s <= cap, f"cap_s={cap_s} outside 1..{cap}")
-    _check(metric in _METRIC_IDS, f"unknown metric {metric}")
+    nlist, cap, dim = _check_common(
+        q, arena, counts, {"row_list": row_list, "pair_table": pair_table},
+        n_pairs, nprobe, metric, cap_s)
+    _check(arena.dtype != torch.float32,
+           "the list-row kernel takes int8 / bf16 arenas")
+    n_rows, m = pair_table.shape
+    _check(tuple(row_list.shape) == (n_rows,), "row_list must be [n_rows]")
+    m_max = kernel_max_m(dim, arena.dtype)
+    _check(1 <= m <= m_max, f"list-row width m={m} outside 1..{m_max}")
 
-    flat = probe.reshape(-1)
-    n_pairs = flat.numel()
-    # list order: CTAs that run together read the same list (from L2)
-    order = torch.argsort(torch.where(flat >= 0, flat, nlist),
-                          stable=True).int()
-    out = torch.empty((n_pairs, cap_s), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty((n_pairs, cap_s), dtype=torch.float32,
+                      device=arena.device)
+    planes = query_planes(q, arena.dtype)
+    with torch.cuda.device(arena.device):
+        stream = torch.cuda.current_stream(arena.device).cuda_stream
         err = load_library().vdb_pair_scan(
-            q.data_ptr(), arena.data_ptr(), counts.data_ptr(),
-            flat.data_ptr(), order.data_ptr(), out.data_ptr(), n_pairs,
-            nprobe, dim, nlist, cap, cap_s, _METRIC_IDS[metric],
-            _DTYPE_IDS[arena.dtype], stream,
+            q.data_ptr(), planes.data_ptr(), arena.data_ptr(),
+            counts.data_ptr(), row_list.data_ptr(), pair_table.data_ptr(),
+            out.data_ptr(), n_rows, q.shape[0], m, dim, nlist, cap, cap_s,
+            nprobe, _METRIC_IDS[metric], _DTYPE_IDS[arena.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"pair-scan kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+def _pair_rows_f32_cuda(q, arena, counts, probe, metric, cap_s):
+    """Launch the hand-written pair-per-CTA kernel of fp32 arenas (same
+    contract as :func:`_pair_rows_reference`) on the current CUDA stream.
+    Checks and raises as :func:`_pair_list_rows_cuda`."""
+    global LAUNCHES
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops._build import (
+        load_library,
+    )
+
+    batch, nprobe = probe.shape
+    nlist, cap, dim = _check_common(q, arena, counts, {"probe": probe},
+                                    probe.numel(), nprobe, metric, cap_s)
+    _check(arena.dtype == torch.float32,
+           "the pair-per-CTA kernel takes fp32 arenas")
+    flat = probe.reshape(-1)
+    n_pairs = flat.numel()
+    # list order: CTAs that run together read the same list (from L2)
+    order = torch.argsort(torch.where(flat >= 0, flat, nlist),
+                          stable=True).int()
+    out = torch.empty((n_pairs, cap_s), dtype=torch.float32,
+                      device=arena.device)
+    with torch.cuda.device(arena.device):
+        stream = torch.cuda.current_stream(arena.device).cuda_stream
+        err = load_library().vdb_pair_scan_f32(
+            q.data_ptr(), arena.data_ptr(), counts.data_ptr(),
+            flat.data_ptr(), order.data_ptr(), out.data_ptr(), n_pairs,
+            nprobe, dim, nlist, cap, cap_s, _METRIC_IDS[metric], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pair-scan kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return out
+
+
+def _pair_rows_cuda(q, arena, counts, probe, metric, cap_s):
+    """The kernel path of the row step (same contract as
+    :func:`_pair_rows_reference`), chosen by the arena's dtype: int8 and
+    bf16 arenas sort the pairs by list, pack them into list-rows of the
+    width ``auto_m_budget`` gives (clamped to what the kernel's shared
+    memory holds) and launch the tensor-core list-row kernel; fp32 arenas
+    launch the pair-per-CTA kernel."""
+    _check(arena.dim() == 3 and arena.dtype in _DTYPE_IDS,
+           f"arena must be [nlist, cap, D] int8/bf16/f32, got "
+           f"{tuple(arena.shape)} {arena.dtype}")
+    if arena.dtype == torch.float32:
+        return _pair_rows_f32_cuda(q, arena, counts, probe, metric, cap_s)
+    nlist, _, dim = arena.shape
+    n_pairs = probe.numel()
+    m = min(auto_m_budget(n_pairs, nlist), kernel_max_m(dim, arena.dtype))
+    row_list, table = _pair_table(probe, nlist, m)
+    return _pair_list_rows_cuda(q, arena, counts, row_list, table,
+                                probe.shape[1], n_pairs, metric, cap_s)
 
 
 def _scan_pairs(rows_fn, queries, arena, counts, probe_ids, k, metric,

@@ -1,7 +1,10 @@
 """PyTorch port, the pair full-row scan (K4): its plain version against the
 JAX package's Pallas pair kernel in interpret mode, on the same numpy
 inputs (CPU). K4 recomputes each slot's norm from the stored block and
-takes no scale or anchor, so it is held to the JAX K4, not to K1."""
+takes no scale or anchor, so it is held to the JAX K4, not to K1. On the
+GPU int8 and bf16 arenas run packed into list-rows (K3's packing) with each
+list's norms formed once from its block: the plain version of that packed
+step is held to the pair-order plain version and to the JAX kernel."""
 
 import numpy as np
 import pytest
@@ -17,9 +20,14 @@ from cuda_acceleratedvectordatabaseengine_tpu.ops.pallas_scan import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import pair_scan
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import Metric
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.pair_scan import (
+    _pair_list_rows_reference,
     _pair_rows_reference,
+    _scan_pairs,
     scan_probed_lists_pairs,
     scan_probed_lists_pairs_reference,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.sorted_scan import (
+    _pair_table,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.testing import (
     assert_topk_match,
@@ -122,3 +130,61 @@ def test_pairs_cpu_wrapper_takes_plain_version(rng):
     assert pair_scan.LAUNCHES == before == 0
     np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
     np.testing.assert_array_equal(a[1].numpy(), b[1].numpy())
+
+
+def _packed_rows(m):
+    """The row step as the GPU path of int8 / bf16 arenas runs it: pairs
+    sorted by list and packed into list-rows of width ``m``, block norms
+    once per list."""
+    def rows(q, arena, counts, probe, metric, cap_s):
+        row_list, table = _pair_table(probe, arena.shape[0], m)
+        return _pair_list_rows_reference(q, arena, counts, row_list, table,
+                                         probe.shape[1], probe.numel(),
+                                         metric, cap_s)
+    return rows
+
+
+@pytest.mark.parametrize("m", [1, 4, 64])
+@pytest.mark.parametrize("metric", ["L2", "InnerProduct", "Cosine"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_list_row_packing_with_block_norms(rng, dtype, metric, m):
+    """List-rows with block norms give the rows of the pair-order plain
+    version (same +inf places: -1 probes, an empty list, slots past the
+    count) and the top-k of the JAX pair kernel (interpret), on raw int8
+    codes, bf16 and fp32 arenas, at a width below, at and above a list's
+    share of the pairs."""
+    s = _make(rng, dtype, metric)
+    targs, _ = _torch_args(s)
+    q, arena, sq, counts, probe = targs
+    tm = Metric.parse(metric)
+    cap = arena.shape[1]
+    packed = _packed_rows(m)(q, arena, counts, probe, tm, cap)
+    pairs = _pair_rows_reference(q, arena, counts, probe, tm, cap)
+    assert packed.shape == pairs.shape == (probe.numel(), cap)
+    fk, fp = torch.isfinite(packed), torch.isfinite(pairs)
+    assert torch.equal(fk, fp)
+    atol = float(np.max(_atol_raw(s, metric)))
+    assert float((packed[fk] - pairs[fp]).abs().max()) <= atol
+    got = _np(_scan_pairs(_packed_rows(m), q, arena, counts, probe, 6, tm,
+                          1, 0, None, None))
+    jargs, _ = _jax_args(s)
+    ref = _np(j_pairs(*jargs, 6, JMetric.parse(metric), interpret=True))
+    assert_topk_match(*got, *ref, rtol=1e-5, atol=_atol_raw(s, metric))
+
+
+def test_list_row_packing_hot_list_and_prefix(rng):
+    """A list probed by every query (several list-rows) and a scanned
+    prefix shorter than the capacity."""
+    s = _make(rng, "bfloat16", "L2", nlist=4, batch=40, nprobe=2, cap=384,
+              max_count=200, short_lists=False)
+    s["probe"][:, 0] = 1
+    s["probe"][:, 1] = np.where(np.arange(40) % 2, 0, 2)
+    targs, _ = _torch_args(s)
+    q, arena, sq, counts, probe = targs
+    scap = int(s["counts"].max())
+    got = _np(_scan_pairs(_packed_rows(8), q, arena, counts, probe, 8,
+                          Metric.L2, 1, 0, None, scap))
+    jargs, _ = _jax_args(s)
+    ref = _np(j_pairs(*jargs, 8, JMetric.L2, interpret=True,
+                      scan_capacity=scap))
+    assert_topk_match(*got, *ref, rtol=1e-5, atol=_atol(s, "L2"))

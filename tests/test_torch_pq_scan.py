@@ -26,7 +26,7 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import Metric
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_pq_scan import (
-    _grouped_pq_rows_reference,
+    _pq_pair_rows_reference,
     scan_probed_codes_grouped,
     scan_probed_codes_grouped_reference,
 )
@@ -90,13 +90,13 @@ def _np(res):
 def test_grouped_pq_scan_matches_jax(rng, metric, mode):
     s = _make(rng)
     k = 40 if mode == "emit_full" else 10
-    kw = dict(m_budget=8)
+    kw = {}
     if mode == "k_inner":
         kw["k_inner"] = 4
     if mode == "emit_full":
         kw["emit_full"] = True
     ref = _np(j_grouped_pq(*_jargs(s), k, JMetric.parse(metric),
-                           interpret=True, **kw))
+                           interpret=True, m_budget=8, **kw))
     got = _np(scan_probed_codes_grouped_reference(
         *_targs(s), k, Metric.parse(metric), **kw))
     assert got[0].shape == got[1].shape == (12, k)
@@ -117,8 +117,7 @@ def test_hot_list_spans_several_rows(rng):
     k = 5
     ref = _np(j_grouped_pq(*_jargs(s), k, JMetric.L2, interpret=True,
                            m_budget=8))
-    got = _np(scan_probed_codes_grouped_reference(*_targs(s), k, Metric.L2,
-                                                  m_budget=8))
+    got = _np(scan_probed_codes_grouped_reference(*_targs(s), k, Metric.L2))
     assert_topk_match(*got, *ref, rtol=1e-5, atol=_atol(s))
 
 
@@ -127,14 +126,14 @@ def test_scan_capacity_prefix(rng, emit_full):
     """Scanning only the occupied prefix gives the full-capacity result."""
     s = _make(rng, cap=384, max_count=200)
     k = 40 if emit_full else 8
-    kw = dict(m_budget=8, emit_full=emit_full)
+    kw = dict(emit_full=emit_full)
     full = _np(scan_probed_codes_grouped_reference(*_targs(s), k, Metric.L2,
                                                    **kw))
     scap = int(s["counts"].max())
     pref = _np(scan_probed_codes_grouped_reference(
         *_targs(s), k, Metric.L2, scan_capacity=scap, **kw))
     ref = _np(j_grouped_pq(*_jargs(s), k, JMetric.L2, interpret=True,
-                           scan_capacity=scap, **kw))
+                           m_budget=8, scan_capacity=scap, **kw))
     np.testing.assert_array_equal(pref[0], full[0])
     assert_topk_match(*pref, *ref, rtol=1e-5, atol=_atol(s))
 
@@ -144,43 +143,40 @@ def test_odd_subspace_width(rng):
     s = _make(rng, msub=6, dsub=5, batch=8, nprobe=3)
     ref = _np(j_grouped_pq(*_jargs(s), 7, JMetric.L2, interpret=True,
                            m_budget=8))
-    got = _np(scan_probed_codes_grouped_reference(*_targs(s), 7, Metric.L2,
-                                                  m_budget=8))
+    got = _np(scan_probed_codes_grouped_reference(*_targs(s), 7, Metric.L2))
     assert_topk_match(*got, *ref, rtol=1e-5, atol=_atol(s))
 
 
 def test_rows_reference_contract(rng):
-    """Per-row outputs in both modes: top-k ascending with ties to the
-    smaller slot and (+inf, -1) padding; full rows +inf past each list's
-    end, on sentinel rows and on empty query slots."""
+    """Per-pair outputs in both modes, in (b, p) order: top-k ascending
+    with ties to the smaller slot and (+inf, -1) padding; full rows +inf
+    past each list's end and on pairs of probe -1."""
     s = _make(rng, nlist=4, batch=6, nprobe=2)
     q, codes_t, code_sq, counts, cen, cb, probe = _targs(s)
     codes_t[2, :, 10] = codes_t[2, :, 4]     # an exact tie inside list 2
     code_sq[2, 10] = code_sq[2, 4]
-    pack = grouped_scan._pack_pairs_into_rows(probe, 4, 8, 6)
-    args = (q, codes_t, code_sq, counts, cen, cb, pack.row_list,
-            pack.qrow_table)
-    out_d, out_s = _grouped_pq_rows_reference(*args, 5, Metric.L2, 128)
-    full_d, none = _grouped_pq_rows_reference(*args, 5, Metric.L2, 128,
-                                              emit_full=True)
-    assert none is None and full_d.shape == (6, 8, 128)
+    args = (q, codes_t, code_sq, counts, cen, cb, probe)
+    out_d, out_s = _pq_pair_rows_reference(*args, 5, Metric.L2, 128)
+    full_d, none = _pq_pair_rows_reference(*args, 5, Metric.L2, 128,
+                                           emit_full=True)
+    assert none is None and full_d.shape == (12, 128)
+    assert out_d.shape == out_s.shape == (12, 5)
     d, sl, fd = out_d.numpy(), out_s.numpy(), full_d.numpy()
     fin = np.isfinite(d)
     assert (sl[~fin] == -1).all() and (sl[fin] >= 0).all()
     assert (np.diff(np.where(fin, d, 3e38), axis=-1) >= 0).all()
-    dead = (pack.row_list.numpy()[:, None] >= 4) | (
-        pack.qrow_table.numpy() < 0)
+    lists = s["probe"].reshape(-1)
+    dead = lists < 0
+    assert dead.any()
     assert not fin[dead].any() and not np.isfinite(fd[dead]).any()
-    rl = pack.row_list.numpy().clip(0, 3)
-    past_end = np.arange(128)[None, None, :] >= counts.numpy()[rl][:, None,
-                                                                   None]
-    assert not np.isfinite(fd[np.broadcast_to(past_end, fd.shape)]).any()
+    past_end = np.arange(128)[None, :] >= counts.numpy()[lists.clip(0)][:,
+                                                                       None]
+    assert not np.isfinite(fd[past_end]).any()
+    assert np.isfinite(fd[~past_end & ~dead[:, None]]).all()
     # the top-k rows are the sorted heads of the full rows
-    live = ~dead
-    np.testing.assert_array_equal(
-        np.sort(fd[live], -1)[:, :5], d[live])
-    for r, mm in zip(*np.nonzero(pack.row_list.numpy()[:, None] == 2)):
-        row = sl[r, mm].tolist()
+    np.testing.assert_array_equal(np.sort(fd[~dead], -1)[:, :5], d[~dead])
+    for pair in np.nonzero(lists == 2)[0]:
+        row = sl[pair].tolist()
         if 4 in row and 10 in row:
             assert row.index(4) < row.index(10)
 
@@ -189,10 +185,9 @@ def test_cpu_wrapper_takes_plain_version(rng):
     s = _make(rng)
     before = grouped_pq_scan.LAUNCHES
     for kw in (dict(), dict(emit_full=True), dict(k_inner=3)):
-        a = scan_probed_codes_grouped(*_targs(s), 6, Metric.L2, m_budget=8,
-                                      **kw)
+        a = scan_probed_codes_grouped(*_targs(s), 6, Metric.L2, **kw)
         b = scan_probed_codes_grouped_reference(*_targs(s), 6, Metric.L2,
-                                                m_budget=8, **kw)
+                                                **kw)
         np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
         np.testing.assert_array_equal(a[1].numpy(), b[1].numpy())
     assert grouped_pq_scan.LAUNCHES == before == 0
