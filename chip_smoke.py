@@ -75,10 +75,30 @@ fails (non-zero exit, no result line) when any phase fails:
    dropped (the dropped tier must be freed at once). Phases 11 and 12
    each start with every launch counter at 0 and gate the kernels they
    drive (> 0).
+13. the IVF-Flat lifecycle on the phase-4 index, after phase 12 (it
+   mutates the index): remove every 10th id (ntotal −100K exactly, no
+   removed id returned, recall@10 over the survivors >= 0.95, the
+   ``"ragged"`` scan name through K3 equal to K1); then a thread serving
+   1024-query batches while five batches of 10K ids are removed, each
+   returned (id, distance) held against the regenerated corpus row through
+   the stored quantization; then ``save`` / ``load`` on the card (equal
+   results; save s, load s, snapshot GB);
+14. exact rerank and the builder at full width: a 1M x 768 int8 residual
+   index with ``store_residuals`` from ``build_index_chunked`` (4 chunks),
+   searched with and without ``use_exact_rerank`` (recall@10 with >=
+   without and >= 0.95; reranked distances within the fp32 tolerance of
+   float64 distances to the original rows), saved and loaded (equal
+   reranked results: the lo plane survived); then a bf16 ``FlatIndex`` of
+   the corpus (recall@10 >= 0.99, distances within the fp32 tolerance);
+15. the IVF-PQ lifecycle: 15a right after phase 9 on the pq-1M index
+   (remove every 10th id: none returned, recall@10 with rerank at nprobe
+   32 >= 0.90 over the survivors), 15b right after phase 10 (the OPQ index
+   saved and loaded: ``raw_frame`` recorded, equal results). Phases 13-15
+   each start with every launch counter at 0 and gate the kernels they
+   drive (K1 and K3; K1; K2).
 
-They run in the order 0, 1, 2, 2b, 2c, 3, 7-10, 4-6, 11, 11b, 12: the
-streaming tier's host-heavy copies come last, so no other phase is timed
-after them.
+They run in the order 0, 1, 2, 2b, 2c, 3, 7-9, 15a, 10, 15b, 4-6, 11, 11b,
+12, 13, 14.
 
 The second-to-last line is the kernel report JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -1125,15 +1145,18 @@ def corpus_chunk(centers, start, m, seed, noise=0.25):
     return pts.to(torch.bfloat16)
 
 
-def oracle_update(best_d, best_i, q, xc, base, k, block=1 << 18):
+def oracle_update(best_d, best_i, q, xc, base, k, block=1 << 18, keep=None):
     """Exact fp32 top-k of ``q`` over the rows of ``xc`` merged into the
-    running ``(best_d, best_i)`` (global row ids)."""
+    running ``(best_d, best_i)`` (global row ids); rows where the bool
+    ``keep`` is False (removed) are left out."""
     import torch
 
     q_sq = (q * q).sum(1, keepdim=True)
     for s0 in range(0, xc.shape[0], block):
         xf = xc[s0:s0 + block].float()
         d = (q_sq - 2.0 * q @ xf.T + (xf * xf).sum(1)[None, :]).clamp_min(0)
+        if keep is not None:
+            d = d.masked_fill(~keep[s0:s0 + block][None, :], float("inf"))
         v, i = torch.topk(d, k, dim=1, largest=False)
         cat_d = torch.cat([best_d, v], 1)
         cat_i = torch.cat([best_i, i + base + s0], 1)
@@ -1438,7 +1461,8 @@ def phase_index_checks(idx, queries, q_np, cal_nprobe, main_path,
 # phases 11-12: IVF-Flat through K3 and K4, and the streaming tier
 # --------------------------------------------------------------------------- #
 
-def serve_setting(idx, q_np, truth, nprobe, k, reps, counters) -> dict:
+def serve_setting(idx, q_np, truth, nprobe, k, reps, counters,
+                  rerank=False) -> dict:
     """Timed ``search`` batches of one setting (after a warm-up): QPS,
     median / max batch ms, recall@10 and each kernel's launches during
     the setting (``counters``: name → module with ``LAUNCHES``). Returns
@@ -1449,8 +1473,9 @@ def serve_setting(idx, q_np, truth, nprobe, k, reps, counters) -> dict:
 
     before = {n: m.LAUNCHES for n, m in counters.items()}
     ru0 = resource.getrusage(resource.RUSAGE_SELF)
-    ms, (d, ids) = search_timed(idx, q_np,
-                                vdb.SearchParams(nprobe=nprobe, k=k), reps)
+    ms, (d, ids) = search_timed(
+        idx, q_np, vdb.SearchParams(nprobe=nprobe, k=k,
+                                    use_exact_rerank=rerank), reps)
     ru1 = resource.getrusage(resource.RUSAGE_SELF)
     if not (np.isfinite(d).all() and d.shape == (len(q_np), k)):
         raise AssertionError(f"search nprobe {nprobe} k {k}: bad result")
@@ -1501,6 +1526,14 @@ def scan_counters() -> dict:
     )
 
     return {"k1": grouped_scan, "k3": sorted_scan, "k4": pair_scan}
+
+
+def all_counters() -> dict:
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
+        grouped_pq_scan,
+    )
+
+    return {**scan_counters(), "k2": grouped_pq_scan}
 
 
 def phase_full_row_paths(args, dev, idx, q_np, truth, cal_nprobe, centers,
@@ -1723,6 +1756,450 @@ def phase_streaming(dev, idx, q_np, truth, cal_nprobe) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phases 13-15: the index lifecycle (removal, rerank, snapshots, builder)
+# --------------------------------------------------------------------------- #
+
+def corpus_rows(centers, ids, n, chunk, seed):
+    """The phase-4 corpus rows of ``ids`` (regenerated chunk by chunk),
+    fp32 on the card, in the order of ``ids``."""
+    import numpy as np
+    import torch
+
+    dev = centers.device
+    ids_t = torch.from_numpy(np.asarray(ids, np.int64)).to(dev)
+    out = torch.empty((ids_t.shape[0], centers.shape[1]), device=dev)
+    for s in range(0, n, chunk):
+        sel = (ids_t >= s) & (ids_t < s + chunk)
+        if sel.any():
+            xc = corpus_chunk(centers, s, min(chunk, n - s), seed)
+            out[sel] = xc[ids_t[sel] - s].float()
+    return out
+
+
+def survivor_truth(queries, chunk_fn, n, chunk, k, removed_mod):
+    """Exact top-k ids of ``queries`` over the corpus rows whose id is not
+    a multiple of ``removed_mod`` (the rows a removal kept)."""
+    import torch
+
+    dev = queries.device
+    best_d = torch.full((queries.shape[0], k), float("inf"), device=dev)
+    best_i = torch.full((queries.shape[0], k), -1, dtype=torch.long,
+                        device=dev)
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        keep = torch.arange(s, s + m, device=dev) % removed_mod != 0
+        best_d, best_i = oracle_update(best_d, best_i, queries,
+                                       chunk_fn(s, m), s, k, keep=keep)
+    return best_i.cpu().numpy()
+
+
+def share_of_tol(d, ref, q):
+    """Worst ``|d − ref| / (RTOL · |ref| + ATOL_QSQ · ‖q‖²)`` over the
+    entries (``d``, ``ref`` ``[B, k]`` on the card, ``ref`` float64)."""
+    tol = RTOL * ref.abs() + ATOL_QSQ * (q.double() ** 2).sum(1)[:, None]
+    return float(((d.double() - ref).abs() / tol).max())
+
+
+def snapshot_dir(need_bytes: int):
+    """A fresh temporary directory with room for ``need_bytes``, and the
+    free bytes found there (printed before a snapshot is written)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    log("snapshot_tmp", json.dumps({"dir": root, "free_gb": free / 1e9,
+                                    "need_gb": need_bytes / 1e9}))
+    if free < need_bytes:
+        raise AssertionError(f"{root} has {free / 1e9:.2f} GB free, the "
+                             f"snapshot needs {need_bytes / 1e9:.2f}")
+    return tempfile.mkdtemp(prefix="chip_smoke_snapshot_")
+
+
+def save_and_load(idx, cls, dev) -> tuple[object, dict]:
+    """``idx.save`` into a fresh temporary directory, ``cls.load`` on the
+    card; the directory is deleted. Returns the loaded index and the save
+    s, load s, snapshot GB and the write / read rates."""
+    import shutil
+
+    import torch
+
+    path = snapshot_dir(int(idx.ntotal * (4 * idx.config.dimension + 24)
+                            * 1.2) + (1 << 28))
+    try:
+        t0 = time.perf_counter()
+        idx.save(path)
+        save_s = time.perf_counter() - t0
+        gb = sum(f.stat().st_size for f in Path(path).iterdir()) / 1e9
+        with open(Path(path) / "manifest.json") as f:
+            extra = json.load(f)["extra"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = cls.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return back, {"save_s": save_s, "load_s": load_s, "snapshot_gb": gb,
+                  "save_gb_per_s": gb / save_s, "load_gb_per_s": gb / load_s,
+                  "manifest_extra": extra}
+
+
+def phase_flat_lifecycle(args, dev, idx, queries, q_np, cal_nprobe,
+                         centers) -> dict:
+    """Phase 13, the IVF-Flat lifecycle on the phase-4 index (run after
+    phase 12: it mutates the index). (a) Remove every 10th id (100K
+    rows): ``ntotal`` drops by exactly that, no removed id comes back at
+    the calibrated nprobe or at 32, recall@10 against an exact oracle over
+    the survivors ≥ 0.95, equal results through ``scan_impl="ragged"``
+    (K3); the host plan and the device moves timed apart. (b) One thread
+    serves 1024-query batches while this one removes five more batches of
+    10K ids: every returned (id, distance) matches the distance to that
+    id's stored row (the regenerated corpus row through the stored
+    quantization) within the scan tolerance, and no id removed before a
+    search began comes back. (c) ``save`` / ``load`` on the card: equal
+    results, ids up to ties."""
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
+        INVALID_ID,
+        plan_removals,
+    )
+
+    n, dim, k = args.n, args.dim, 10
+    chunk = -(-n // args.chunks)
+    counters = scan_counters()
+    out = {}
+
+    # (a) every 10th id
+    removed = np.arange(0, n, 10, dtype=np.uint64)
+    n0 = idx.ntotal
+    lists, slots = np.nonzero(np.isin(idx.arena.ids, removed))
+    t0 = time.perf_counter()
+    plan_removals(idx.arena.counts.cpu().numpy().astype(np.int64), lists,
+                  slots)
+    out["remove_plan_host_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        got = idx.remove_ids(removed)
+        torch.cuda.synchronize()
+        out["remove_wall_ms_profiled"] = (time.perf_counter() - t0) * 1e3
+    out["remove_device_ms"] = sum(
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+    ) / 1e3
+    out["removed"] = got
+    if got != removed.size or idx.ntotal != n0 - removed.size:
+        raise AssertionError(f"remove_ids: {got} removed, ntotal {n0} → "
+                             f"{idx.ntotal}, expected −{removed.size}")
+    truth = survivor_truth(
+        queries, lambda s, m: corpus_chunk(centers, s, m, args.seed), n,
+        chunk, k, 10)
+    results = {}
+    for label, nprobe in (("auto", cal_nprobe), ("p32", 32)):
+        res, results[label] = serve_setting(idx, q_np, truth, nprobe, k, 3,
+                                            counters)
+        res["removed_ids_returned"] = int(np.isin(results[label][1],
+                                                  removed).sum())
+        out[f"after_remove_{label}"] = res
+        if res["removed_ids_returned"] or res["launches"]["k1"] <= 0:
+            raise AssertionError(f"after removal at nprobe {nprobe}: {res}")
+        if res["recall10"] < 0.95:
+            raise AssertionError(f"recall@10 over the survivors at nprobe "
+                                 f"{nprobe}: {res['recall10']} < 0.95")
+    idx.config.scan_impl = "ragged"
+    res, ragged = serve_setting(idx, q_np, truth, cal_nprobe, k, 1, counters)
+    idx.config.scan_impl = "auto"
+    res.update(same_results("ragged (K3) vs K1 after removal", ragged,
+                            results["auto"], q_np))
+    out["ragged_auto"] = res
+    if res["launches"]["k3"] <= 0:
+        raise AssertionError("scan_impl='ragged' never launched K3")
+
+    # (b) searches alongside removals: stored rows by id first
+    ids_tab = idx.arena.ids
+    live_l, live_s = np.nonzero(ids_tab != INVALID_ID)
+    list_of = np.full(n, -1, np.int64)
+    list_of[ids_tab[live_l, live_s].astype(np.int64)] = live_l
+    stored = torch.zeros((n, dim), device=dev)
+    anchors = idx.arena.anchors
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        g = np.arange(s, s + m)
+        live = list_of[g] >= 0
+        live_d = torch.from_numpy(live).to(dev)
+        x = corpus_chunk(centers, s, m, args.seed)[live_d].float()
+        a = anchors[torch.from_numpy(list_of[g][live]).to(dev)]
+        resid = x - a
+        scale = resid.abs().amax(-1).clamp_min(1e-12) / 127.0
+        code = torch.round(resid / scale[:, None]).clamp(-127, 127)
+        stored[torch.from_numpy(g[live]).to(dev)] = a + code * scale[:, None]
+        del x, a, resid, code
+    per = min(10_000, n // 50)           # ids ≡ 1 (mod 10), 5 batches
+    batches = [1 + 10 * np.arange(per * b, per * (b + 1), dtype=np.uint64)
+               for b in range(5)]
+    done_batches = [0]
+    served, errors = [], []
+    stop = threading.Event()
+
+    def serve():
+        try:
+            while not stop.is_set() or len(served) < 4:
+                before = done_batches[0]
+                served.append((before, idx.search(
+                    q_np, vdb.SearchParams(nprobe=0, k=k))))
+                time.sleep(0.001)   # a gap a waiting removal can take
+        except Exception as e:              # re-raised by the main thread
+            errors.append(e)
+
+    thread = threading.Thread(target=serve)
+    thread.start()
+    remove_ms = []
+    for b in batches:
+        time.sleep(0.01)
+        t0 = time.perf_counter()
+        if idx.remove_ids(b) != b.size:
+            raise AssertionError("a concurrent removal missed ids")
+        torch.cuda.synchronize()
+        remove_ms.append((time.perf_counter() - t0) * 1e3)
+        done_batches[0] += 1
+    stop.set()
+    thread.join(timeout=300)
+    if thread.is_alive() or errors:
+        raise AssertionError(f"the serving thread failed: {errors}")
+    worst, returned_removed = 0.0, 0
+    for before, (d, ids) in served:
+        gone = np.concatenate([removed] + batches[:before])
+        returned_removed += int(np.isin(ids, gone).sum())
+        if (ids == INVALID_ID).any():
+            raise AssertionError("a concurrent search returned a sentinel")
+        rows = stored[torch.from_numpy(ids.astype(np.int64)).to(dev)]
+        ref = ((queries.double()[:, None, :] - rows.double()) ** 2).sum(-1)
+        worst = max(worst, share_of_tol(torch.from_numpy(d).to(dev), ref,
+                                        queries))
+    del stored
+    out["concurrent"] = {
+        "searches": len(served), "removal_batches": len(batches),
+        "remove_ms_10k": remove_ms, "worst_share_of_tol": worst,
+        "removed_ids_returned": returned_removed,
+        "searches_during_removals": sum(1 for b, _ in served
+                                        if b < len(batches)),
+    }
+    if worst > 1.0 or returned_removed:
+        raise AssertionError(f"concurrent search/remove: {out['concurrent']}")
+
+    # (c) snapshot round trip on the card
+    ref = {label: idx.search(q_np, vdb.SearchParams(nprobe=nprobe, k=k))
+           for label, nprobe in (("auto", cal_nprobe), ("p32", 32))}
+    back, out["snapshot"] = save_and_load(idx, vdb.IVFFlatIndex, dev)
+    if back.ntotal != idx.ntotal:
+        raise AssertionError(f"load: ntotal {back.ntotal} != {idx.ntotal}")
+    for label, nprobe in (("auto", cal_nprobe), ("p32", 32)):
+        got = back.search(q_np, vdb.SearchParams(nprobe=nprobe, k=k))
+        out["snapshot"][f"same_{label}"] = same_results(
+            f"loaded vs saved at nprobe {nprobe}", got, ref[label], q_np)
+    del back
+    torch.cuda.empty_cache()
+    log("phase13", json.dumps(out))
+    return out
+
+
+def phase_rerank_builder(args, dev, queries, q_np, truth, centers) -> dict:
+    """Phase 14, exact rerank and the builder at full width: a 1M×768
+    int8-residual index with ``store_residuals`` built by
+    ``build_index_chunked`` (the phase-4 corpus in 4 chunks, a train
+    sample of ``train_sample_rows``), searched at nprobe 32 with and
+    without ``use_exact_rerank`` (recall@10 with ≥ without and ≥ 0.95;
+    reranked distances within the fp32 tolerance of float64 distances to
+    the original rows), saved and loaded (rerank results equal: the lo
+    plane survived). Then a bf16 ``FlatIndex`` of the same corpus (stored
+    exactly: the corpus is bf16): recall@10 ≥ 0.99 and its distances
+    within the fp32 tolerance of the oracle's float64 ones."""
+    import numpy as np
+    import torch
+
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.builder import (
+        train_sample_rows,
+    )
+
+    n, dim, nlist, k = args.n, args.dim, args.nlist, 10
+    chunk = -(-n // args.chunks)
+    counters = scan_counters()
+    out = {}
+    cfg = vdb.IVFFlatConfig(dimension=dim, nlist=nlist, dtype="int8",
+                            store_residuals=True, max_capacity_factor=4.0)
+    idx = vdb.IVFFlatIndex(cfg, device=dev)
+    rows = train_sample_rows(cfg)
+    sample = corpus_chunk(centers, 0, chunk, args.seed)[:rows].float()
+
+    def chunks():
+        for s in range(0, n, chunk):
+            m = min(chunk, n - s)
+            yield (np.arange(s, s + m, dtype=np.uint64),
+                   corpus_chunk(centers, s, m, args.seed).float().cpu()
+                   .numpy())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built = vdb.build_index_chunked(idx, chunks(), n,
+                                    train_sample=sample.cpu().numpy())
+    torch.cuda.synchronize()
+    out.update(build_s=time.perf_counter() - t0, train_rows=rows,
+               capacity=idx.arena.capacity,
+               arena_gb=idx.arena.nbytes_device() / 1e9,
+               lo_gb=idx.arena.arena_lo.numel() * 2 / 1e9)
+    if built != n or idx.ntotal != n:
+        raise AssertionError(f"build_index_chunked: {built} rows, ntotal "
+                             f"{idx.ntotal}, expected {n}")
+    res = {}
+    for rr in (False, True):
+        key = "rerank" if rr else "plain"
+        out[key], res[key] = serve_setting(idx, q_np, truth, 32, k, 3,
+                                           counters, rerank=rr)
+        if out[key]["launches"]["k1"] <= 0:
+            raise AssertionError(f"phase 14 {key} never launched K1")
+        d, ids = res[key]
+        orig = corpus_rows(centers, ids.ravel().astype(np.int64), n, chunk,
+                           args.seed).view(len(q_np), k, dim)
+        ref = ((queries.double()[:, None, :] - orig.double()) ** 2).sum(-1)
+        out[key]["share_of_tol_vs_original_f64"] = share_of_tol(
+            torch.from_numpy(d).to(dev), ref, queries)
+        del orig
+    if not (out["rerank"]["recall10"] >= out["plain"]["recall10"]
+            and out["rerank"]["recall10"] >= 0.95):
+        raise AssertionError(f"rerank recall@10 {out['rerank']['recall10']}"
+                             f", without {out['plain']['recall10']}")
+    if out["rerank"]["share_of_tol_vs_original_f64"] > 1.0:
+        raise AssertionError("reranked distances leave the fp32 tolerance "
+                             "of float64 distances to the original rows")
+    # where a reranked batch's time goes (the rerank's own range)
+    out["rerank"]["trace"] = trace_search(
+        idx, q_np, vdb.SearchParams(nprobe=32, k=k, use_exact_rerank=True),
+        out["rerank"]["ms_per_batch_median"],
+        stage_names=SEARCH_STAGES + ("ivf_flat.rerank",))
+    back, out["snapshot"] = save_and_load(idx, vdb.IVFFlatIndex, dev)
+    if back.arena.arena_lo is None:
+        raise AssertionError("the loaded index lost its lo plane")
+    got = back.search(q_np, vdb.SearchParams(nprobe=32, k=k,
+                                             use_exact_rerank=True))
+    out["snapshot"]["same_rerank"] = same_results(
+        "loaded vs saved, reranked", got, res["rerank"], q_np)
+    del back, idx
+    torch.cuda.empty_cache()
+
+    # the exact FlatIndex (bf16 table) over the same corpus
+    flat = vdb.FlatIndex(dim, device=dev)
+    t0 = time.perf_counter()
+    for ids, x in chunks():
+        flat.add(x, ids=ids)
+    torch.cuda.synchronize()
+    out["flat"] = {"add_s": time.perf_counter() - t0,
+                   "table_gb": flat._data.numel() * 2 / 1e9}
+    flat.search(q_np, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d, ids = flat.search(q_np, k)
+    out["flat"]["search_ms"] = (time.perf_counter() - t0) * 1e3
+    out["flat"]["recall10"] = recall_at(ids, truth, k)
+    orig = corpus_rows(centers, truth.ravel(), n, chunk, args.seed).view(
+        len(q_np), k, dim)
+    ref = ((queries.double()[:, None, :] - orig.double()) ** 2).sum(-1)
+    # the corpus is stored bf16, so the table holds it exactly: sorted
+    # distances within the fp32 tolerance of the oracle's, in float64
+    out["flat"]["share_of_tol_vs_oracle_f64"] = share_of_tol(
+        torch.from_numpy(d).to(dev), ref.sort(1).values, queries)
+    del flat, orig
+    torch.cuda.empty_cache()
+    log("phase14", json.dumps(out))
+    if out["flat"]["recall10"] < 0.99 or \
+            out["flat"]["share_of_tol_vs_oracle_f64"] > 1.0:
+        raise AssertionError(f"FlatIndex vs the oracle: {out['flat']}")
+    return out
+
+
+def phase_pq_removal(args, dev, idx, queries, q_np, geom, cal_nprobe) -> dict:
+    """Phase 15a, IVF-PQ removal on the pq-1M index after phases 8-9:
+    remove every 10th id; no removed id comes back in any served setting,
+    recall@10 with rerank at nprobe 32 ≥ 0.90 against the survivors'
+    oracle, K2 launched."""
+    import numpy as np
+    import torch
+
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
+        grouped_pq_scan,
+    )
+
+    n, k, chunk = args.pq_n, 10, 500_000
+    removed = np.arange(0, n, 10, dtype=np.uint64)
+    n0 = idx.ntotal
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = idx.remove_ids(removed)
+    torch.cuda.synchronize()
+    out = {"remove_ms": (time.perf_counter() - t0) * 1e3, "removed": got}
+    if got != removed.size or idx.ntotal != n0 - removed.size:
+        raise AssertionError(f"IVF-PQ remove_ids: {got}, ntotal {n0} → "
+                             f"{idx.ntotal}")
+    truth = survivor_truth(
+        queries, lambda s, m: pq_corpus_chunk(*geom, s, m, args.seed), n,
+        chunk, k, 10)
+    for label, nprobe, rr in PQ_SETTINGS:
+        launches0 = grouped_pq_scan.LAUNCHES
+        ms, (d, ids) = search_timed(
+            idx, q_np, vdb.SearchParams(nprobe=nprobe, k=k,
+                                        use_exact_rerank=rr), 3)
+        out[label] = {
+            "ms_per_batch_median": float(np.median(ms)),
+            "recall10": recall_at(ids, truth, k),
+            "k2_launches": grouped_pq_scan.LAUNCHES - launches0,
+            "removed_ids_returned": int(np.isin(ids, removed).sum()),
+        }
+        if out[label]["removed_ids_returned"] or \
+                out[label]["k2_launches"] <= 0:
+            raise AssertionError(f"IVF-PQ after removal, {label}: "
+                                 f"{out[label]}")
+    log("phase15a", json.dumps(out))
+    if out["p32_rr"]["recall10"] < 0.90:
+        raise AssertionError(f"IVF-PQ recall@10 with rerank at nprobe 32 "
+                             f"after removal: {out['p32_rr']['recall10']}")
+    return out
+
+
+def phase_opq_round_trip(dev, idx, q_np) -> dict:
+    """Phase 15b, the 100K OPQ index of phase 10 (bf16 raw rows) saved and
+    loaded: the manifest records ``raw_frame: original``, and searches with
+    and without the rerank are equal after the load."""
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+
+    params = {f"p32{'_rr' if rr else ''}": vdb.SearchParams(
+        nprobe=32, k=10, use_exact_rerank=rr) for rr in (False, True)}
+    ref = {key: idx.search(q_np, p) for key, p in params.items()}
+    back, out = save_and_load(idx, vdb.IVFPQIndex, dev)
+    if out["manifest_extra"].get("raw_frame") != "original":
+        raise AssertionError(f"OPQ snapshot without the frame marker: "
+                             f"{out['manifest_extra']}")
+    if back.opq_R is None or back.raw is None:
+        raise AssertionError("the loaded OPQ index lost its rotation or "
+                             "raw rows")
+    for key, p in params.items():
+        out[f"same_{key}"] = same_results(f"OPQ loaded vs saved, {key}",
+                                          back.search(q_np, p), ref[key],
+                                          q_np)
+    log("phase15b", json.dumps(out))
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phases 7-10: the IVF-PQ path
 # --------------------------------------------------------------------------- #
 
@@ -1872,7 +2349,7 @@ def phase_pq_main_path(args, dev):
     if out["recall10_p32_rr"] < 0.90:
         raise AssertionError(f"IVF-PQ recall@10 with rerank at nprobe 32: "
                              f"{out['recall10_p32_rr']} < 0.90")
-    return out, idx, queries, q_np, min(cal["nprobe"], nlist)
+    return out, idx, queries, q_np, min(cal["nprobe"], nlist), geom
 
 
 def check_index_pq_scan(idx, q_dev, nprobe, keep) -> dict:
@@ -1948,10 +2425,12 @@ def phase_pq_index_checks(idx, queries, q_np, cal_nprobe, main_path,
     return out
 
 
-def phase_opq(args, dev) -> dict:
+def phase_opq(args, dev):
     """A small OPQ index (100K×768, nlist 256, m 96, trained at half the
-    default depth) beside plain PQ on the same anisotropic data: the learned rotation must be an isometry to
-    fp32 roundoff (max|RᵀR − I| ≤ 2e-5); ADC-only recall@10 of both."""
+    default depth) beside plain PQ on the same anisotropic data: the
+    learned rotation must be an isometry to fp32 roundoff (max|RᵀR − I| ≤
+    2e-5); ADC-only recall@10 of both. Returns the numbers, the OPQ index
+    and its queries (for phase 15b)."""
     import numpy as np
     import torch
 
@@ -1984,6 +2463,7 @@ def phase_opq(args, dev) -> dict:
             R = idx.opq_R.double()
             eye = torch.eye(dim, dtype=torch.float64, device=dev)
             out["opq_isometry_max_err"] = float((R.T @ R - eye).abs().max())
+            opq_idx = idx
         del idx
     log("phase10", json.dumps(out))
     if not out["opq_isometry_max_err"] <= 2e-5:
@@ -1991,7 +2471,7 @@ def phase_opq(args, dev) -> dict:
                              f"{out['opq_isometry_max_err']}")
     del x
     torch.cuda.empty_cache()
-    return out
+    return out, opq_idx, q_np
 
 
 # --------------------------------------------------------------------------- #
@@ -2084,7 +2564,8 @@ def main(argv=None) -> int:
     # tier (phase 12, heavy host copies) runs last and no later phase is
     # timed after it.
     grouped_pq_scan.LAUNCHES = 0                   # phase 7: the IVF-PQ path
-    pq_path, pq_idx, pq_q, pq_q_np, pq_cal = phase_pq_main_path(args, dev)
+    pq_path, pq_idx, pq_q, pq_q_np, pq_cal, pq_geom = phase_pq_main_path(
+        args, dev)
     pq_launches = grouped_pq_scan.LAUNCHES
     log("phase7_k2_launches", pq_launches)
     if pq_launches <= 0:
@@ -2092,11 +2573,35 @@ def main(argv=None) -> int:
     mark("7_pq_main_path")
     pq_checks = phase_pq_index_checks(pq_idx, pq_q, pq_q_np,  # 8, 9
                                       pq_cal, pq_path)
+    mark("8_9_pq_checks")
+    every_counter = all_counters()
+    lifecycle = {}
+
+    def drive(name, fn, *fn_args, need=()):
+        """Run one lifecycle path with every launch counter at 0 just
+        before it, read them just after, and gate the kernels it drives."""
+        for mod in every_counter.values():
+            mod.LAUNCHES = 0
+        res = fn(*fn_args)
+        launches = {key: mod.LAUNCHES
+                    for key, mod in every_counter.items()}
+        log(f"{name}_launches", json.dumps(launches))
+        for key in need:
+            if launches[key] <= 0:
+                raise AssertionError(f"{name} never launched {key.upper()}")
+        lifecycle[name] = {**res, "launches": launches}
+        mark(name)
+
+    drive("15a_pq_removal", phase_pq_removal, args, dev, pq_idx, pq_q,
+          pq_q_np, pq_geom, pq_cal, need=("k2",))
     del pq_idx, pq_q
     torch.cuda.empty_cache()
-    mark("8_9_pq_checks")
-    opq = phase_opq(args, dev)                     # phase 10
+    opq, opq_idx, opq_q_np = phase_opq(args, dev)  # phase 10
     mark("10_opq")
+    drive("15b_opq_round_trip", phase_opq_round_trip, dev, opq_idx,
+          opq_q_np, need=("k2",))
+    del opq_idx
+    torch.cuda.empty_cache()
     grouped_scan.LAUNCHES = 0                      # phase 4: the main path
     (main_path, idx, queries, q_np, cal_nprobe, truth, centers,
      capacity) = phase_main_path(args, dev)
@@ -2132,10 +2637,16 @@ def main(argv=None) -> int:
     launches12 = {n: m.LAUNCHES for n, m in counters.items()}
     log("phase12_launches", json.dumps(launches12))
     mark("12_streaming")
-    log("phase_seconds", json.dumps(phase_s))
     for key in ("k1", "k3"):
         if launches12[key] <= 0:
             raise AssertionError(f"phase 12 never launched {key.upper()}")
+    drive("13_flat_lifecycle", phase_flat_lifecycle, args, dev, idx,
+          queries, q_np, cal_nprobe, centers, need=("k1", "k3"))
+    del idx
+    torch.cuda.empty_cache()
+    drive("14_rerank_builder", phase_rerank_builder, args, dev, queries,
+          q_np, truth, centers, need=("k1",))
+    log("phase_seconds", json.dumps(phase_s))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -2192,7 +2703,8 @@ def main(argv=None) -> int:
             "streaming": streaming, "launches_phase11": launches11,
             "launches_phase12": launches12,
             "pq_main_path": pq_path, "pq_index_checks": pq_checks,
-            "opq": opq, "f64_worst_share_of_tol": F64_WORST,
+            "opq": opq, "lifecycle": lifecycle,
+            "f64_worst_share_of_tol": F64_WORST,
             "phase_seconds": phase_s, **report},
             indent=1))
     log("f64_worst_share_of_tol", json.dumps(F64_WORST))

@@ -248,7 +248,10 @@ class StreamingIVFFlatIndex:
 
     Device memory is bounded by ``cache_slots × capacity × dim`` stored
     bytes (plus the centroids), whatever the corpus size. Runs on
-    ``device``: the card unless the caller names another.
+    ``device``: the card unless the caller names another. Built from an
+    index, the tier copies its rows to the host store: a later
+    ``remove_ids`` on that index is not seen here (removal while a tier
+    serves is not supported, as in the JAX package).
     """
 
     trained = True          # both constructors require trained inputs

@@ -7,15 +7,21 @@ Layout, identical to the JAX package so state carries across:
     arena_sq  [nlist, capacity]        fp32 squared norms of the stored point
     counts    [nlist]                  int32 live rows
     ids       [nlist, capacity]        uint64, host numpy (user ids)
+    arena_lo  [nlist, capacity, dim]   optional bf16 residual plane
 
 A vector's identity on the device is its int32 global position
 ``list_id * capacity + slot``; the host maps positions back to user ids.
 
-Mutation rule. JAX arrays are immutable; here an append writes the new
-rows in place, into slots at or beyond the old ``counts``, and returns a
-handle with a NEW ``counts`` tensor (and a copied id table). ``grow``
-allocates new tensors. A search that snapshotted the old handle masks by
-the old counts, so it never reads a half-written slot.
+Mutation rule. JAX arrays are immutable; here mutations write in place
+and return a handle with a NEW ``counts`` tensor and a copied id table
+(copy-on-write), so a reader that holds the old handle keeps a consistent
+(counts, ids) pair. An append writes only slots at or beyond the old
+counts; ``grow`` allocates new tensors. A removal moves surviving tail
+rows into holes INSIDE the occupied prefix, so a search that snapshotted
+the old handle could read moved rows. It is safe only because every
+index enqueues its device search under the same lock as its mutations,
+on the device's one stream: device work then runs in lock order, and a
+search enqueued before a removal reads the rows its id table describes.
 """
 
 from __future__ import annotations
@@ -51,12 +57,13 @@ def torch_dtype(name) -> torch.dtype:
 
 
 def _append_device(arena, arena_sq, arena_scale, anchors, lists, slots,
-                   vec_f32):
+                   vec_f32, arena_lo=None):
     """Write a batch of rows into their pre-assigned ``(lists, slots)`` in
     place. int8 arenas use per-row symmetric scales (``arena_scale``);
     with ``anchors`` (residual mode) the row encodes ``x − anchor[list]``.
     ``arena_sq`` holds the squared norm of the STORED (dequantized) point,
-    so scan distances are distances to what the arena holds."""
+    so scan distances are distances to what the arena holds. With
+    ``arena_lo`` the bf16 residual ``x − stored(x)`` goes there too."""
     if arena.dtype == torch.int8:
         a_rows = anchors[lists] if anchors is not None else 0.0
         res = vec_f32 - a_rows
@@ -70,6 +77,81 @@ def _append_device(arena, arena_sq, arena_scale, anchors, lists, slots,
         deq = hi.float()
     arena[lists, slots] = hi
     arena_sq[lists, slots] = (deq * deq).sum(-1)
+    if arena_lo is not None:
+        arena_lo[lists, slots] = (vec_f32 - deq).to(torch.bfloat16)
+
+
+def _remove_device(planes, src, dst) -> None:
+    """Swap-from-tail compaction in place: copy rows ``src`` into the holes
+    ``dst`` along the first axis of every plane (None entries skipped; an
+    arena passes its planes flattened to ``[nlist · cap, ...]``, so rows
+    are global positions). ``src`` and ``dst`` are disjoint (tail
+    survivors, holes), so one gather then one scatter per plane is exact;
+    a delete costs O(moved rows)."""
+    for t in planes:
+        if t is not None:
+            t.index_copy_(0, dst, t.index_select(0, src))
+
+
+def plan_removals(
+    counts: np.ndarray, lists: np.ndarray, slots: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side swap-from-tail plan for deleting ``(lists[i], slots[i])``
+    (copied from the JAX package).
+
+    Returns ``(move_lists, src_slots, dst_slots, new_counts)``: moving row
+    ``(move_lists[i], src_slots[i])`` → ``(move_lists[i], dst_slots[i])``
+    compacts every affected list's live rows into its prefix. For each
+    list with deletion set D (|D| = d, fill c, new fill c−d): holes =
+    D ∩ [0, c−d), tail survivors = [c−d, c) \\ D — the two sets always
+    have equal size, so each hole is filled by one surviving tail row and
+    no other row moves. Slots ≥ the list's fill are ignored (stale)."""
+    moves_l, moves_src, moves_dst = [], [], []
+    new_counts = counts.copy()
+    order = np.argsort(lists, kind="stable")
+    ls, ss = lists[order], slots[order]
+    starts = np.concatenate(
+        [[0], np.flatnonzero(np.diff(ls)) + 1, [len(ls)]]
+    )
+    for a, b in zip(starts[:-1], starts[1:]):
+        l = int(ls[a])
+        d = np.unique(ss[a:b])
+        cnt = int(counts[l])
+        d = d[d < cnt]
+        if d.size == 0:
+            continue
+        nc = cnt - d.size
+        dset = set(d.tolist())
+        holes = [s for s in d.tolist() if s < nc]
+        tail = [s for s in range(nc, cnt) if s not in dset]
+        moves_l.extend([l] * len(holes))
+        moves_src.extend(tail)
+        moves_dst.extend(holes)
+        new_counts[l] = nc
+    return (
+        np.asarray(moves_l, np.int64),
+        np.asarray(moves_src, np.int64),
+        np.asarray(moves_dst, np.int64),
+        new_counts,
+    )
+
+
+def apply_removal_to_ids(
+    ids_table: np.ndarray,
+    move_l: np.ndarray,
+    src_s: np.ndarray,
+    dst_s: np.ndarray,
+    new_counts: np.ndarray,
+    old_counts: np.ndarray,
+) -> np.ndarray:
+    """Mirror a ``plan_removals`` plan onto a host id table, copy-on-write
+    (concurrent readers may hold the old table): apply the moves, then
+    invalidate each shrunken list's tail (copied from the JAX package)."""
+    new_ids = ids_table.copy()
+    new_ids[move_l, dst_s] = new_ids[move_l, src_s]
+    for l in np.flatnonzero(new_counts != old_counts):
+        new_ids[l, new_counts[l]: old_counts[l]] = INVALID_ID
+    return new_ids
 
 
 def _round_up(x: int, m: int) -> int:
@@ -114,6 +196,10 @@ class PackedListArena:
     # Residual anchors [nlist, dim] fp32 (the coarse centroids): int8 codes
     # encode x − anchor[list].
     anchors: torch.Tensor | None = None
+    # Optional bf16 residual plane: lo = fp32(x) − stored(x). stored + lo
+    # rebuilds x to ~16 mantissa bits for the exact rerank, while the scan
+    # reads only the stored plane. Absent on fp32 arenas.
+    arena_lo: torch.Tensor | None = None
     # Host-tracked max(counts): lets searches scan only the occupied slot
     # prefix (``scan_capacity_hint``). None = unknown.
     counts_max: int | None = None
@@ -131,16 +217,23 @@ class PackedListArena:
     @classmethod
     def create(
         cls, nlist: int, dim: int, dtype=torch.bfloat16, capacity: int = 128,
+        store_residuals: bool = False,
         device: torch.device | str | None = "cuda",
     ) -> "PackedListArena":
         """An empty arena on ``device`` (the card unless another is
-        named)."""
+        named); ``store_residuals`` adds the bf16 lo plane (not on fp32
+        arenas, which store x exactly)."""
         dtype = torch_dtype(dtype)
         device = resolve_device(device)
         capacity = _round_up(max(capacity, cls.SLOT_ALIGN), cls.SLOT_ALIGN)
         scale = (
             torch.zeros((nlist, capacity), dtype=torch.float32, device=device)
             if dtype == torch.int8 else None
+        )
+        lo = (
+            torch.zeros((nlist, capacity, dim), dtype=torch.bfloat16,
+                        device=device)
+            if store_residuals and dtype != torch.float32 else None
         )
         return cls(
             nlist=nlist,
@@ -154,6 +247,7 @@ class PackedListArena:
             counts=torch.zeros((nlist,), dtype=torch.int32, device=device),
             ids=np.full((nlist, capacity), INVALID_ID, np.uint64),
             arena_scale=scale,
+            arena_lo=lo,
             counts_max=0,
         )
 
@@ -178,6 +272,8 @@ class PackedListArena:
         )
         if self.arena_scale is not None:
             n += self.arena_scale.numel() * 4
+        if self.arena_lo is not None:
+            n += self.arena_lo.numel() * 2
         return n
 
     # ------------------------------------------------------------------ #
@@ -221,7 +317,7 @@ class PackedListArena:
                 ).to(dev)
             _append_device(
                 out.arena, out.arena_sq, out.arena_scale, out.anchors,
-                lists_d[s0:s1], slots_d[s0:s1], vec,
+                lists_d[s0:s1], slots_d[s0:s1], vec, out.arena_lo,
             )
         new_counts = torch.from_numpy(needed.astype(np.int32)).to(dev)
         new_ids = out.ids.copy()
@@ -229,6 +325,43 @@ class PackedListArena:
         return dataclasses.replace(
             out, counts=new_counts, ids=new_ids, counts_max=max_needed,
         )
+
+    def remove(
+        self, lists: np.ndarray, slots: np.ndarray
+    ) -> tuple["PackedListArena", int]:
+        """Delete the rows at ``(lists[i], slots[i])`` by swap-from-tail
+        compaction (see ``plan_removals``): every plane (codes, norms,
+        scales, lo) moves the same rows in place, and the returned handle
+        has new counts and a copied id table. Returns ``(new_arena,
+        n_removed)``. Lists stay prefix-packed, so every scan invariant
+        (counts masking, the occupied-prefix bound) holds unchanged."""
+        if lists.size == 0:
+            return self, 0
+        counts_h = self.counts.cpu().numpy().astype(np.int64)
+        move_l, src_s, dst_s, new_counts = plan_removals(
+            counts_h, lists.astype(np.int64), slots.astype(np.int64)
+        )
+        n_removed = int((counts_h - new_counts).sum())
+        if n_removed == 0:
+            return self, 0
+        new_ids = apply_removal_to_ids(
+            self.ids, move_l, src_s, dst_s, new_counts, counts_h
+        )
+        if move_l.size:
+            dev = self.device
+            _remove_device(
+                [None if t is None else t.flatten(0, 1) for t in (
+                    self.arena, self.arena_sq, self.arena_scale,
+                    self.arena_lo)],
+                torch.from_numpy(move_l * self.capacity + src_s).to(dev),
+                torch.from_numpy(move_l * self.capacity + dst_s).to(dev),
+            )
+        return dataclasses.replace(
+            self, ids=new_ids,
+            counts=torch.from_numpy(new_counts.astype(np.int32)).to(
+                self.device),
+            counts_max=int(new_counts.max()) if new_counts.size else 0,
+        ), n_removed
 
     def grow(self, new_capacity: int) -> "PackedListArena":
         """Reallocate with a larger per-list capacity (new tensors; the old
@@ -254,11 +387,32 @@ class PackedListArena:
             self, capacity=new_capacity, arena=_pad_slots(self.arena),
             arena_sq=_pad_slots(self.arena_sq), ids=ids,
             arena_scale=_pad_slots(self.arena_scale),
+            arena_lo=_pad_slots(self.arena_lo),
         )
 
     # ------------------------------------------------------------------ #
     # id mapping
     # ------------------------------------------------------------------ #
+
+    def live_rows(self, l0: int, l1: int) -> tuple[torch.Tensor, np.ndarray]:
+        """The live rows of lists ``[l0, l1)`` in (list, slot) order, on
+        the arena's device, as the fp32 values the arena stores (``anchor +
+        scale · code`` in :meth:`to_host`'s order of operations, or the
+        bf16 / fp32 row) plus the lo plane where there is one; and their
+        user ids."""
+        counts = self.counts[l0:l1].cpu().numpy().astype(np.int64)
+        live = np.arange(self.capacity)[None, :] < counts[:, None]
+        live_d = torch.from_numpy(live).to(self.device)
+        rows = self.arena[l0:l1][live_d].float()
+        if self.arena_scale is not None:
+            rows *= self.arena_scale[l0:l1][live_d][:, None]
+        if self.anchors is not None:
+            row_list = torch.from_numpy(
+                np.repeat(np.arange(l0, l1), counts)).to(self.device)
+            rows += self.anchors[row_list]
+        if self.arena_lo is not None:
+            rows += self.arena_lo[l0:l1][live_d].float()
+        return rows, self.ids[l0:l1][live]
 
     def positions_to_ids(self, pos: np.ndarray) -> np.ndarray:
         """Map global positions (int32, -1 = empty) to user uint64 ids

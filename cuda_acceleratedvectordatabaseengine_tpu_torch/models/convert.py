@@ -53,11 +53,13 @@ def ivf_flat_from_arrays(
     counts: np.ndarray,
     ids: np.ndarray,
     counts_max: int | None,
+    arena_lo: np.ndarray | None = None,
     device: torch.device | str | None = "cuda",
 ) -> IVFFlatIndex:
     """An ``IVFFlatIndex`` on ``device`` (the card unless another is named)
     holding exactly this state. ``arena`` must already be in
-    ``config.dtype`` (int8 codes, bf16 or fp32 rows)."""
+    ``config.dtype`` (int8 codes, bf16 or fp32 rows); ``arena_lo`` is the
+    bf16 residual plane of a ``store_residuals`` index."""
     dtype = torch_dtype(config.dtype)
     device = resolve_device(device)
     arena_t = _tensor(arena, device)
@@ -91,6 +93,7 @@ def ivf_flat_from_arrays(
             if anchors is not None else None
         ),
         counts_max=counts_max,
+        arena_lo=_tensor(arena_lo, device) if arena_lo is not None else None,
     )
     idx.trained = True
     return idx

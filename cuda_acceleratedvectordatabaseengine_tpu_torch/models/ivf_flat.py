@@ -8,14 +8,17 @@ ids. The scan is chosen by ``IVFFlatConfig.scan_impl`` and routed by
 ``ops/flat_scan.py``: the grouped kernel K1 (``"auto"`` on CUDA), the
 sorted full-row kernel K3 (``"pallas_sorted"``, and every search deeper
 than K1's ``KMAX``), the pair kernel K4 (``"pallas"`` on a bf16 / fp32
-arena; an int8 arena goes to K3 as in the JAX package), or the gather scan
-(``"auto"`` on the CPU). On the CPU each kernel name takes its kernel's
-plain PyTorch version.
+arena; an int8 arena goes to K3 as in the JAX package), K3 again for
+``"ragged"``, or the gather scan (``"auto"`` on the CPU). On the CPU each
+kernel name takes its kernel's plain PyTorch version. With
+``store_residuals`` the arena keeps a bf16 lo plane, and
+``SearchParams(use_exact_rerank=True)`` recomputes the scan's shortlist
+in full fp32 from ``stored + lo`` (range ``ivf_flat.rerank``).
 
-Not ported yet (a later slice): ``remove_ids``, the exact rerank over a
-stored residual plane (``store_residuals`` / ``use_exact_rerank``),
-``save`` / ``load``, and the relay-era knobs ``stage_bf16`` and
-``query_upload_dtype="bfloat16"``. Setting one of those raises.
+Lifecycle: ``remove_ids`` compacts lists in place (``models/arena.py``),
+``save`` / ``load`` write and read the JAX package's snapshot format
+(``storage/snapshot.py``). The relay-era knobs ``stage_bf16`` and
+``query_upload_dtype="bfloat16"`` are not ported; setting one raises.
 """
 
 from __future__ import annotations
@@ -78,14 +81,14 @@ class IVFFlatConfig:
     scan_impl: str = "auto"          # "auto": the grouped kernel on CUDA,
                                      # the gather scan on the CPU; or
                                      # "grouped" (alias "pallas_grouped",
-                                     # K1) | "pallas_sorted" (alias
-                                     # "sorted", K3) | "pallas" (K4) |
-                                     # "gather"
+                                     # K1) | "pallas_sorted" (aliases
+                                     # "sorted", "ragged": K3) | "pallas"
+                                     # (K4) | "gather"
     m_budget: int | None = None      # grouped scan: queries per list-row
                                      # (None = auto from batch and nlist)
     approx_topk: bool = False        # accepted; selection is always exact
     stage_bf16: bool = False         # not ported (must stay False)
-    store_residuals: bool = False    # not ported yet (must stay False)
+    store_residuals: bool = False    # keep the bf16 lo plane (exact rerank)
     int8_residual: bool = True       # int8: encode x − centroid[l]
     multi_assign_eps: float = 0.0    # >0: second copy of rows whose 2nd
                                      # centroid passes d2 ≤ (1+ε)²·d1
@@ -97,10 +100,8 @@ class IVFFlatConfig:
             self.metric = Metric.parse(self.metric)
         torch_dtype(self.dtype)
         check_scan_name(self.scan_impl)
-        if self.stage_bf16 or self.store_residuals:
-            raise NotImplementedError(
-                "stage_bf16 and store_residuals are not ported"
-            )
+        if self.stage_bf16:
+            raise NotImplementedError("stage_bf16 is not ported")
         if self.query_upload_dtype != "float32":
             raise NotImplementedError(
                 "only query_upload_dtype='float32' is ported"
@@ -114,7 +115,8 @@ class SearchParams:
 
     nprobe: int = 10
     k: int = 10
-    use_exact_rerank: bool = False  # IVF-Flat distances are already exact
+    use_exact_rerank: bool = False  # fp32 rerank from the lo plane, where
+                                    # the index stores residuals
 
 
 def _choose_capacity(
@@ -199,10 +201,10 @@ def dedup_topk(
 
 
 def _bulk_pack_device(x, assignments, nlist: int, cap: int, dtype,
-                      anchors=None):
+                      anchors=None, store_lo: bool = False):
     """Pack a whole corpus into a fresh arena on the device: per-list rank
     by a stable sort, then the append path's quantize-and-scatter. Returns
-    ``(arena, arena_sq, counts, slots, arena_scale)``."""
+    ``(arena, arena_sq, counts, slots, arena_scale, arena_lo)``."""
     dev = x.device
     n = x.shape[0]
     a = assignments.to(device=dev, dtype=torch.long)
@@ -218,27 +220,34 @@ def _bulk_pack_device(x, assignments, nlist: int, cap: int, dtype,
         torch.zeros((nlist, cap), dtype=torch.float32, device=dev)
         if dtype == torch.int8 else None
     )
+    lo = (
+        torch.zeros((nlist, cap, x.shape[1]), dtype=torch.bfloat16,
+                    device=dev)
+        if store_lo else None
+    )
     step = PackedListArena.APPEND_DEVICE_ROWS
     for s0 in range(0, n, step):
         _append_device(arena, arena_sq, scale, anchors, a[s0:s0 + step],
-                       slots[s0:s0 + step], x[s0:s0 + step].float())
-    return arena, arena_sq, counts.int(), slots, scale
+                       slots[s0:s0 + step], x[s0:s0 + step].float(), lo)
+    return arena, arena_sq, counts.int(), slots, scale, lo
 
 
 def _ivf_search_device(
     queries, centroids, arena, arena_sq, counts, nprobe, k, metric,
     scan_impl="gather", arena_scale=None, arena_anchors=None, m_budget=None,
-    scan_capacity=None,
+    scan_capacity=None, rerank_k=0, arena_lo=None,
 ):
     """The device half of a search: ``(dists [B, k], pos [B, k],
     probe_ids [B, nprobe])``. ``scan_impl`` is any ``IVFFlatConfig``
     name, routed by ``ops/flat_scan.scan_flat`` (K1, K3, K4 or the gather
     scan; K3 where K1 would be asked for more than ``KMAX``). The probe
     set rides along so the host's hotness accounting counts lists that
-    were probed.
+    were probed. With ``rerank_k`` > 0 and a lo plane the scan keeps
+    ``max(k, rerank_k)`` candidates and :func:`_exact_rerank` picks the k.
     Each stage runs in a named ``torch.profiler`` range
     (``ivf_flat.coarse_probe``, ``grouped_scan.*``, ``sorted_scan.*``,
-    ``pair_scan.*``) so a trace attributes device time to it."""
+    ``pair_scan.*``, ``ivf_flat.rerank``) so a trace attributes device
+    time to it."""
     with record_function("ivf_flat.coarse_probe"):
         q = queries.float()
         if metric == Metric.COSINE:
@@ -246,20 +255,55 @@ def _ivf_search_device(
         coarse = pairwise_distance(q, centroids, metric)      # [B, nlist]
         _, probe_ids = topk_smallest(coarse, nprobe)
         probe_ids = probe_ids.int()
+    keep = max(k, rerank_k)
     d, pos = scan_flat(
-        scan_impl, q, arena, arena_sq, counts, probe_ids, k, metric,
+        scan_impl, q, arena, arena_sq, counts, probe_ids, keep, metric,
         arena_scale=arena_scale, arena_anchors=arena_anchors,
         m_budget=m_budget, scan_capacity=scan_capacity,
     )
+    if rerank_k > 0 and arena_lo is not None:
+        with record_function("ivf_flat.rerank"):
+            d, pos = _exact_rerank(q, pos[:, :keep], arena, arena_lo,
+                                   arena_scale, arena_anchors, k, metric)
+        return d, pos, probe_ids
     return d[:, :k], pos[:, :k], probe_ids
+
+
+def _exact_rerank(q, pos, arena, arena_lo, arena_scale, arena_anchors, k,
+                  metric):
+    """The top ``k`` of the candidates ``pos [B, keep]`` by distances
+    recomputed in full fp32 (TF32 is off package-wide) from the rebuilt
+    rows ``stored + lo``, as the JAX package's rerank stage computes them
+    at ``Precision.HIGHEST``: a small batched product outside any
+    kernel."""
+    nlist, cap, dim = arena.shape
+    safe = pos.clamp_min(0).long()
+    cand = arena.view(nlist * cap, dim)[safe].float()          # [B, keep, D]
+    if arena_scale is not None:
+        cand = cand * arena_scale.reshape(-1)[safe][:, :, None]
+    if arena_anchors is not None:
+        cand = cand + arena_anchors[safe // cap]
+    cand = cand + arena_lo.view(nlist * cap, dim)[safe].float()
+    dots = torch.bmm(cand, q[:, :, None])[:, :, 0]
+    c_sq = (cand * cand).sum(-1)
+    if metric == Metric.INNER_PRODUCT:
+        exact = -dots
+    elif metric == Metric.COSINE:
+        exact = 1.0 - dots * torch.rsqrt(c_sq.clamp_min(1e-12))
+    else:
+        q_sq = (q * q).sum(-1)
+        exact = (q_sq[:, None] - 2.0 * dots + c_sq).clamp_min(0.0)
+    exact = torch.where(pos >= 0, exact, float("inf"))
+    return topk_smallest(exact, k, idx=pos)
 
 
 class IVFFlatIndex:
     """IVF-Flat ANN index on one device: ``"cuda"`` unless the caller names
-    another (``"cpu"``, ``"cuda:1"``, ...). Searches snapshot the arena
-    handle; mutations write only slots past the snapshot's counts or
-    allocate anew (see ``models/arena.py``), so a running search stays
-    consistent."""
+    another (``"cpu"``, ``"cuda:1"``, ...). A search snapshots the arena
+    handle and enqueues its device work under ``_mutate_lock``, the lock
+    every mutation holds, so device work runs in lock order on the one
+    stream and a search reads the rows its snapshot's id table describes,
+    even across a removal that moves rows in place (``models/arena.py``)."""
 
     def __init__(self, config: IVFFlatConfig,
                  device: torch.device | str | None = "cuda"):
@@ -268,7 +312,7 @@ class IVFFlatIndex:
         self.device = resolve_device(device)
         self.arena = PackedListArena.create(
             config.nlist, config.dimension, dtype=torch_dtype(config.dtype),
-            device=self.device,
+            store_residuals=config.store_residuals, device=self.device,
         )
         self.centroids: torch.Tensor | None = None  # [nlist, dim] fp32
         self.trained = False
@@ -276,7 +320,8 @@ class IVFFlatIndex:
         self.calibrated_nprobe: int | None = None
         # Hotness stats behind warmup/evict decisions.
         self.list_access_count = np.zeros(config.nlist, np.int64)
-        # Serializes mutations (each plans slots from the current counts).
+        # Serializes mutations (each plans slots from the current counts)
+        # against each other and against the enqueue of a search.
         self._mutate_lock = threading.Lock()
 
     # ------------------------------------------------------------------ #
@@ -412,9 +457,11 @@ class IVFFlatIndex:
         )
         assignments_np = _balance_assignments(choices, cap, cfg.nlist)
         anchors = self._quant_anchors()
-        arena, arena_sq, counts_d, slots, scale = _bulk_pack_device(
+        arena, arena_sq, counts_d, slots, scale, lo = _bulk_pack_device(
             x_dev, torch.from_numpy(assignments_np), cfg.nlist, cap,
             cfg.dtype, anchors,
+            store_lo=cfg.store_residuals
+            and torch_dtype(cfg.dtype) != torch.float32,
         )
         if ids is None:
             ids = np.arange(n, dtype=np.uint64)
@@ -425,11 +472,29 @@ class IVFFlatIndex:
                 nlist=cfg.nlist, dim=cfg.dimension, dtype=arena.dtype,
                 capacity=cap, arena=arena, arena_sq=arena_sq,
                 counts=counts_d, ids=ids_table, arena_scale=scale,
-                anchors=anchors,
+                anchors=anchors, arena_lo=lo,
                 counts_max=int(
                     np.bincount(assignments_np, minlength=cfg.nlist).max()
                 ),
             )
+
+    def remove_ids(self, ids: np.ndarray) -> int:
+        """Delete vectors by user id; returns how many were removed.
+        Locates ``(list, slot)`` through the host id table, then compacts
+        the affected lists in place (``PackedListArena.remove``), so no
+        rebuild and no tombstones. Unknown ids are ignored (idempotent).
+        A ``StreamingIVFFlatIndex`` built from this index holds its own
+        host copy and does not see the removal."""
+        ids = np.unique(np.asarray(ids, np.uint64))
+        ids = ids[ids != INVALID_ID]
+        if ids.size == 0 or self.ntotal == 0:
+            return 0
+        with self._mutate_lock:
+            lists, slots = np.nonzero(np.isin(self.arena.ids, ids))
+            if lists.size == 0:
+                return 0
+            self.arena, n_removed = self.arena.remove(lists, slots)
+        return n_removed
 
     def append_balanced(
         self,
@@ -530,15 +595,22 @@ class IVFFlatIndex:
         # dedup can still hand back k unique ids.
         k = params.k
         k_dev = 2 * k if self.config.multi_assign_eps > 0 else k
-        arena = self.arena   # snapshot: one consistent (arena, counts, ids)
         with record_function("ivf_flat.upload"):
             q_dev = self._to_device(queries)
-        d_dev, pos_dev, probes_dev = _ivf_search_device(
-            q_dev, self.centroids, arena.arena,
-            arena.arena_sq, arena.counts, nprobe, k_dev, self.metric,
-            self.config.scan_impl, arena.arena_scale, arena.anchors,
-            self.config.m_budget, arena.scan_capacity_hint(),
-        )
+        # Snapshot AND enqueue under the mutation lock (see the class
+        # docstring); the wait and the id map in finalize run outside it.
+        with self._mutate_lock:
+            arena = self.arena
+            rerank_k = 0
+            if params.use_exact_rerank and arena.arena_lo is not None:
+                rerank_k = min(max(4 * k, k_dev), 256)
+            d_dev, pos_dev, probes_dev = _ivf_search_device(
+                q_dev, self.centroids, arena.arena,
+                arena.arena_sq, arena.counts, nprobe, k_dev, self.metric,
+                self.config.scan_impl, arena.arena_scale, arena.anchors,
+                self.config.m_budget, arena.scan_capacity_hint(),
+                rerank_k, arena.arena_lo,
+            )
 
         def finalize():
             with record_function("ivf_flat.finalize"):
@@ -631,7 +703,8 @@ class IVFFlatIndex:
     # ------------------------------------------------------------------ #
 
     def state_arrays(self) -> dict:
-        """Packed snapshot arrays (dequantized fp32 arena, counts, ids)."""
+        """Packed arrays (dequantized fp32 arena without the lo plane,
+        counts, ids), as the JAX package's ``state_arrays``."""
         host = self.arena.to_host()
         return {
             "centroids": self.centroids.cpu().numpy(),
@@ -639,6 +712,24 @@ class IVFFlatIndex:
             "counts": host["counts"],
             "ids": host["ids"],
         }
+
+    def save(self, path: str) -> None:
+        """Write a snapshot directory (``storage/snapshot.save_ivf_flat``)
+        under the mutation lock: one consistent arena state."""
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.snapshot \
+            import save_ivf_flat
+
+        with self._mutate_lock:
+            save_ivf_flat(path, self)
+
+    @classmethod
+    def load(cls, path: str,
+             device: torch.device | str | None = "cuda") -> "IVFFlatIndex":
+        """Read a snapshot written by either package onto ``device``."""
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.snapshot \
+            import load_ivf_flat
+
+        return load_ivf_flat(path, device=device)
 
     @classmethod
     def from_state(

@@ -16,14 +16,18 @@ rerank rows in the original one, so the rerank pairs the stored rows with
 the unrotated query (the JAX package's round-5 fix). Every rotation and the
 rerank run in full fp32 (TF32 is off package-wide).
 
-Mutation rule (``models/arena.py``): codes are written only into slots past
-the published counts, growth allocates new tensors, and the new counts are
-published after the codes are written. A search takes one consistent
-snapshot of codes, ``code_sq``, the raw handle, counts and ids.
+Mutation rule (``models/arena.py``): an append writes codes only into
+slots past the published counts, growth allocates new tensors, and a
+removal moves surviving tail rows into holes in place; each publishes new
+counts and a copied id table. A search takes one consistent snapshot of
+codes, ``code_sq``, the raw handle, counts and ids and enqueues its device
+work under the same lock as the mutations, so device work runs in lock
+order on the one stream.
 
-Not ported yet (a later slice), each raising ``NotImplementedError``:
-``remove_ids`` (ROADMAP Queue 1 item 1, arena removal), ``save`` / ``load``
-(M6, snapshots) and ``attach_host_rerank`` (M9, the host memory tier).
+``save`` / ``load`` write and read the JAX package's snapshot format
+(``storage/snapshot.py``). Not ported yet: ``attach_host_rerank`` (the host
+memory tier, ``io_host/host_rerank.py`` in the JAX package); it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,10 @@ from torch.profiler import record_function
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
     INVALID_ID,
     PackedListArena,
+    _remove_device,
+    apply_removal_to_ids,
     compute_append_slots,
+    plan_removals,
     torch_dtype,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
@@ -558,10 +565,46 @@ class IVFPQIndex:
             self.raw = self.raw.grow(new_cap)
 
     def remove_ids(self, ids: np.ndarray) -> int:
-        raise NotImplementedError(
-            "IVFPQIndex.remove_ids is not ported yet: it needs arena removal "
-            "(ROADMAP Queue 1 item 1)"
-        )
+        """Delete vectors by user id; returns how many were removed
+        (unknown ids are ignored). One swap-from-tail plan
+        (``models/arena.plan_removals``) drives every plane: the
+        transposed codes and ``code_sq`` move here, and the raw arena
+        (``keep_raw``) replays the same deterministic plan inside
+        ``PackedListArena.remove``, so code and raw slots stay aligned."""
+        ids = np.unique(np.asarray(ids, np.uint64))
+        ids = ids[ids != INVALID_ID]
+        if ids.size == 0 or self.ntotal == 0:
+            return 0
+        with self._mutate_lock:
+            lists, slots = np.nonzero(np.isin(self.ids, ids))
+            if lists.size == 0:
+                return 0
+            counts_h = self.counts.cpu().numpy().astype(np.int64)
+            move_l, src_s, dst_s, new_counts = plan_removals(
+                counts_h, lists.astype(np.int64), slots.astype(np.int64)
+            )
+            n_removed = int((counts_h - new_counts).sum())
+            if n_removed == 0:
+                return 0
+            if move_l.size:
+                dev = self.device
+                ml = torch.from_numpy(move_l).to(dev)
+                src = torch.from_numpy(src_s).to(dev)
+                dst = torch.from_numpy(dst_s).to(dev)
+                # codes are [nlist, m, cap]: move the (list, :, slot) columns
+                self.code_arena_t[ml, :, dst] = self.code_arena_t[ml, :, src]
+                _remove_device((self.code_sq.view(-1),),
+                               ml * self.capacity + src,
+                               ml * self.capacity + dst)
+            if self.raw is not None:
+                self.raw, _ = self.raw.remove(lists, slots)
+            else:
+                self._ids = apply_removal_to_ids(
+                    self._ids, move_l, src_s, dst_s, new_counts, counts_h
+                )
+                self._counts = torch.from_numpy(
+                    new_counts.astype(np.int32)).to(self.device)
+        return n_removed
 
     # ------------------------------------------------------------------ #
     # search
@@ -603,26 +646,26 @@ class IVFPQIndex:
         rerank_k = 0
         if params.use_exact_rerank and self.raw is not None:
             rerank_k = min(max(4 * params.k, params.k), 256)
-        with self._mutate_lock:   # one consistent snapshot
-            raw = self.raw
-            codes, code_sq, counts = self.code_arena_t, self.code_sq, \
-                self.counts
-            ids_table, capacity = self.ids, self.capacity
-            scan_capacity = self._scan_capacity_hint()
         scan_impl = _SCAN_IMPLS[self.config.scan_impl]
         if scan_impl == "auto":
-            scan_impl = "grouped" if codes.is_cuda else "gather"
+            scan_impl = "grouped" if self.device.type == "cuda" else "gather"
         with record_function("ivf_pq.upload"):
             q_dev = self._to_device(queries)
-        d, pos = _ivf_pq_search_device(
-            q_dev, self.centroids, self.codebooks, codes, code_sq, counts,
-            raw.arena if raw is not None else None,
-            raw.arena_sq if raw is not None else None,
-            raw.arena_scale if raw is not None else None,
-            raw.anchors if raw is not None else None,
-            nprobe, params.k, self.metric, rerank_k, scan_impl,
-            opq_R=self.opq_R, scan_capacity=scan_capacity,
-        )
+        # One consistent snapshot, and the device work enqueued under the
+        # lock (a removal moves rows in place; see the module docstring).
+        with self._mutate_lock:
+            raw = self.raw
+            ids_table, capacity = self.ids, self.capacity
+            d, pos = _ivf_pq_search_device(
+                q_dev, self.centroids, self.codebooks, self.code_arena_t,
+                self.code_sq, self.counts,
+                raw.arena if raw is not None else None,
+                raw.arena_sq if raw is not None else None,
+                raw.arena_scale if raw is not None else None,
+                raw.anchors if raw is not None else None,
+                nprobe, params.k, self.metric, rerank_k, scan_impl,
+                opq_R=self.opq_R, scan_capacity=self._scan_capacity_hint(),
+            )
         return d, pos, ids_table, capacity
 
     def _search_finalize(self, d, pos, ids_table, capacity):
@@ -686,7 +729,7 @@ class IVFPQIndex:
                            k_inner: int = 0, margin: float = 0.0) -> None:
         raise NotImplementedError(
             "IVFPQIndex.attach_host_rerank is not ported yet: it needs the "
-            "host memory tier, io_host (ROADMAP M9)"
+            "host rerank tier, io_host/host_rerank.py (ROADMAP Queue 1)"
         )
 
     def evict_list(self, list_id: int) -> None:
@@ -761,15 +804,22 @@ class IVFPQIndex:
         return result
 
     def save(self, path: str) -> None:
-        raise NotImplementedError(
-            "IVFPQIndex.save is not ported yet: snapshots are ROADMAP M6"
-        )
+        """Write a snapshot directory (``storage/snapshot.save_ivf_pq``)
+        under the mutation lock: one consistent state."""
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.snapshot \
+            import save_ivf_pq
+
+        with self._mutate_lock:
+            save_ivf_pq(path, self)
 
     @classmethod
-    def load(cls, path: str) -> "IVFPQIndex":
-        raise NotImplementedError(
-            "IVFPQIndex.load is not ported yet: snapshots are ROADMAP M6"
-        )
+    def load(cls, path: str,
+             device: torch.device | str | None = "cuda") -> "IVFPQIndex":
+        """Read a snapshot written by either package onto ``device``."""
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.snapshot \
+            import load_ivf_pq
+
+        return load_ivf_pq(path, device=device)
 
     def memory_stats(self) -> dict:
         """Device-memory accounting of the index (bytes)."""

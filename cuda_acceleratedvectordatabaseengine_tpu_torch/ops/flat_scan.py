@@ -10,6 +10,10 @@ package's ``scan_impl`` values:
 - ``"grouped"`` / ``"pallas_grouped"``: K1 (``ops/grouped_scan.py``);
 - ``"sorted"`` / ``"pallas_sorted"``: the sorted full-row kernel K3
   (``ops/sorted_scan.py``);
+- ``"ragged"``: K3 too. The JAX package's ``scan_probed_lists_ragged`` is
+  plain XLA (pairs sorted by list, full ``[B·P, cap]`` rows with scale
+  and anchor, the top-k outside), which is K3's function with no limit on
+  k;
 - ``"pallas"``: the pair full-row kernel K4 (``ops/pair_scan.py``), or K3
   on an arena with per-row scales, as in the JAX package (K4 reads no
   scales);
@@ -41,7 +45,7 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.sorted_scan import (
 SCAN_NAMES = {
     "auto": "auto", "gather": "gather", "grouped": "grouped",
     "pallas_grouped": "grouped", "sorted": "sorted",
-    "pallas_sorted": "sorted", "pallas": "pallas",
+    "pallas_sorted": "sorted", "ragged": "sorted", "pallas": "pallas",
 }
 
 

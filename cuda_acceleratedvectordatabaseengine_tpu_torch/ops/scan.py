@@ -1,5 +1,7 @@
 """Gather scan + top-k over probed lists (PyTorch port of
-``cuda_acceleratedvectordatabaseengine_tpu/ops/scan.py::scan_probed_lists``).
+``cuda_acceleratedvectordatabaseengine_tpu/ops/scan.py::scan_probed_lists``),
+and the flat index's brute-force scan (:func:`scan_all`, the port of that
+module's ``scan_flat``).
 
 The port's CPU search path and its in-package correctness reference: every
 other scan (the grouped plain version and the hand-written kernel in
@@ -92,5 +94,47 @@ def scan_probed_lists(
             valid, (safe[:, None] * global_cap + slot_logical[None, :]).int(),
             -1,
         )
+        best_d, best_p = merge_topk(best_d, best_p, d, pos, k)
+    return best_d, best_p
+
+
+def scan_all(
+    queries: torch.Tensor,      # [B, D] fp32 (pre-normalized if cosine)
+    data: torch.Tensor,         # [N_pad, D] corpus dtype
+    data_sq: torch.Tensor,      # [N_pad] fp32
+    n_valid: int,
+    k: int,
+    metric: Metric = Metric.L2,
+    chunk_size: int = 65536,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact brute-force scan of the first ``n_valid`` rows with a running
+    top-k (the port of the JAX package's ``ops/scan.py::scan_flat``, the
+    flat index's search; named apart from ``ops/flat_scan.scan_flat``, the
+    probed-list router). Chunked over rows so each step is one
+    ``[B, D] × [D, C]`` product, run in fp32 on the widened rows (TF32 is
+    off package-wide): exact products of the fp32 query and the stored
+    values, added in fp32. The JAX version rounds the query to the corpus
+    dtype first, for the TPU's bf16 matrix unit; the port keeps it fp32,
+    so its distances are fp32-exact distances to the stored rows. Returns
+    ``(dists [B, k] ascending, pos [B, k] row numbers, -1 for empty)``."""
+    q = queries.float()
+    q_sq = (q * q).sum(-1)
+    batch = q.shape[0]
+    best_d = torch.full((batch, k), float("inf"), device=q.device)
+    best_p = torch.full((batch, k), -1, dtype=torch.int32, device=q.device)
+    for c0 in range(0, max(n_valid, 1), chunk_size):
+        c1 = min(c0 + chunk_size, n_valid)
+        if c1 <= c0:
+            break
+        dots = q @ data[c0:c1].float().T
+        if metric == Metric.L2:
+            d = (q_sq[:, None] - 2.0 * dots + data_sq[None, c0:c1]).clamp_min(
+                0.0)
+        elif metric == Metric.INNER_PRODUCT:
+            d = -dots
+        else:
+            d = 1.0 - dots
+        pos = torch.arange(c0, c1, dtype=torch.int32,
+                           device=q.device).expand(batch, -1)
         best_d, best_p = merge_topk(best_d, best_p, d, pos, k)
     return best_d, best_p

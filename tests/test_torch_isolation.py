@@ -18,10 +18,16 @@ REPO = Path(__file__).resolve().parents[1]
 def test_port_imports_and_searches_without_jax():
     code = textwrap.dedent("""
         import sys
+        import tempfile
+        sys.modules["pyarrow"] = None      # the card's machine has none
         import numpy as np
         import torch
         torch.set_num_threads(1)
         import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+        from cuda_acceleratedvectordatabaseengine_tpu_torch import builder
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.storage import (
+            arrow_ipc, arrow_store, manifest, snapshot)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.models import flat
         from cuda_acceleratedvectordatabaseengine_tpu_torch import testing
         from cuda_acceleratedvectordatabaseengine_tpu_torch import io_host
         from cuda_acceleratedvectordatabaseengine_tpu_torch.models import (
@@ -56,6 +62,30 @@ def test_port_imports_and_searches_without_jax():
         d, ids = pq_idx.search(x[:4], vdb.SearchParams(
             nprobe=8, k=3, use_exact_rerank=True))
         assert (ids[:, 0] == np.arange(4)).all(), ids
+        assert pq_idx.remove_ids(np.arange(4)) == 4
+        with tempfile.TemporaryDirectory() as tmp:
+            pq_idx.save(tmp)
+            back = vdb.IVFPQIndex.load(tmp, device="cpu")
+            assert back.ntotal == 508 and back.opq_R is not None
+        assert idx.remove_ids(np.arange(4)) == 4
+        with tempfile.TemporaryDirectory() as tmp:
+            idx.save(tmp)
+            back = vdb.IVFFlatIndex.load(tmp, device="cpu")
+            d, ids = back.search(x[4:8], vdb.SearchParams(nprobe=8, k=3))
+            assert (ids[:, 0] == np.arange(4, 8)).all(), ids
+        fidx = vdb.FlatIndex(16, device="cpu")
+        fidx.add(x)
+        assert (fidx.search(x[:4], k=1)[1][:, 0] == np.arange(4)).all()
+        built = vdb.IVFFlatIndex(vdb.IVFFlatConfig(dimension=16, nlist=8,
+                                                   train_iters=3,
+                                                   store_residuals=True),
+                                 device="cpu")
+        vdb.build_index_chunked(built, [(np.arange(512), x)], 512,
+                                train_sample=x)
+        d, ids = built.search(x[:4], vdb.SearchParams(
+            nprobe=8, k=3, use_exact_rerank=True))
+        assert (ids[:, 0] == np.arange(4)).all(), ids
+        assert sys.modules["pyarrow"] is None
         assert (grouped_scan.LAUNCHES == grouped_pq_scan.LAUNCHES
                 == sorted_scan.LAUNCHES == pair_scan.LAUNCHES == 0)
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")

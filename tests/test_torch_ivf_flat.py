@@ -233,10 +233,11 @@ def test_custom_ids_query_shapes_and_errors(rng):
     d, ids = small.search(x[:1], SearchParams(nprobe=8, k=10))
     assert (ids[0, 5:] == INVALID_ID).all()
     assert (d[0, 5:] == np.finfo(np.float32).max).all()
-    with pytest.raises(ValueError):     # not a Pallas kernel: not ported
-        IVFFlatConfig(scan_impl="ragged")
+    with pytest.raises(ValueError):
+        IVFFlatConfig(scan_impl="ragged_dot")
+    IVFFlatConfig(scan_impl="ragged", store_residuals=True)   # ported
     with pytest.raises(NotImplementedError):
-        IVFFlatConfig(store_residuals=True)
+        IVFFlatConfig(stage_bf16=True)
 
 
 def test_multi_assign_state_hotness_and_stats(rng):
@@ -354,3 +355,124 @@ def test_deep_k_search_takes_the_sorted_scan(rng, monkeypatch):
         assert_topk_match(*got, *ref, rtol=1e-5,
                           atol=1e-5 * (x[:5] ** 2).sum(1))
         assert (got[1][:, 0] == np.arange(5)).all()
+
+
+@pytest.mark.parametrize("dtype,metric", [
+    ("int8", "L2"), ("int8", "InnerProduct"), ("bfloat16", "L2"),
+    ("bfloat16", "Cosine")])
+def test_exact_rerank_matches_jax(rng, dtype, metric):
+    """``store_residuals`` + ``use_exact_rerank``: a JAX-built index with
+    its lo plane carried across reranks like the JAX index, in fp32 (both
+    scans feed the same shortlist depth; the rerank picks by exact
+    distances to ``stored + lo``)."""
+    x = _clustered(rng, 2500)
+    kw = dict(dimension=DIM, nlist=NLIST, metric=metric, dtype=dtype,
+              train_iters=8, store_residuals=True)
+    jidx = JIndex(JConfig(scan_impl="gather", **kw))
+    jidx.train(x)
+    jidx.append_balanced(jnp.asarray(x), capacity=384)
+    a = jidx.arena
+    assert a.arena_lo is not None
+    opt = lambda v: None if v is None else np.asarray(v)  # noqa: E731
+    tidx = ivf_flat_from_arrays(
+        IVFFlatConfig(**kw), centroids=np.asarray(jidx.centroids),
+        arena=np.asarray(a.arena), arena_sq=np.asarray(a.arena_sq),
+        arena_scale=opt(a.arena_scale), anchors=opt(a.anchors),
+        counts=np.asarray(a.counts), ids=a.ids, counts_max=a.counts_max,
+        arena_lo=np.asarray(a.arena_lo), device="cpu")
+    q = x[:16] + 0.3 * rng.standard_normal((16, DIM)).astype(np.float32)
+    atol = 1e-5 if metric == "Cosine" else 1e-5 * (q * q).sum(1)
+    for nprobe in (4, NLIST):
+        p = dict(nprobe=nprobe, k=10, use_exact_rerank=True)
+        got = tidx.search(q, SearchParams(**p))
+        assert_topk_match(*got, *jidx.search(q, JParams(**p)), rtol=1e-5,
+                          atol=atol)
+    if metric == "InnerProduct":
+        return
+    # the reranked distance is the fp32 distance to x itself, to the
+    # precision of the bf16 lo plane; without the rerank, to the stored x̂
+    d_rr, i_rr = tidx.search(x[:8], SearchParams(nprobe=NLIST, k=1,
+                                                 use_exact_rerank=True))
+    d_st, _ = tidx.search(x[:8], SearchParams(nprobe=NLIST, k=1))
+    assert (i_rr[:, 0] == np.arange(8)).all()
+    if metric == "L2":
+        assert d_rr.max() < 1e-3 * d_st.max() + 1e-4
+
+
+def test_exact_rerank_depth_rule(rng, monkeypatch):
+    """The scan keeps ``min(max(4k, k_dev), 256)`` candidates when the
+    index holds a lo plane and the rerank is asked for, else k (k_dev: 2k
+    on a multi-assignment index); a keep above K1's 64 goes to K3."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.models import (
+        ivf_flat as tif,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import flat_scan
+
+    keeps = []
+    real = tif.scan_flat
+    monkeypatch.setattr(tif, "scan_flat", lambda name, *a, **kw: (
+        keeps.append((flat_scan.resolve_scan(name, on_cuda=True, k=a[5]),
+                      a[5])) or real(name, *a, **kw)))
+    x = _clustered(rng, 2000)
+    for lo, eps, k, rr, want in (
+            (True, 0.0, 10, True, ("grouped", 40)),
+            (True, 0.5, 10, True, ("grouped", 40)),
+            (True, 0.0, 5, False, ("grouped", 5)),
+            (False, 0.0, 10, True, ("grouped", 10)),
+            (True, 0.0, 30, True, ("sorted", 120)),
+            (True, 0.0, 100, True, ("sorted", 256))):
+        idx = IVFFlatIndex(IVFFlatConfig(
+            dimension=DIM, nlist=NLIST, dtype="int8", train_iters=5,
+            store_residuals=lo, multi_assign_eps=eps, scan_impl="grouped"),
+            device="cpu")
+        idx.train(x)
+        idx.append_balanced(torch.from_numpy(x), capacity=512)
+        keeps.clear()
+        d, ids = idx.search(x[:4], SearchParams(nprobe=NLIST, k=k,
+                                                use_exact_rerank=rr))
+        assert keeps == [want] and ids.shape == (4, k)
+        assert (ids[:, 0] == np.arange(4)).all()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_ragged_scan_name_routes_to_k3_like_jax_ragged(rng, dtype):
+    """``scan_impl="ragged"`` (the JAX package's plain-XLA list-centric
+    scan) runs K3's function in the port (its plain version here): the
+    scan against ``scan_probed_lists_ragged`` on the same arena and
+    probes, and a search against the JAX index with the same name."""
+    from cuda_acceleratedvectordatabaseengine_tpu.ops.scan import (
+        scan_probed_lists_ragged,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import flat_scan
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+        Metric,
+    )
+
+    assert flat_scan.resolve_scan("ragged", on_cuda=True, k=10) == "sorted"
+    assert flat_scan.resolve_scan("ragged", on_cuda=False, k=10) == "sorted"
+    x = _clustered(rng, 2000)
+    kw = dict(dimension=DIM, nlist=NLIST, dtype=dtype, train_iters=8,
+              scan_impl="ragged")
+    jidx = JIndex(JConfig(**kw))
+    jidx.train(x)
+    jidx.append_balanced(jnp.asarray(x), capacity=384)
+    tidx = _carry(jidx, IVFFlatConfig(**kw))
+    q = x[:12] + 0.3 * rng.standard_normal((12, DIM)).astype(np.float32)
+    atol = 1e-5 * (q * q).sum(1)
+    probes = rng.integers(-1, NLIST, (12, 5)).astype(np.int32)
+    a, t = jidx.arena, tidx.arena
+    for k in (10, 100):
+        jd, jp = scan_probed_lists_ragged(
+            jnp.asarray(q), a.arena, a.arena_sq, a.counts,
+            jnp.asarray(probes), k, approx=False,
+            arena_scale=a.arena_scale, arena_anchors=a.anchors)
+        td, tp = flat_scan.scan_flat(
+            "ragged", torch.from_numpy(q), t.arena, t.arena_sq, t.counts,
+            torch.from_numpy(probes), k, Metric.L2,
+            arena_scale=t.arena_scale, arena_anchors=t.anchors)
+        assert_topk_match(td[:, :k].numpy(), tp[:, :k].numpy(),
+                          np.asarray(jd), np.asarray(jp), rtol=1e-5,
+                          atol=atol)
+    p = dict(nprobe=4, k=10)
+    assert_topk_match(*tidx.search(q, SearchParams(**p)),
+                      *jidx.search(q, JParams(**p)), rtol=1e-5, atol=atol)

@@ -250,7 +250,7 @@ def test_calibrate_nprobe_under_opq():
     assert np.abs(R.T @ R - np.eye(DIM)).max() < 2e-5
 
 
-def test_state_memory_and_not_ported_surface():
+def test_state_memory_and_not_ported_surface(tmp_path):
     x, q = _data()
     idx = IVFPQIndex(IVFPQConfig(**_cfg_kw("L2", False, "int8")), device="cpu")
     idx.train(x[:1000])
@@ -282,13 +282,16 @@ def test_state_memory_and_not_ported_surface():
     assert idx.list_access_count[hot[0]] == 0
     idx.warmup_lists(batch_sizes=(1,), nprobes=(2,))
     assert grouped_pq_scan.LAUNCHES == 0
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        idx.remove_ids(np.array([1], np.uint64))
-    with pytest.raises(NotImplementedError, match="M6"):
-        idx.save("unused")
-    with pytest.raises(NotImplementedError, match="M6"):
-        IVFPQIndex.load("unused")
-    with pytest.raises(NotImplementedError, match="M9"):
+    # removal and snapshots are ported (tests/test_torch_removal.py and
+    # tests/test_torch_storage.py hold them against the JAX package)
+    assert idx.remove_ids(np.array([1, 1, 10**9], np.uint64)) == 1
+    assert idx.ntotal == 999 and 1 not in idx.ids
+    idx.save(str(tmp_path / "snap"))
+    back = IVFPQIndex.load(str(tmp_path / "snap"), device="cpu")
+    np.testing.assert_array_equal(
+        back.search(q[:4], SearchParams(nprobe=4, k=3))[1],
+        idx.search(q[:4], SearchParams(nprobe=4, k=3))[1])
+    with pytest.raises(NotImplementedError, match="host rerank"):
         idx.attach_host_rerank(None)
     with pytest.raises(NotImplementedError):
         IVFPQConfig(dimension=DIM, m=M, query_upload_dtype="bfloat16")
