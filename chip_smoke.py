@@ -96,9 +96,25 @@ fails (non-zero exit, no result line) when any phase fails:
    saved and loaded: ``raw_frame`` recorded, equal results). Phases 13-15
    each start with every launch counter at 0 and gate the kernels they
    drive (K1 and K3; K1; K2).
+16. the serving engine, last, after the earlier indexes are freed: the
+   phase-4 corpus written as a vectors file; a ``VdbEngine`` from
+   ``configs/production.yaml`` (read by the port's own reader; only the
+   data path and the rate limit overridden); ``flat`` (IVF-Flat, nlist
+   1024, bf16, resident) and ``pqcap`` (IVF-PQ, nlist 4096, m 96, the
+   ``pq_capacity`` tier) created, built from the file and activated
+   through the engine; 32 closed-loop clients through admission and the
+   coalescer ((a) 4096 single queries, (b) 128 × 64 queries, (c) topk
+   100, (d) 512 reranked on ``pqcap``): no request fails, every answer
+   equals the library search of the same index, recall@10 ≥ 0.95 / 0.90,
+   K1, K2 and K3 launched by the served traffic; 10K ids removed (none
+   returned), removal on ``pqcap`` refused, a restart on the same data
+   path (both indexes live, same answers, no removed id); QPS, latency,
+   batch sizes, stage percentiles, build / activation / restart seconds;
+   the wire (one packed Search over loopback gRPC) where ``grpc``
+   imports, else ``"wire": "absent"``.
 
 They run in the order 0, 1, 2, 2b, 2c, 3, 7-9, 15a, 10, 15b, 4-6, 11, 11b,
-12, 13, 14.
+12, 13, 14, 16.
 
 The second-to-last line is the kernel report JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -112,10 +128,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import resource
 import subprocess
 import sys
+import threading
 import time
 import weakref
 from pathlib import Path
@@ -2475,6 +2493,458 @@ def phase_opq(args, dev):
 
 
 # --------------------------------------------------------------------------- #
+# phase 16: the serving engine on the card
+# --------------------------------------------------------------------------- #
+
+SERVE_THREADS = 32    # closed-loop clients of phase 16
+# pqcap's ADC shortlist depth: the production default (128) reranks to
+# recall@10 0.891 on the phase-4 corpus (gaussian balls: PQ's worst case,
+# as the JAX package's 20M capacity runs found, PQCAP_r05.json: 0.90 at
+# 256, 0.966 at 512)
+PQCAP_RERANK_K = 256
+
+
+def serve_closed_loop(engine, name, requests, threads=SERVE_THREADS):
+    """``requests`` (a list of ``(queries [m, D], SearchParams)``) through
+    the calls the servicer makes after it decodes a request: ``get_state``,
+    ``submit_search`` (breaker, rate limiter, concurrency limiter,
+    ``coalescer.submit``) and ``finish_search`` (``future.result``), by
+    ``threads`` closed-loop clients. Returns each request's ``(d, ids)``,
+    the per-request host latencies (ms), the failures, the wall seconds and
+    the coalescer's batches and items during the run."""
+    import itertools
+
+    st = engine.get_state(name)
+    out = [None] * len(requests)
+    lat = [0.0] * len(requests)
+    failures = []
+    nxt = itertools.count()
+    lock = threading.Lock()
+    co0 = st.coalescer.stats()
+
+    def client():
+        while True:
+            with lock:
+                i = next(nxt)
+            if i >= len(requests):
+                return
+            q, params = requests[i]
+            t0 = time.monotonic()
+            try:
+                s = engine.get_state(name)
+                fut = engine.submit_search(s, q, params)
+                out[i] = engine.finish_search(fut, name, t0, len(q))
+            except Exception as e:  # noqa: BLE001 — counted, then fails
+                failures.append(f"{type(e).__name__}: {e}")
+            lat[i] = (time.monotonic() - t0) * 1e3
+
+    ts = [threading.Thread(target=client) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    wall = time.perf_counter() - t0
+    co1 = st.coalescer.stats()
+    return out, lat, failures, wall, {
+        "batches": co1["batches"] - co0["batches"],
+        "items": co1["items"] - co0["items"]}
+
+
+def installed_versions(names) -> dict:
+    """``{module: version}`` of the modules that import here, ``"absent"``
+    for the others (the serving engine needs none of them)."""
+    import importlib
+
+    out = {}
+    for name in names:
+        try:
+            mod = importlib.import_module(name)
+            out[name] = str(getattr(mod, "__version__", "present"))
+        except ImportError:
+            out[name] = "absent"
+    return out
+
+
+def traffic_summary(requests, lat, wall, co) -> dict:
+    import numpy as np
+
+    nq = sum(len(q) for q, _ in requests)
+    return {
+        "requests": len(requests), "queries": nq,
+        "qps": nq / wall, "requests_per_s": len(requests) / wall,
+        "latency_ms_p50": float(np.percentile(lat, 50)),
+        "latency_ms_p99": float(np.percentile(lat, 99)),
+        "latency_ms_max": float(max(lat)),
+        "batches": co["batches"],
+        "mean_batch_requests": co["items"] / max(co["batches"], 1),
+        "mean_batch_queries": nq / max(co["batches"], 1),
+        "wall_s": wall,
+    }
+
+
+def stack_answers(answers):
+    import numpy as np
+
+    return (np.concatenate([d for d, _ in answers]),
+            np.concatenate([i for _, i in answers]))
+
+
+def phase_serving(args, dev, q_np, truth, centers) -> dict:
+    """Phase 16, the serving engine on the card, run last: the phase-4
+    corpus (1M x 768, ids = row numbers) written as a vectors file with
+    ``VectorFileWriter``; a ``VdbEngine`` from ``configs/production.yaml``
+    read by the port's own reader (only ``data_path`` and the rate limit
+    overridden); two indexes created and built through the engine
+    (``create_index``, ``build_epoch`` polled through its ``BuildJob``,
+    then activation: load + warm-up): ``flat`` (IVF-Flat, nlist 1024, the
+    production bf16 arena, resident) and ``pqcap`` (IVF-PQ, nlist 4096, m
+    96, the ``pq_capacity`` tier: codes on the card, the exact rerank from
+    an int8 host row store). Served by 32 closed-loop clients through
+    admission and the coalescer: (a) 4096 single-query requests, topk 10,
+    nprobe unset; (b) 128 requests of 64 queries; (c) 64 requests with
+    topk 100 (K3); (d) 512 single-query ``rerank_exact`` requests on
+    ``pqcap``. Gates: no request fails; every answer equals the library
+    search of the same index on the same queries (ids up to ties,
+    distances within RTOL + ATOL_QSQ·‖q‖²); recall@10 ≥ 0.95 (flat) and ≥
+    0.90 (pqcap); K1, K2 and K3 launched by the served traffic. Then 10K
+    ids (the queries' true neighbours) removed through ``remove_vectors``
+    (none returned afterwards), ``remove_vectors`` on ``pqcap`` refused
+    (PermissionError), the engine closed and a new one opened on the same
+    data path: both indexes live, the same answers as before the restart
+    on 1024 queries, no removed id (the tombstone replay). Where ``grpc``
+    imports, one packed 64-query Search over the loopback wire is held
+    against the engine's answer; else ``"wire": "absent"``."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch import SearchParams
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.server.config import (
+        ServerConfig,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.server.service import (
+        VdbEngine,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.storage import (
+        VectorFileWriter,
+    )
+
+    n, dim, k = args.n, args.dim, 10
+    chunk = -(-n // args.chunks)
+    counters = all_counters()
+    on_card = dev.type == "cuda"
+    out = {"packages": installed_versions(
+        ("grpc", "google.protobuf", "yaml", "prometheus_client", "pyarrow"))}
+    log("phase16_packages", json.dumps(out["packages"]))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # 1. the source file (fp32 rows, ids = row numbers)
+    root = snapshot_dir(int(3.3 * n * (4 * dim + 24)) + (1 << 30))
+    try:
+        src = os.path.join(root, "source.arrow")
+        t0 = time.perf_counter()
+        with VectorFileWriter(src) as w:
+            for s in range(0, n, chunk):
+                m = min(chunk, n - s)
+                w.append(np.arange(s, s + m, dtype=np.uint64),
+                         corpus_chunk(centers, s, m, args.seed).float()
+                         .cpu().numpy())
+        out["source"] = {"rows": n, "gb": os.path.getsize(src) / 1e9,
+                         "write_s": time.perf_counter() - t0}
+
+        # 2. the production config, overridden only where stated
+        config = ServerConfig.from_yaml(
+            str(REPO / "configs" / "production.yaml")).apply_overrides(
+            data_path=os.path.join(root, "data"),
+            rate_limit_rps=1e9, rate_limit_burst=1_000_000,
+            pq_rerank_k=PQCAP_RERANK_K)
+        out["config"] = {
+            "from": "configs/production.yaml",
+            "overridden": {"data_path": "a temporary directory",
+                           "rate_limit_rps": 1e9,
+                           "rate_limit_burst": 1_000_000,
+                           "pq_rerank_k": PQCAP_RERANK_K},
+            "why": "the closed loop must never be shed by the rate "
+                   "limiter (the CPU tests cover the limiter); at the "
+                   "default shortlist of 128 the reranked recall@10 of "
+                   "this isotropic corpus is below 0.90 (measured, and "
+                   "reported below as recall10.pqcap_rerank_default_k)",
+            "max_batch_size": config.max_batch_size,
+            "coalesce_window_ms": config.coalesce_window_ms,
+            "default_nprobe": config.default_nprobe,
+            "warm_nprobes": list(config.warm_nprobes),
+            "arena_dtype": config.arena_dtype,
+            "pq_rerank_k": config.pq_rerank_k,
+        }
+        log("phase16_config", json.dumps(out["config"]))
+
+        # 3. create, build and activate through the engine's own calls
+        engine = VdbEngine(config, device=dev)
+        engine.create_index("flat", dim, "L2", args.nlist, 0, 0)
+        engine.create_index("pqcap", dim, "L2", args.pq_nlist, 96, 8,
+                            "pq_capacity")
+        out["build"] = {}
+        for name in ("flat", "pqcap"):
+            sync()
+            t0 = time.perf_counter()
+            eid = engine.build_epoch(name, src)
+            job = engine.build_jobs[name]
+            while not job.done:
+                time.sleep(0.05)
+            if job.error:
+                raise AssertionError(f"build of {name} failed: {job.error}")
+            sync()
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            engine.activate_epoch(name, eid)
+            sync()
+            st = engine.get_state(name)
+            out["build"][name] = {
+                "build_s": build_s, "activate_s": time.perf_counter() - t0,
+                "ntotal": st.index.ntotal,
+                "device_gb": st.index.memory_stats()["total_bytes"] / 1e9,
+                "epoch": eid}
+            if st.index.ntotal != n:
+                raise AssertionError(f"{name}: ntotal {st.index.ntotal}")
+        rr = engine.get_state("pqcap").index._host_rr
+        out["build"]["pqcap"]["host_store_gb"] = rr.nbytes() / 1e9
+        if on_card:
+            out["build"]["device_allocated_gb"] = \
+                torch.cuda.memory_allocated() / 1e9
+        log("phase16_build", json.dumps(out["build"]))
+
+        # 4. serve: (a)-(d) through admission and the coalescer
+        p_a = SearchParams(nprobe=config.default_nprobe, k=k)
+        kinds = {
+            "a_single": ("flat", [(q_np[i % len(q_np)][None], p_a)
+                                  for i in range(4096)]),
+            "b_batch64": ("flat", [(q_np[(64 * i) % len(q_np):][:64], p_a)
+                                   for i in range(128)]),
+            "c_topk100": ("flat", [(q_np[i][None], SearchParams(
+                nprobe=config.default_nprobe, k=100)) for i in range(64)]),
+            "d_pq_rerank": ("pqcap", [(q_np[i % len(q_np)][None], SearchParams(
+                nprobe=config.default_nprobe, k=k, use_exact_rerank=True))
+                for i in range(512)]),
+        }
+        rerank_ms = []
+        orig_rerank = rr.rerank
+
+        def timed_rerank(*a, **kw):
+            t0 = time.perf_counter()
+            res = orig_rerank(*a, **kw)
+            rerank_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        rr.rerank = timed_rerank
+        engine.metrics.reset_windows()
+        before = {key: mod.LAUNCHES for key, mod in counters.items()}
+        answers, failures = {}, []
+        out["traffic"] = {}
+        for kind, (name, reqs) in kinds.items():
+            res, lat, fail, wall, co = serve_closed_loop(engine, name, reqs)
+            failures += fail
+            answers[kind] = res
+            out["traffic"][kind] = traffic_summary(reqs, lat, wall, co)
+        launches = {key: mod.LAUNCHES - before[key]
+                    for key, mod in counters.items()}
+        rr.rerank = orig_rerank
+        out["served_launches"] = launches
+        out["stages"] = engine.metrics.get_stage_percentiles()
+        out["traffic"]["d_pq_rerank"].update(
+            host_rerank_ms_per_batch_mean=float(np.mean(rerank_ms)),
+            host_rerank_ms_per_batch_p99=float(np.percentile(rerank_ms, 99)),
+            host_rerank_batches=len(rerank_ms),
+            shortlist_depth=config.pq_rerank_k,
+            last_rerank_kept=engine.get_state("pqcap").index
+            .last_rerank_kept)
+        log("phase16_traffic", json.dumps(out["traffic"]))
+        log("phase16_stages", json.dumps(out["stages"]))
+        if failures:
+            raise AssertionError(f"{len(failures)} requests failed: "
+                                 f"{failures[:3]}")
+        for key in ("k1", "k2", "k3"):
+            if launches[key] <= 0:
+                raise AssertionError(f"the served traffic never launched "
+                                     f"{key.upper()}: {launches}")
+
+        # 5. the engine's answers against the library search of the same
+        # index on the same queries (one batch per kind)
+        index = {name: engine.get_state(name).index
+                 for name in ("flat", "pqcap")}
+        eng = {kind: stack_answers(answers[kind]) for kind in kinds}
+        out["equal"] = {}
+        for kind, (name, reqs) in kinds.items():
+            qs = np.concatenate([q for q, _ in reqs])
+            out["equal"][kind] = same_results(
+                f"engine vs library ({kind})", eng[kind],
+                index[name].search(qs, reqs[0][1]), qs)
+        pos_d = np.arange(len(kinds["d_pq_rerank"][1])) % len(q_np)
+        flat, pq = index["flat"], index["pqcap"]
+        p_d = kinds["d_pq_rerank"][1][0][1]
+        q_d = np.concatenate([q for q, _ in kinds["d_pq_rerank"][1]])
+        default_k = ServerConfig().pq_rerank_k
+        pq.host_rerank_k = default_k
+        at_default = pq.search(q_d, p_d)[1]
+        pq.host_rerank_k = config.pq_rerank_k
+        out["recall10"] = {
+            "flat": recall_at(eng["a_single"][1][:len(q_np)], truth, k),
+            "pqcap_rerank": recall_at(eng["d_pq_rerank"][1], truth[pos_d],
+                                      k),
+            "pqcap_rerank_default_k": recall_at(at_default, truth[pos_d], k),
+            "pqcap_default_k": default_k,
+            "pqcap_adc_only": recall_at(pq.search(q_d, SearchParams(
+                nprobe=p_d.nprobe, k=k))[1], truth[pos_d], k)}
+        # the library's own throughput at the engine's setting (batch 1024
+        # as phase 4 serves, and 32: the coalesced batch of 32 clients)
+        lib, lib_ms = {}, {}
+        for bs in (len(q_np), SERVE_THREADS):
+            for name, idx, p in (("flat", flat, p_a), ("pqcap", pq, p_d)):
+                ms, _ = search_timed(idx, q_np[:bs], p, 5)
+                lib_ms[f"{name}_b{bs}"] = float(np.median(ms))
+                lib[f"{name}_b{bs}_qps"] = bs / lib_ms[f"{name}_b{bs}"] * 1e3
+        out["library_qps"] = lib
+        if on_card:
+            # where a batch of the size the coalescer forms spends its time
+            b = SERVE_THREADS
+            out["trace_b32"] = {
+                "flat": trace_search(flat, q_np[:b], p_a,
+                                     lib_ms[f"flat_b{b}"]),
+                "pqcap": trace_search(
+                    pq, q_np[:b], p_d, lib_ms[f"pqcap_b{b}"],
+                    stage_names=PQ_SEARCH_STAGES + ("ivf_pq.host_rerank",),
+                    kernel_stages=K2_KERNEL_STAGES)}
+            log("phase16_trace_b32", json.dumps(out["trace_b32"]))
+        log("phase16_equal", json.dumps({"equal": out["equal"],
+                                         "recall10": out["recall10"],
+                                         "library_qps": lib}))
+        if out["recall10"]["flat"] < 0.95:
+            raise AssertionError(f"flat recall@10 {out['recall10']}")
+        if out["recall10"]["pqcap_rerank"] < 0.90:
+            raise AssertionError(f"pqcap recall@10 {out['recall10']}")
+
+        # 6. removal, the read-only tier, restart and recovery
+        removed = np.unique(truth[:, :k].astype(np.uint64))[:10_000]
+        t0 = time.perf_counter()
+        got_n, total = engine.remove_vectors("flat", removed)
+        out["remove"] = {"ids": int(removed.size), "removed": got_n,
+                         "ntotal": total,
+                         "ms": (time.perf_counter() - t0) * 1e3}
+        if got_n != removed.size:
+            raise AssertionError(f"remove_vectors removed {got_n}")
+        try:
+            engine.remove_vectors("pqcap", removed[:10])
+            raise AssertionError("remove_vectors on pqcap was not refused")
+        except PermissionError:
+            out["remove"]["pqcap_refused"] = True
+        q64 = [(q_np[i:i + 64], p_a) for i in range(0, len(q_np), 64)]
+        pq64 = [(q_np[i:i + 64], p_d) for i in range(0, len(q_np), 64)]
+        res, _, fail, _, _ = serve_closed_loop(engine, "flat", q64)
+        res_pq, _, fail_pq, _, _ = serve_closed_loop(engine, "pqcap", pq64)
+        if fail or fail_pq:
+            raise AssertionError(f"after removal: {(fail + fail_pq)[:3]}")
+        before_restart = (stack_answers(res), stack_answers(res_pq))
+        out["remove"]["removed_ids_returned"] = int(
+            np.isin(before_restart[0][1], removed).sum())
+        t0 = time.perf_counter()
+        engine.close()
+        del engine, index, flat, pq, rr, orig_rerank
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        engine = VdbEngine(config, device=dev)
+        sync()
+        out["restart"] = {"seconds": time.perf_counter() - t0}
+        for name in ("flat", "pqcap"):
+            st = engine.get_state(name)
+            out["restart"][name] = {"live": st.index is not None,
+                                    "error": st.error, "epoch": st.epoch}
+            if st.index is None or st.error:
+                raise AssertionError(f"{name} not live after the restart: "
+                                     f"{st.error}")
+        res, _, fail, _, _ = serve_closed_loop(engine, "flat", q64)
+        res_pq, _, fail_pq, _, _ = serve_closed_loop(engine, "pqcap", pq64)
+        if fail or fail_pq:
+            raise AssertionError(f"after restart: {(fail + fail_pq)[:3]}")
+        after = (stack_answers(res), stack_answers(res_pq))
+        out["restart"]["removed_ids_returned"] = int(
+            np.isin(after[0][1], removed).sum())
+        out["restart"]["same_flat"] = same_results(
+            "flat after the restart", after[0], before_restart[0], q_np)
+        out["restart"]["same_pqcap"] = same_results(
+            "pqcap after the restart", after[1], before_restart[1], q_np)
+        if out["remove"]["removed_ids_returned"] or \
+                out["restart"]["removed_ids_returned"]:
+            raise AssertionError(f"removed ids returned: {out['remove']} "
+                                 f"{out['restart']}")
+
+        # 7. the wire, where grpc and protobuf import
+        out["wire"] = wire_check(config, dev, q_np[:64], after[0], p_a)
+        log("phase16_restart", json.dumps({"remove": out["remove"],
+                                           "restart": out["restart"],
+                                           "wire": out["wire"]}))
+        engine.close()
+        del engine
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("phase16", json.dumps({key: out[key] for key in (
+        "source", "build", "served_launches", "recall10", "library_qps")}))
+    return out
+
+
+def wire_check(config, dev, q64, answer, params):
+    """One packed 64-query Search over a loopback gRPC server (a third
+    engine on the same data path) held against the engine's answer; the
+    string ``"absent"`` where grpc or protobuf does not import."""
+    import numpy as np
+
+    try:
+        import grpc  # noqa: F401
+        import google.protobuf  # noqa: F401
+    except ImportError:
+        return "absent"
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.server.grpc_api import (
+        QueryServiceClient,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.server.main import (
+        build_server,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.server.proto import (
+        vdb_pb2,
+    )
+
+    server, engine, health, port = build_server(
+        config.apply_overrides(address="127.0.0.1:0"), device=dev)
+    server.start()
+    try:
+        channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+        grpc.channel_ready_future(channel).result(timeout=30)
+        t0 = time.perf_counter()
+        resp = QueryServiceClient(channel).Search(vdb_pb2.SearchRequest(
+            index="flat", topk=params.k, nprobe=params.nprobe,
+            packed_queries=np.ascontiguousarray(q64, "<f4").tobytes(),
+            packed_response=True))
+        ms = (time.perf_counter() - t0) * 1e3
+        channel.close()
+    finally:
+        server.stop(grace=None)
+        health.stop()
+        engine.close()
+    got = (np.frombuffer(resp.packed_distances, "<f4").reshape(64, -1),
+           np.frombuffer(resp.packed_ids, "<u8").reshape(64, -1))
+    return {"search_ms": ms, **same_results(
+        "wire vs engine", got, (answer[0][:64], answer[1][:64]), q64)}
+
+
+# --------------------------------------------------------------------------- #
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2646,6 +3116,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     drive("14_rerank_builder", phase_rerank_builder, args, dev, queries,
           q_np, truth, centers, need=("k1",))
+    torch.cuda.empty_cache()
+    drive("16_serving", phase_serving, args, dev, q_np, truth, centers,
+          need=("k1", "k2", "k3"))
     log("phase_seconds", json.dumps(phase_s))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

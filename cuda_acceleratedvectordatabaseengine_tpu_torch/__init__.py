@@ -10,8 +10,12 @@ rerank), both with removal by id and snapshots in the JAX package's Arrow
 format (``storage/``, no ``pyarrow`` needed); a chunked offline builder
 (``build_index_chunked``); the exact ``FlatIndex``; and a streaming tier
 that serves an IVF-Flat corpus from host RAM through a device cache of hot
-lists (``StreamingIVFFlatIndex``). Their probed-list scans are hand-written CUDA
-kernels for ``sm_90a`` (``csrc/grouped_scan.cu``, ``csrc/grouped_pq_scan.cu``,
+lists (``StreamingIVFFlatIndex``); the IVF-PQ capacity tier, whose exact
+rerank reads an int8 row store in host RAM (``io_host/host_rerank.py``);
+and the serving engine (``server/``: ``VdbEngine`` with its request
+coalescer, epochs and admission, and the gRPC front end). Their
+probed-list scans are hand-written CUDA kernels for ``sm_90a``
+(``csrc/grouped_scan.cu``, ``csrc/grouped_pq_scan.cu``,
 ``csrc/full_row_scan.cu``, built with ``nvcc`` at first use). On CPU tensors
 every op takes its plain PyTorch version; on CUDA tensors a kernel path
 launches its kernel or raises. Every entry point runs on the card unless

@@ -1,11 +1,16 @@
 """The host memory tier: inverted lists in host RAM, a device cache of hot
-lists, and streaming IVF-Flat search over both."""
+lists, streaming IVF-Flat search over both, the staging scheduler, and the
+capacity tier's exact rerank from a host row store."""
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.io_host.cache import (
     HbmListCache,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.io_host.host_rerank import (
+    HostReranker,
+)
 from cuda_acceleratedvectordatabaseengine_tpu_torch.io_host.prefetcher import (
     ListPrefetcher,
+    PrefetchScheduler,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.io_host.streaming import (
     HostListStore,
@@ -15,6 +20,8 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.io_host.streaming import (
 __all__ = [
     "HbmListCache",
     "HostListStore",
+    "HostReranker",
     "ListPrefetcher",
+    "PrefetchScheduler",
     "StreamingIVFFlatIndex",
 ]

@@ -1,16 +1,23 @@
-"""Hotness-scored inverted-list prefetch for the streaming tier.
+"""Hotness-scored inverted-list prefetch and the throttled staging
+scheduler.
 
-A copy of ``ListPrefetcher`` from the JAX package's
-``io_host/prefetcher.py`` (that module imports no JAX, but the port imports
-nothing of the JAX package). The streaming tier feeds it every search's
-probe table and stages its hottest lists back into the device cache on
-request (``StreamingIVFFlatIndex.prefetch_hot_lists``). The JAX module's
-``AdaptivePrefetcher`` and ``PrefetchScheduler`` belong to the serving
-layer and are not ported yet.
+Copies of ``ListPrefetcher`` and ``PrefetchScheduler`` from the JAX
+package's ``io_host/prefetcher.py`` (that module imports no JAX, but the
+port imports nothing of the JAX package). The streaming tier feeds
+``ListPrefetcher`` every search's probe table and stages its hottest lists
+back into the device cache on request
+(``StreamingIVFFlatIndex.prefetch_hot_lists``); the serving engine queues
+that re-staging into ``PrefetchScheduler``, a priority queue with
+pause / resume and a byte-rate throttle. The JAX module's
+``AdaptivePrefetcher`` (readahead over the aligned file reader) waits for
+the port of ``native/`` and ``storage/shard_store.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import heapq
+import itertools
 import threading
 import time
 
@@ -95,3 +102,86 @@ class ListPrefetcher:
         if hot and self.stage_fn is not None:
             self.stage_fn(hot)
         return hot
+
+
+@dataclasses.dataclass(order=True)
+class _Task:
+    neg_priority: int
+    seq: int
+    fn: object = dataclasses.field(compare=False)
+    nbytes: int = dataclasses.field(compare=False, default=0)
+
+
+class PrefetchScheduler:
+    """Priority prefetch queue with pause/resume and byte-rate throttling
+    (default limit 10 GB/s). One worker thread runs the queued staging
+    calls, highest priority first; a failing call is dropped (prefetch is
+    best-effort: a search stages what it misses itself)."""
+
+    def __init__(self, bandwidth_limit_bps: float = 10e9):
+        self.bandwidth_limit_bps = bandwidth_limit_bps
+        self._heap: list[_Task] = []
+        self._seq = itertools.count()
+        self._cv = threading.Condition()
+        self._paused = False
+        self._stop = False
+        self._bytes_window = 0.0
+        self._window_start = time.monotonic()
+        self.completed = 0
+        self._worker = threading.Thread(
+            target=self._loop, name="prefetch-scheduler", daemon=True
+        )
+        self._worker.start()
+
+    def schedule(self, fn, priority: int = 0, nbytes: int = 0) -> None:
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("scheduler stopped")
+            heapq.heappush(
+                self._heap, _Task(-priority, next(self._seq), fn, nbytes)
+            )
+            self._cv.notify()
+
+    def pause(self) -> None:
+        with self._cv:
+            self._paused = True
+
+    def resume(self) -> None:
+        with self._cv:
+            self._paused = False
+            self._cv.notify()
+
+    def stop(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._worker.join(timeout=5)
+
+    def _throttle(self, nbytes: int) -> None:
+        now = time.monotonic()
+        if now - self._window_start >= 1.0:
+            self._window_start = now
+            self._bytes_window = 0.0
+        self._bytes_window += nbytes
+        over = self._bytes_window / self.bandwidth_limit_bps - (
+            now - self._window_start
+        )
+        if over > 0:
+            time.sleep(min(over, 1.0))
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while (not self._heap or self._paused) and not self._stop:
+                    self._cv.wait()
+                if self._stop:
+                    return
+                task = heapq.heappop(self._heap)
+            try:
+                if task.nbytes:
+                    self._throttle(task.nbytes)
+                task.fn()
+            except Exception:  # noqa: BLE001 — prefetch is best-effort
+                pass
+            finally:
+                self.completed += 1

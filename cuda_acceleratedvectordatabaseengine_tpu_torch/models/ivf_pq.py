@@ -25,9 +25,10 @@ work under the same lock as the mutations, so device work runs in lock
 order on the one stream.
 
 ``save`` / ``load`` write and read the JAX package's snapshot format
-(``storage/snapshot.py``). Not ported yet: ``attach_host_rerank`` (the host
-memory tier, ``io_host/host_rerank.py`` in the JAX package); it raises
-``NotImplementedError``.
+(``storage/snapshot.py``). Past the device memory wall the index keeps no
+raw rows (``keep_raw=False``) and ``attach_host_rerank`` reranks the ADC
+shortlist from an int8 row store in host RAM (``io_host/host_rerank.py``):
+the capacity tier, loaded by ``storage.load_ivf_pq_capacity``.
 """
 
 from __future__ import annotations
@@ -275,6 +276,10 @@ class IVFPQIndex:
     device: ``"cuda"`` unless the caller names another (``"cpu"``,
     ``"cuda:1"``, ...)."""
 
+    # set by storage.load_ivf_pq_capacity: the serving engine routes adds
+    # and removals of such an index to the next epoch build
+    read_only = False
+
     def __init__(self, config: IVFPQConfig,
                  device: torch.device | str | None = "cuda"):
         self.config = config
@@ -311,6 +316,15 @@ class IVFPQIndex:
         # Serializes mutations against each other and against the
         # snapshot a search takes (each plans slots from current counts).
         self._mutate_lock = threading.Lock()
+        # Host-store exact rerank (keep_raw=False, the capacity tier): see
+        # attach_host_rerank. The device keeps only codes.
+        self._host_rr = None
+        self.host_rerank_k = 128
+        # > 0: per-(query, list) in-kernel shortlist depth instead of the
+        # exact emit_full rows (see attach_host_rerank)
+        self.host_rerank_k_inner = 0
+        self.host_rerank_margin = 0.0
+        self.last_rerank_kept = None   # mean candidates kept by the margin
 
     # ------------------------------------------------------------------ #
 
@@ -473,6 +487,7 @@ class IVFPQIndex:
         """Assign → residual-encode → write codes (and raw rows)."""
         if not self.trained:
             raise RuntimeError("index must be trained before add()")
+        self._guard_host_rerank_mutation()
         vectors = np.ascontiguousarray(vectors, np.float32)
         if vectors.shape[0] == 0:
             return
@@ -484,6 +499,7 @@ class IVFPQIndex:
         """:meth:`add` for a device-resident batch (no host round trip)."""
         if not self.trained:
             raise RuntimeError("index must be trained before add()")
+        self._guard_host_rerank_mutation()
         if x_dev.shape[0] == 0:
             return
         self._add_device(x_dev.to(self.device).float(), ids)
@@ -646,6 +662,14 @@ class IVFPQIndex:
         rerank_k = 0
         if params.use_exact_rerank and self.raw is not None:
             rerank_k = min(max(4 * params.k, params.k), 256)
+        # Without raw rows and with a host store attached, the exact rerank
+        # runs on the host: the device returns a top-k_dev ADC shortlist.
+        host_rr = (params.use_exact_rerank and self.raw is None
+                   and self._host_rr is not None)
+        k_dev = params.k
+        if host_rr:
+            k_dev = min(max(self.host_rerank_k, params.k),
+                        self.capacity * nprobe)
         scan_impl = _SCAN_IMPLS[self.config.scan_impl]
         if scan_impl == "auto":
             scan_impl = "grouped" if self.device.type == "cuda" else "gather"
@@ -663,14 +687,18 @@ class IVFPQIndex:
                 raw.arena_sq if raw is not None else None,
                 raw.arena_scale if raw is not None else None,
                 raw.anchors if raw is not None else None,
-                nprobe, params.k, self.metric, rerank_k, scan_impl,
-                opq_R=self.opq_R, scan_capacity=self._scan_capacity_hint(),
+                nprobe, k_dev, self.metric, rerank_k, scan_impl,
+                opq_R=self.opq_R,
+                k_inner=(self.host_rerank_k_inner if host_rr else 0),
+                scan_capacity=self._scan_capacity_hint(),
             )
-        return d, pos, ids_table, capacity
+        return d, pos, ids_table, capacity, host_rr, queries, params
 
-    def _search_finalize(self, d, pos, ids_table, capacity):
-        """Wait for the device result, map positions to ids, and count the
-        lists of the returned positions (the JAX package's list heat)."""
+    def _search_finalize(self, d, pos, ids_table, capacity, host_rr,
+                         queries, params):
+        """Wait for the device result, map positions to ids, count the
+        lists of the returned positions (the JAX package's list heat), and
+        with a host store attached run the exact rerank on the host."""
         with record_function("ivf_pq.finalize"):
             d = d.cpu().numpy().copy()
             pos = pos.cpu().numpy()
@@ -680,7 +708,24 @@ class IVFPQIndex:
             d[pos < 0] = FLT_MAX
             probed = np.unique(pos[pos >= 0] // capacity)
             self.list_access_count[probed] += 1
+        if not host_rr:
             return d, out_ids
+        with record_function("ivf_pq.host_rerank"):
+            q_rr = queries
+            if self.metric == Metric.COSINE:
+                nrm = np.linalg.norm(q_rr, axis=1, keepdims=True)
+                q_rr = q_rr / np.maximum(nrm, 1e-12)
+            if self.host_rerank_margin > 0 and d.shape[1] > params.k:
+                # Adaptive depth: a candidate whose ADC distance exceeds
+                # the query's k-th by more than margin × |k-th| cannot
+                # plausibly enter the exact top-k; its id becomes
+                # INVALID_ID, which the host stage skips.
+                dk = d[:, params.k - 1: params.k]
+                keep = d <= dk + self.host_rerank_margin * np.abs(dk)
+                self.last_rerank_kept = float(keep.sum(1).mean())
+                out_ids = np.where(keep, out_ids, INVALID_ID)
+            return self._host_rr.rerank(q_rr, out_ids, self.metric,
+                                        params.k)
 
     def search_batches_pipelined(
         self, batches, params: SearchParams | None = None
@@ -715,7 +760,11 @@ class IVFPQIndex:
         if nprobes is None:
             nprobes = (SearchParams().nprobe,)
         dummy = np.zeros((1, self.config.dimension), np.float32)
-        reranks = (False, True) if self.raw is not None else (False,)
+        # the exact rerank is another device call (a deeper shortlist):
+        # warm it too where there is one (raw rows or a host store)
+        reranks = (False, True) if (
+            self.raw is not None or self._host_rr is not None
+        ) else (False,)
         for np_ in nprobes:
             for bs in batch_sizes:
                 for rr in reranks:
@@ -725,12 +774,43 @@ class IVFPQIndex:
         if list_ids is not None:
             self.list_access_count[np.asarray(list_ids, np.int64)] += 1
 
+    def _guard_host_rerank_mutation(self) -> None:
+        """Rows the host store lacks would be dropped by the exact rerank
+        (an unknown id maps to no row): no adds while a store is attached.
+        Removal stays allowed, as in the JAX package: a removed id never
+        reaches the host stage."""
+        if self._host_rr is not None:
+            raise RuntimeError(
+                "index is serving with an attached host-rerank store "
+                "(read-only); rebuild the epoch to add vectors"
+            )
+
     def attach_host_rerank(self, store, rerank_k: int = 128,
                            k_inner: int = 0, margin: float = 0.0) -> None:
-        raise NotImplementedError(
-            "IVFPQIndex.attach_host_rerank is not ported yet: it needs the "
-            "host rerank tier, io_host/host_rerank.py (ROADMAP Queue 1)"
+        """Exact rerank from a host-RAM :class:`HostListStore` (or a built
+        :class:`HostReranker`) for a ``keep_raw=False`` index: afterwards a
+        ``use_exact_rerank`` search takes a top-``rerank_k`` ADC shortlist
+        from the device and reranks it on the host.
+
+        ``k_inner=0`` serves the shortlist through the exact emit_full scan
+        (full distance rows and one top-``rerank_k``); > 0 selects the
+        kernel's per-list truncation. ``margin > 0`` reranks only the
+        candidates whose ADC distance lies within ``(1 + margin)`` of the
+        query's k-th (``last_rerank_kept`` records the mean kept)."""
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.io_host.host_rerank \
+            import HostReranker
+
+        if self.raw is not None:
+            raise ValueError(
+                "host rerank is the keep_raw=False path; a resident raw "
+                "arena already reranks on the device"
+            )
+        self._host_rr = (
+            store if isinstance(store, HostReranker) else HostReranker(store)
         )
+        self.host_rerank_k = int(rerank_k)
+        self.host_rerank_k_inner = int(k_inner)
+        self.host_rerank_margin = float(margin)
 
     def evict_list(self, list_id: int) -> None:
         """Nothing to evict (device-resident); reset the list's heat."""

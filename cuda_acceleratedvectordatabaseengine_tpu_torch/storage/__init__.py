@@ -5,7 +5,10 @@ and read without ``pyarrow``.
   - ``arrow_ipc``   → the Arrow IPC file codec in numpy
   - ``arrow_store`` → ``ArrowStorage`` / ``VectorFileWriter``: vector,
                       centroid, codebook and code tables
-  - ``snapshot``    → whole-index save / load of IVF-Flat and IVF-PQ
+  - ``snapshot``    → whole-index save / load of IVF-Flat and IVF-PQ, and
+                      the IVF-PQ capacity tier's load
+  - ``epoch``       → ``EpochManager``: versioned snapshot directories
+                      (copied from the JAX package)
 """
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.arrow_store import (
@@ -20,6 +23,7 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.snapshot import (
     load_ivf_flat,
     load_ivf_flat_host,
     load_ivf_pq,
+    load_ivf_pq_capacity,
     save_ivf_flat,
     save_ivf_pq,
 )
@@ -27,5 +31,5 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.snapshot import (
 __all__ = [
     "ArrowStorage", "VectorFileWriter", "IndexManifest", "ShardEntry",
     "save_ivf_flat", "load_ivf_flat", "load_ivf_flat_host", "save_ivf_pq",
-    "load_ivf_pq",
+    "load_ivf_pq", "load_ivf_pq_capacity",
 ]

@@ -369,3 +369,51 @@ def load_ivf_pq(path: str,
     if man.extra.get("calibrated_nprobe"):
         idx.calibrated_nprobe = int(man.extra["calibrated_nprobe"])
     return idx
+
+
+def load_ivf_pq_capacity(path: str, rerank_k: int = 128, margin: float = 0.0,
+                         device: torch.device | str | None = "cuda"
+                         ) -> IVFPQIndex:
+    """Load a ``keep_raw=False`` IVF-PQ snapshot as the capacity tier: the
+    codes go to ``device`` (~m bytes a row), the snapshot's raw rows into
+    an int8 host-RAM store that serves the exact rerank
+    (``io_host/host_rerank.HostReranker``). The rows may be in (list,
+    slot) order or in arrival order (the builder streams them chunk by
+    chunk): each row's list comes from matching its id against the code
+    arena's id table. The store's anchors are the centroids in the rows'
+    original frame (OPQ centroids un-rotated). The returned index is
+    ``read_only``: an add would desynchronize the host store."""
+    man = _load_manifest(path, "ivf_pq")
+    if man.extra.get("keep_raw", False):
+        raise ValueError(
+            "snapshot has a device-resident raw arena (keep_raw=True); the "
+            "capacity tier expects keep_raw=False codes + host rows"
+        )
+    if not man.extra.get("host_rows", False):
+        raise ValueError(
+            "snapshot has no host rows; save with "
+            "save_ivf_pq(..., host_rows=(vectors, ids))"
+        )
+    idx = load_ivf_pq(path, device=device)
+    ids, vecs = ArrowStorage.read_vectors(os.path.join(path, VECTORS_FILE))
+    ids_tab = idx.ids
+    valid = ids_tab != INVALID_ID
+    a_lists = np.nonzero(valid)[0]
+    a_ids = ids_tab[valid]
+    order = np.argsort(a_ids, kind="stable")
+    pos = np.minimum(np.searchsorted(a_ids[order], ids),
+                     max(len(a_ids) - 1, 0))
+    if len(a_ids) == 0 or not (a_ids[order][pos] == ids).all():
+        raise ValueError(
+            "vectors file ids do not match the code arena's id table"
+        )
+    assignments = a_lists[order][pos].astype(np.int64)
+    centroids = idx.centroids.cpu().numpy().astype(np.float32)
+    if idx.opq_R is not None:
+        centroids = centroids @ idx.opq_R.cpu().numpy().astype(np.float32).T
+    store = HostListStore.from_assignments(
+        vecs, ids, assignments, man.nlist, dtype="int8", anchors=centroids
+    )
+    idx.attach_host_rerank(store, rerank_k=rerank_k, margin=margin)
+    idx.read_only = True
+    return idx

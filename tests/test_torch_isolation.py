@@ -101,6 +101,76 @@ def test_port_imports_and_searches_without_jax():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_engine_runs_without_the_wire_and_config_packages():
+    """An install without grpc, protobuf, PyYAML, prometheus_client or
+    pyarrow: the serving engine imports and runs
+    create → add → build → activate → search → remove → restart on the
+    CPU, with the production config read by the port's own YAML reader."""
+    code = textwrap.dedent("""
+        import sys
+        import tempfile
+        import time
+        for name in ("grpc", "google.protobuf", "yaml",
+                     "prometheus_client", "pyarrow"):
+            sys.modules[name] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch import (
+            SearchParams)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.server import (
+            health, service)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.server.config \\
+            import ServerConfig
+        cfg = ServerConfig.from_yaml("configs/production.yaml")
+        assert cfg.warm_nprobes == (8, 32)
+        data = tempfile.mkdtemp()
+        cfg = cfg.apply_overrides(data_path=data, default_nlist=8,
+                                  prefetch_hot_interval_s=0.0,
+                                  max_batch_size=8, metrics_enabled=False)
+        x = np.random.default_rng(0).standard_normal((400, 16), np.float32)
+        ids = np.arange(400, dtype=np.uint64)
+        eng = service.VdbEngine(cfg, device="cpu")
+        eng.create_index("docs", 16, "L2", 8, 0, 0)
+        eng.add_vectors("docs", x, ids)
+        eid = eng.build_epoch("docs")
+        while not eng.build_jobs["docs"].done:
+            time.sleep(0.02)
+        assert not eng.build_jobs["docs"].error, eng.build_jobs["docs"].error
+        eng.activate_epoch("docs", eid)
+        p = SearchParams(nprobe=8, k=3)
+        def serve(engine, q):
+            t0 = time.monotonic()
+            fut = engine.submit_search(engine.get_state("docs"), q, p)
+            return engine.finish_search(fut, "docs", t0, len(q))
+        d, got = serve(eng, x[:4])
+        assert (got[:, 0] == ids[:4]).all(), got
+        assert eng.remove_vectors("docs", ids[:2]) == (2, 398)
+        text = eng.metrics.prometheus_text().decode()
+        assert "vdb_searches_total" in text
+        eng.close()
+        again = service.VdbEngine(cfg, device="cpu")
+        d, got = serve(again, x[:4])
+        assert not np.isin(got, ids[:2]).any() and (got[2:, 0] ==
+                                                    ids[2:4]).all()
+        assert health.device_usable("cpu")
+        again.close()
+        for name in ("grpc", "google.protobuf", "yaml", "prometheus_client",
+                     "pyarrow"):
+            assert sys.modules[name] is None
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m.startswith("cuda_acceleratedvectordatabaseengine_tpu.")
+               or m == "cuda_acceleratedvectordatabaseengine_tpu"]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     """No nvcc: the build helper raises instead of handing back a plain
     fallback (it is called directly; no GPU is needed)."""

@@ -291,7 +291,9 @@ def test_state_memory_and_not_ported_surface(tmp_path):
     np.testing.assert_array_equal(
         back.search(q[:4], SearchParams(nprobe=4, k=3))[1],
         idx.search(q[:4], SearchParams(nprobe=4, k=3))[1])
-    with pytest.raises(NotImplementedError, match="host rerank"):
+    # the host rerank is ported (tests/test_torch_host_rerank.py); an
+    # index with resident raw rows refuses a host store, as in JAX
+    with pytest.raises(ValueError, match="keep_raw"):
         idx.attach_host_rerank(None)
     with pytest.raises(NotImplementedError):
         IVFPQConfig(dimension=DIM, m=M, query_upload_dtype="bfloat16")
