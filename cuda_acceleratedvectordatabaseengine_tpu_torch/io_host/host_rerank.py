@@ -9,9 +9,13 @@ JAX package's ``io_host/host_rerank.py``).
 
 The rows live in host RAM and never go to the card: the stage touches only
 ``B × R`` rows a batch, so uniform traffic costs what a hot working set
-costs. This is numpy only. The JAX package's optional fused C++ path
-(``native.rerank``) waits for the port of ``native/``; the numpy path here
-is the JAX package's, step for step.
+costs. Two paths compute it, as in the JAX package: the fused C++ pass of
+``native.rerank`` (gather, factored int8 dequant, dot and top-k in one read
+of each candidate row, no ``[B, R, D]`` fp32 transient, in C++ threads
+without the GIL) where ``use_native`` is set and the flattened store is
+C-contiguous, and the numpy path (the JAX package's, step for step)
+otherwise. The path follows the store's layout and the flag, never a
+failure: ``use_native`` without a buildable native library raises.
 
 Quantization contract of the int8 store: a stored row is ``anchor[list] +
 code · scale_row`` and ``sq`` holds the norm of that stored point, so the
@@ -20,8 +24,11 @@ reranked distances are exact distances to the stored point.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
+from cuda_acceleratedvectordatabaseengine_tpu_torch import native
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
     INVALID_ID,
 )
@@ -75,11 +82,23 @@ def _flatten_lists(arrs, empty_shape, dtype):
 class HostReranker:
     """Exact second-stage rerank over a flattened :class:`HostListStore`
     (int8 or fp32). The per-list arrays are flattened once at construction,
-    so every later gather is one fancy-index."""
+    so every later gather is one fancy-index.
 
-    def __init__(self, store, batch_rows: int = 131072):
+    ``use_native`` (the JAX package's default) reranks a C-contiguous store
+    through ``native.rerank``; the library is built here, so a missing
+    compiler fails the construction, not a search. ``native_batches`` and
+    ``numpy_batches`` count the batches each path ran."""
+
+    def __init__(self, store, batch_rows: int = 131072,
+                 use_native: bool = True):
         self.dim = store.dim
         self.quantized = store.dtype == "int8"
+        self.use_native = use_native
+        if use_native:
+            native.load_library()
+        self.native_batches = 0
+        self.numpy_batches = 0
+        self._count_lock = threading.Lock()
         counts = np.asarray(
             [v.shape[0] for v in store.vectors], dtype=np.int64
         )
@@ -166,6 +185,31 @@ class HostReranker:
             qa_cand[i] = (queries[i] @ self.anchors[u].T)[inv]
         return qa_cand
 
+    _METRIC_CODE = {
+        Metric.L2: 0, Metric.INNER_PRODUCT: 1, Metric.COSINE: 2,
+    }
+
+    def _count(self, native_path: bool) -> None:
+        with self._count_lock:
+            if native_path:
+                self.native_batches += 1
+            else:
+                self.numpy_batches += 1
+
+    def _rerank_native(self, queries, q_sq, rows, cand_ids, metric, k,
+                       qa_cand):
+        """Fused C++ rerank (``native.rerank``): gather + factored dequant
+        + dot + top-k in one pass over each candidate row."""
+        return native.rerank(
+            self.vecs, rows, cand_ids, queries,
+            q_sq if metric == Metric.L2 else None,
+            self._METRIC_CODE[metric], k,
+            scale=self.scale,
+            sq=self.sq if metric == Metric.L2 else None,
+            anchor_row=self.anchor_row,
+            qa_cand=qa_cand,
+        )
+
     def rerank(
         self,
         queries: np.ndarray,   # [B, D] fp32, the original (unrotated) frame
@@ -186,6 +230,13 @@ class HostReranker:
         qa_cand = (
             self._anchor_dots(queries, rows) if self.quantized else None
         )
+        # The native pass reads the store in place: only a C-contiguous
+        # store takes it (a multi-GB store is never copied for it).
+        if self.use_native and self.vecs.flags["C_CONTIGUOUS"]:
+            self._count(True)
+            return self._rerank_native(queries, q_sq, rows, cand_ids,
+                                       metric, k, qa_cand)
+        self._count(False)
         # Chunk over queries so the fp32 cast transient stays bounded
         # (B·R·D fp32 at B=512, R=256, D=768 would be ~400 MB).
         step = max(self.batch_rows // max(r, 1), 1)

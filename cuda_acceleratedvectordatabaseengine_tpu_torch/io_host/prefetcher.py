@@ -1,25 +1,89 @@
-"""Hotness-scored inverted-list prefetch and the throttled staging
-scheduler.
+"""Prefetchers: access-pattern readahead, hotness-scored inverted-list
+prefetch, and the throttled staging scheduler.
 
-Copies of ``ListPrefetcher`` and ``PrefetchScheduler`` from the JAX
-package's ``io_host/prefetcher.py`` (that module imports no JAX, but the
-port imports nothing of the JAX package). The streaming tier feeds
-``ListPrefetcher`` every search's probe table and stages its hottest lists
-back into the device cache on request
+Copies of ``AdaptivePrefetcher`` (with ``AccessPattern``),
+``ListPrefetcher`` and ``PrefetchScheduler`` from the JAX package's
+``io_host/prefetcher.py`` (that module imports no JAX, but the port imports
+nothing of the JAX package). ``AdaptivePrefetcher`` classifies each file's
+read offsets (sequential, strided, random) and asks its reader
+(``storage.shard_store.AlignedReader``) to prefetch the predicted next
+blocks. The streaming tier feeds ``ListPrefetcher`` every search's probe
+table and stages its hottest lists back into the device cache on request
 (``StreamingIVFFlatIndex.prefetch_hot_lists``); the serving engine queues
 that re-staging into ``PrefetchScheduler``, a priority queue with
-pause / resume and a byte-rate throttle. The JAX module's
-``AdaptivePrefetcher`` (readahead over the aligned file reader) waits for
-the port of ``native/`` and ``storage/shard_store.py``.
+pause / resume and a byte-rate throttle.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import enum
 import heapq
 import itertools
 import threading
 import time
+
+
+class AccessPattern(enum.Enum):
+    SEQUENTIAL = "sequential"
+    STRIDED = "strided"
+    RANDOM = "random"
+
+
+class AdaptivePrefetcher:
+    """Per-file access-history classifier and next-access predictor: keeps
+    the last :attr:`HISTORY` offsets per file, takes the most common stride,
+    classifies sequential / strided / random with a consistency score, and
+    has the reader prefetch the predicted next ``prefetch_depth``
+    accesses."""
+
+    HISTORY = 100
+    MIN_SAMPLES = 4
+
+    def __init__(self, reader=None, prefetch_depth: int = 4,
+                 block_size: int = 1 << 20):
+        self.reader = reader
+        self.prefetch_depth = prefetch_depth
+        self.block_size = block_size
+        self._hist: dict[str, collections.deque] = {}
+        self._lock = threading.Lock()
+        self.prefetches_issued = 0
+
+    def record_access(self, path: str, offset: int) -> None:
+        with self._lock:
+            self._hist.setdefault(
+                path, collections.deque(maxlen=self.HISTORY)
+            ).append(offset)
+        pattern, stride, _ = self.classify(path)
+        if pattern != AccessPattern.RANDOM:
+            self._issue(path, offset, stride)
+
+    def classify(self, path: str) -> tuple[AccessPattern, int, float]:
+        """Returns (pattern, dominant stride, consistency score 0..1)."""
+        with self._lock:
+            hist = list(self._hist.get(path, ()))
+        if len(hist) < self.MIN_SAMPLES:
+            return AccessPattern.RANDOM, 0, 0.0
+        strides = [b - a for a, b in zip(hist, hist[1:])]
+        counter = collections.Counter(strides)
+        stride, freq = counter.most_common(1)[0]
+        consistency = freq / len(strides)
+        if consistency < 0.5 or stride == 0:
+            return AccessPattern.RANDOM, 0, consistency
+        if stride == self.block_size or 0 < stride <= self.block_size:
+            return AccessPattern.SEQUENTIAL, stride, consistency
+        return AccessPattern.STRIDED, stride, consistency
+
+    def _issue(self, path: str, offset: int, stride: int) -> None:
+        if self.reader is None or stride == 0:
+            return
+        for i in range(1, self.prefetch_depth + 1):
+            nxt = offset + i * stride
+            if nxt >= 0:
+                self.reader.prefetch(path, nxt, abs(stride))
+                with self._lock:
+                    self.prefetches_issued += 1
 
 
 class ListPrefetcher:

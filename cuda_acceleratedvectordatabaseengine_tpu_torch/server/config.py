@@ -292,8 +292,8 @@ class ServerConfig:
     # "auto" and "off" serve one device.
     shard_serving: str = "auto"
     mesh_shards: int = 0        # 0 = all visible devices
-    # Profiler trace server port (0 = disabled); not ported: main() raises
-    # when it is set.
+    # Profiler trace server port (0 = disabled): GET /trace?ms=N answers
+    # with a Chrome trace (utils/profiling.start_trace_server).
     profile_port: int = 0
 
     # rate limiting (requests per second, token bucket)

@@ -42,6 +42,9 @@ class HealthServicer:
         self.poll_interval_s = poll_interval_s
         self.device = device
         self._device_ok = True
+        # set after each finished probe: a caller can wait for the first
+        # verdict instead of guessing how long a probe takes
+        self.probed = threading.Event()
         self._stopped = threading.Event()
         self._poller = threading.Thread(
             target=self._poll_loop, name="health-device-probe", daemon=True
@@ -58,6 +61,7 @@ class HealthServicer:
     def _poll_loop(self) -> None:
         while not self._stopped.is_set():
             self._device_ok = device_usable(self.device)
+            self.probed.set()
             self._stopped.wait(self.poll_interval_s)
 
     def _check(self, service: str) -> int:

@@ -7,7 +7,8 @@ service, metrics endpoint, graceful SIGINT / SIGTERM shutdown.
 
 Needs ``grpcio`` and ``protobuf``. The engine runs on the card unless
 ``build_server`` is given another device (the tests pass ``"cpu"``).
-``--profile-port`` (a profiler trace server) is not ported and raises.
+``--profile-port`` serves on-demand ``torch.profiler`` captures
+(``utils/profiling.start_trace_server``: ``GET /trace?ms=N``).
 """
 
 from __future__ import annotations
@@ -173,7 +174,7 @@ def main(argv=None) -> int:
                    type=float, help="ms")
     p.add_argument("--metrics-port", dest="metrics_port", type=int)
     p.add_argument("--profile-port", dest="profile_port", type=int,
-                   help="profiler trace server (not ported: raises)")
+                   help="on-demand profiler traces: GET /trace?ms=N")
     p.add_argument("--shard-serving", dest="shard_serving",
                    choices=("auto", "on", "off"),
                    help="multi-device serving ('on' is not ported)")
@@ -193,16 +194,21 @@ def main(argv=None) -> int:
         profile_port=args.profile_port,
         shard_serving=args.shard_serving,
     )
-    if config.profile_port:
-        raise NotImplementedError(
-            "profile_port: the profiler trace server (utils/profiling.py) "
-            "is not ported"
-        )
     os.makedirs(config.data_path, exist_ok=True)
+    tracer = None
+    if config.profile_port:
+        # before the engine loads its indexes: a taken port fails at once
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling \
+            import start_trace_server
+
+        tracer = start_trace_server(config.profile_port)
 
     server, engine, health, port = build_server(config, device=args.device)
     print(device_banner(engine.device))
     print(f"[vdb] listening on {config.address}, data at {config.data_path}")
+    if tracer is not None:
+        print(f"[vdb] profiler traces on :{tracer.server_address[1]}"
+              f"/trace?ms=N (Chrome-trace JSON)")
     if config.enable_tls:
         mode = "mTLS" if config.tls_ca_file else "TLS"
         print(f"[vdb] {mode} enabled ({config.tls_cert_file})")
@@ -233,6 +239,9 @@ def main(argv=None) -> int:
     stop_event.wait()
     health.stop()
     server.stop(grace=5).wait()
+    if tracer is not None:
+        tracer.shutdown()
+        tracer.server_close()
     engine.close()
     return 0
 

@@ -9,6 +9,9 @@ and read without ``pyarrow``.
                       the IVF-PQ capacity tier's load
   - ``epoch``       → ``EpochManager``: versioned snapshot directories
                       (copied from the JAX package)
+  - ``shard_store`` → ``ShardManager`` (per-list ``.ids`` / ``.vec`` /
+                      ``.code`` files) and ``AlignedReader`` (copied from
+                      the JAX package)
 """
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.arrow_store import (
@@ -18,6 +21,10 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.arrow_store import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.manifest import (
     IndexManifest,
     ShardEntry,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.shard_store import (
+    AlignedReader,
+    ShardManager,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.snapshot import (
     load_ivf_flat,
@@ -31,5 +38,5 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.storage.snapshot import (
 __all__ = [
     "ArrowStorage", "VectorFileWriter", "IndexManifest", "ShardEntry",
     "save_ivf_flat", "load_ivf_flat", "load_ivf_flat_host", "save_ivf_pq",
-    "load_ivf_pq", "load_ivf_pq_capacity",
+    "load_ivf_pq", "load_ivf_pq_capacity", "ShardManager", "AlignedReader",
 ]

@@ -1,8 +1,9 @@
 """PyTorch port, the capacity tier: ``io_host/host_rerank.HostReranker``
-against the JAX package's numpy path (``use_native=False``) on the same
-stores, and the IVF-PQ host-rerank surface (``attach_host_rerank``,
-``load_ivf_pq_capacity``) against the JAX package on snapshots written by
-either package (CPU)."""
+against the JAX package's on the same stores, and the IVF-PQ host-rerank
+surface (``attach_host_rerank``, ``load_ivf_pq_capacity``) against the JAX
+package on snapshots written by either package (CPU). Each comparison runs
+both packages on the same path: the numpy one (``use_native=False``) and
+the fused C++ one (``use_native=True``; the same ``vdbhost.cc`` in both)."""
 
 import os
 
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_acceleratedvectordatabaseengine_tpu import native as jnative
 from cuda_acceleratedvectordatabaseengine_tpu import (
     IVFPQConfig as JPQConfig,
     IVFPQIndex as JPQIndex,
@@ -55,6 +57,25 @@ RTOL = 1e-6          # the stated tolerance: distances within 1e-6 relative
 METRICS = ["L2", "InnerProduct", "Cosine"]
 
 
+@pytest.fixture(params=[False, True], ids=["numpy", "native"])
+def use_native(request):
+    """The rerank path both packages take. The JAX package turns a failed
+    native build into its numpy path silently; that would compare two
+    different paths, so its library must be there."""
+    if request.param:
+        assert jnative.available(), "the JAX package's native library"
+    return request.param
+
+
+def _same_path(rr, jrr, use_native):
+    """Both rerankers ran every batch on the ``use_native`` path."""
+    assert rr.use_native == jrr.use_native == use_native
+    if use_native:
+        assert rr.native_batches > 0 and rr.numpy_batches == 0
+    else:
+        assert rr.numpy_batches > 0 and rr.native_batches == 0
+
+
 def _stores(rng, n, dtype, sparse_ids):
     """The same rows, ids and list assignment packed by both packages."""
     x = rng.standard_normal((n, DIM)).astype(np.float32)
@@ -75,13 +96,13 @@ def _stores(rng, n, dtype, sparse_ids):
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("dtype", ["int8", "float32"])
 @pytest.mark.parametrize("sparse_ids", [False, True])
-def test_reranker_matches_jax(rng, metric, dtype, sparse_ids):
+def test_reranker_matches_jax(rng, metric, dtype, sparse_ids, use_native):
     """Same store, same shortlists (INVALID_ID padding, a fully padded row,
     an unknown id; k below, at and above the shortlist depth): the same
     distances within 1e-6 relative and the same ids up to ties."""
     x, ids, mine, theirs = _stores(rng, 400, dtype, sparse_ids)
-    rr, jrr = thr.HostReranker(mine), jhr.HostReranker(theirs,
-                                                       use_native=False)
+    rr = thr.HostReranker(mine, use_native=use_native)
+    jrr = jhr.HostReranker(theirs, use_native=use_native)
     assert (rr._inv is None) == sparse_ids == (jrr._inv is None)
     assert rr.nbytes() == jrr.nbytes()
     q = rng.standard_normal((9, DIM)).astype(np.float32)
@@ -97,13 +118,14 @@ def test_reranker_matches_jax(rng, metric, dtype, sparse_ids):
         assert d.shape == (9, k) and got.dtype == np.uint64
         assert_topk_match(d, got, jd, jgot, rtol=RTOL)
         assert (got[1] == INVALID_ID).all()
+    _same_path(rr, jrr, use_native)
 
 
-def test_reranker_distances_are_exact_to_the_stored_point(rng):
+def test_reranker_distances_are_exact_to_the_stored_point(rng, use_native):
     """L2 distances equal the direct computation from the dequantized
     int8 store (the JAX package's own check, on the port)."""
     x, ids, store, _ = _stores(rng, 300, "int8", False)
-    rr = thr.HostReranker(store)
+    rr = thr.HostReranker(store, use_native=use_native)
     deq = np.zeros_like(x)
     for l in range(NLIST):
         deq[store.ids[l].astype(np.int64)] = (
@@ -174,7 +196,7 @@ def _search_both(tidx, jidx, q, p):
 @pytest.mark.parametrize("writer", ["jax", "port"])
 @pytest.mark.parametrize("opq", [False, True])
 def test_capacity_tier_loads_either_package_snapshot(tmp_path, rng, writer,
-                                                     opq):
+                                                     opq, use_native):
     """One keep_raw=False snapshot with host rows, written by either
     package, with OPQ and without: the port's ``load_ivf_pq_capacity``
     and the JAX package's load it alike (codes, host store bit for bit)
@@ -196,7 +218,8 @@ def test_capacity_tier_loads_either_package_snapshot(tmp_path, rng, writer,
     tidx = load_ivf_pq_capacity(path, rerank_k=48, device="cpu")
     jidx = jsnap.load_ivf_pq_capacity(path, rerank_k=48)
     jidx.config.scan_impl = "xla"
-    jidx._host_rr.use_native = False
+    jidx._host_rr.use_native = use_native
+    tidx._host_rr.use_native = use_native
     assert tidx.read_only and tidx.raw is None
     assert (tidx.opq_R is not None) == opq
     np.testing.assert_array_equal(tidx._host_rr.ids, jidx._host_rr.ids)
@@ -212,10 +235,11 @@ def test_capacity_tier_loads_either_package_snapshot(tmp_path, rng, writer,
     d, got = tidx.search(x[:5], SearchParams(nprobe=NLIST, k=1,
                                              use_exact_rerank=True))
     assert (got[:, 0] == ids[:5]).all()
+    _same_path(tidx._host_rr, jidx._host_rr, use_native)
 
 
 @pytest.mark.parametrize("metric", METRICS)
-def test_attached_rerank_matches_jax(rng, metric):
+def test_attached_rerank_matches_jax(rng, metric, use_native):
     """``attach_host_rerank`` on the same codes in both packages (the JAX
     index's state loaded into the port): the shortlist goes through the
     emit_full depth (rerank_k 64 > 32) and both packages' host stage."""
@@ -233,13 +257,15 @@ def test_attached_rerank_matches_jax(rng, metric):
         xs, ids, assigns, NLIST, dtype="int8", anchors=anchors), rerank_k=64)
     jidx.attach_host_rerank(JStore.from_assignments(
         xs, ids, assigns, NLIST, dtype="int8", anchors=anchors), rerank_k=64)
-    jidx._host_rr.use_native = False
+    jidx._host_rr.use_native = use_native
+    tidx._host_rr.use_native = use_native
     q = rng.standard_normal((12, DIM)).astype(np.float32)
     _search_both(tidx, jidx, q, dict(nprobe=NLIST, k=10,
                                      use_exact_rerank=True))
+    _same_path(tidx._host_rr, jidx._host_rr, use_native)
 
 
-def test_adaptive_margin_matches_jax(rng):
+def test_adaptive_margin_matches_jax(rng, use_native):
     """``margin``: a huge margin keeps every candidate (the fixed-depth
     result), a moderate one prunes the same candidates as the JAX package
     (``last_rerank_kept`` equal) and reranks to the same answer."""
@@ -265,9 +291,11 @@ def test_adaptive_margin_matches_jax(rng):
     assert tidx.last_rerank_kept == 64.0
     tidx.attach_host_rerank(store, rerank_k=64, margin=0.05)
     jidx.attach_host_rerank(jstore, rerank_k=64, margin=0.05)
-    jidx._host_rr.use_native = False
+    jidx._host_rr.use_native = use_native
+    tidx._host_rr.use_native = use_native
     _search_both(tidx, jidx, q, dict(nprobe=NLIST, k=10,
                                      use_exact_rerank=True))
+    _same_path(tidx._host_rr, jidx._host_rr, use_native)
     assert tidx.last_rerank_kept < 64
     assert tidx.last_rerank_kept == pytest.approx(jidx.last_rerank_kept,
                                                   abs=0.5)

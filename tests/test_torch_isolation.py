@@ -254,3 +254,167 @@ def test_ctypes_signature_matches_the_c_prototype(name):
 
 def test_every_c_entry_point_is_declared():
     assert set(_c_prototypes()) == set(_build.SIGNATURES)
+
+
+def test_tools_native_profiling_and_shards_import_without_jax():
+    """The modules of the tools slice import and run with JAX and the JAX
+    package made unimportable: the native runtime reranks, a shard
+    round-trips, a traced block runs, and ``build_index`` and ``autotune``
+    build and tune a snapshot on the CPU."""
+    code = textwrap.dedent("""
+        import contextlib
+        import io
+        import json
+        import sys
+        import tempfile
+        for name in ("jax", "jaxlib",
+                     "cuda_acceleratedvectordatabaseengine_tpu"):
+            sys.modules[name] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch import native
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.io_host import (
+            AdaptivePrefetcher, HostListStore, HostReranker)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance \\
+            import Metric
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.storage import (
+            shard_store)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.tools import (
+            autotune, benchmark, build_index, load_test, recall_test)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
+            profiling)
+        x = np.random.default_rng(0).standard_normal((64, 16), np.float32)
+        ids = np.arange(64, dtype=np.uint64)
+        store = HostListStore.from_assignments(
+            x, ids, np.arange(64) % 4, 4, dtype="int8",
+            anchors=np.zeros((4, 16), np.float32))
+        rr = HostReranker(store)
+        d, got = rr.rerank(x[:3], ids[None, :10].repeat(3, 0), Metric.L2, 2)
+        assert (got[:, 0] == ids[:3]).all() and rr.native_batches == 1
+        np.testing.assert_array_equal(native.gather_rows(x, [3]), x[3:4])
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = shard_store.ShardManager(tmp, 16)
+            mgr.append(7, ids, x)
+            np.testing.assert_array_equal(mgr.load(7)[1], x)
+            snap = tmp + "/snap"
+            with contextlib.redirect_stdout(io.StringIO()):
+                assert build_index.main([
+                    "--synthetic", "600", "--dimension", "8", "--nlist", "4",
+                    "--output", snap, "--device", "cpu"]) == 0
+                assert autotune.main(["--snapshot", snap, "--sample", "32",
+                                      "--device", "cpu", "--output",
+                                      tmp + "/t.json"]) == 0
+            assert json.load(open(tmp + "/t.json"))["ntotal"] == 600
+        with profiling.trace("vdb.isolated"):
+            torch.ones(2).sum()
+        assert AdaptivePrefetcher().classify("f")[1] == 0
+        assert load_test.parse_stage_metrics("") == {}
+        bad = [m for m in sys.modules if (m == "jax" or m.startswith("jax.")
+               or m.startswith("cuda_acceleratedvectordatabaseengine_tpu."))
+               and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def _native_prototypes():
+    """``{name: (argument kinds, result kind)}`` of every exported function
+    in ``native/vdbhost.cc``, in the kinds of ``native.SIGNATURES``."""
+    import re
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch import native
+
+    def kind(decl):
+        if "*" in decl:
+            return "s" if "char" in decl else "p"
+        return {"int32_t": "i", "int64_t": "l", "size_t": "z",
+                "void": "v"}[decl.split()[0]]
+
+    protos = {}
+    for body in native.SOURCE.read_text().split('extern "C" {')[1:]:
+        for res, name, params in re.findall(
+                r"^(void\*?|int32_t)\s+(vdb_\w+)\(([^)]*)\)\s*\{",
+                body, re.M):
+            args = "".join(kind(a) for a in params.split(",") if a.strip())
+            protos[name] = (args, kind(res))
+    return protos
+
+
+def _native_names():
+    from cuda_acceleratedvectordatabaseengine_tpu_torch import native
+
+    return sorted(native.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", _native_names())
+def test_native_ctypes_signature_matches_the_c_prototype(name):
+    """The ctypes declaration of each native entry point takes the
+    arguments its ``extern "C"`` prototype in ``vdbhost.cc`` takes."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch import native
+
+    assert _native_prototypes()[name] == native.SIGNATURES[name]
+
+
+def test_every_native_entry_point_is_declared():
+    from cuda_acceleratedvectordatabaseengine_tpu_torch import native
+
+    assert set(_native_prototypes()) == set(native.SIGNATURES)
+    assert len(native.SIGNATURES) == 8
+
+
+def test_native_without_compiler_raises(tmp_path, monkeypatch, rng):
+    """No ``g++`` and no library built: ``use_native=True`` raises
+    ``RuntimeError`` (at construction, before any search), so does every
+    native entry point; ``use_native=False`` still serves the numpy path.
+    Nothing falls back."""
+    import numpy as np
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch import native
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.io_host import (
+        HostListStore,
+        HostReranker,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+        Metric,
+    )
+
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    monkeypatch.setenv("PATH", str(empty))
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "native")
+    native.load_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            native.find_compiler()
+        x = rng.standard_normal((40, 8)).astype(np.float32)
+        ids = np.arange(40, dtype=np.uint64)
+        store = HostListStore.from_assignments(x, ids, np.arange(40) % 2, 2,
+                                               dtype="float32")
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            HostReranker(store)
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            HostReranker(store, use_native=True)
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            native.gather_rows(x, np.arange(3))
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            native.rerank(x, np.zeros((1, 2), np.int64),
+                          np.zeros((1, 2), np.uint64), x[:1], None, 1, 1)
+        assert not native.available()
+        rr = HostReranker(store, use_native=False)
+        d, got = rr.rerank(x[:2], ids[None, :5].repeat(2, 0), Metric.L2, 1)
+        assert (got[:, 0] == ids[:2]).all()
+        assert (rr.native_batches, rr.numpy_batches) == (0, 1)
+        # the numpy path was chosen by the flag: switching the flag on now
+        # raises instead of falling back
+        rr.use_native = True
+        with pytest.raises(RuntimeError, match="g\\+\\+"):
+            rr.rerank(x[:2], ids[None, :5].repeat(2, 0), Metric.L2, 1)
+        assert not (tmp_path / "native").exists()
+    finally:
+        native.load_library.cache_clear()

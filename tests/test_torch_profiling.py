@@ -1,0 +1,195 @@
+"""PyTorch port, ``utils/profiling.py`` on ``torch.profiler``: the timers,
+a traced block written as a Chrome trace, the on-demand trace server, and
+``server.main --profile-port`` serving it (CPU)."""
+
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import pytest
+import torch
+
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import profiling
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_timer_accumulates_spans():
+    t = profiling.Timer()
+    assert t.avg_ms == 0.0
+    for _ in range(3):
+        with t.span():
+            time.sleep(0.002)
+    with pytest.raises(ValueError):
+        with t.span():
+            raise ValueError("a failing span still counts")
+    assert t.count == 4
+    assert t.total_s >= 0.006 and t.avg_ms == 1000 * t.total_s / 4
+
+
+def test_timed_returns_the_output_and_its_time(monkeypatch):
+    """On host tensors nothing is synchronised; the walk finds CUDA
+    tensors inside nested outputs (none here)."""
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+
+    def work(x, scale=1.0):
+        time.sleep(0.005)
+        return {"y": (x * scale, [x + 1])}
+
+    out, ms = profiling.timed(work, torch.ones(3), scale=2.0)
+    assert torch.equal(out["y"][0], torch.full((3,), 2.0))
+    assert ms >= 5.0 and synced == []
+    assert profiling._cuda_devices((torch.ones(1), [{"a": torch.ones(2)}],
+                                    3)) == set()
+
+
+def _names(trace: dict) -> set:
+    return {e.get("name") for e in trace["traceEvents"]}
+
+
+def test_trace_writes_a_chrome_trace_with_the_range(tmp_path):
+    with profiling.trace("vdb.test_block", str(tmp_path / "traces")):
+        torch.randn(64, 64) @ torch.randn(64, 64)
+    files = os.listdir(tmp_path / "traces")
+    assert len(files) == 1 and files[0].startswith("vdb.test_block.")
+    with open(tmp_path / "traces" / files[0]) as f:
+        trace = json.load(f)
+    assert "vdb.test_block" in _names(trace)
+    assert any(n and "mm" in n for n in _names(trace))
+    with profiling.trace("vdb.untraced"):   # no log_dir: the range only
+        torch.ones(2).sum()
+
+
+def test_trace_server_serves_captures():
+    """``/trace?ms=50`` answers with a Chrome trace holding what the
+    process ran meanwhile, on another thread; other paths 404, a bad
+    ``ms`` 400; a taken port raises."""
+    server = profiling.start_trace_server(0)
+    port = server.server_address[1]
+    base = f"http://127.0.0.1:{port}"
+    stop = []
+
+    def busy():
+        while not stop:
+            with torch.profiler.record_function("vdb.busy_thread"):
+                torch.randn(32, 32).sum()
+            time.sleep(0.001)
+
+    worker = threading.Thread(target=busy, daemon=True)
+    worker.start()
+    try:
+        with urllib.request.urlopen(f"{base}/trace?ms=50", timeout=60) as r:
+            assert r.status == 200
+            trace = json.loads(r.read())
+        # the other thread's range: every thread is recorded
+        assert "vdb.busy_thread" in _names(trace)
+        assert trace["vdbCapture"] == {"ms": 50.0, "attempts": 1,
+                                       "kernel_records": 0}
+        for path, code in (("/nope", 404), ("/trace?ms=abc", 400)):
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                urllib.request.urlopen(base + path, timeout=30)
+            assert ei.value.code == code
+        with pytest.raises(OSError):
+            profiling.start_trace_server(port)
+    finally:
+        stop.append(True)
+        worker.join(timeout=10)
+        server.shutdown()
+        server.server_close()
+    assert not worker.is_alive()
+
+
+def _window(*cats: str) -> dict:
+    return {"traceEvents": [{"name": f"e{i}", "cat": c}
+                            for i, c in enumerate(cats)]}
+
+
+@pytest.mark.parametrize("on_card, windows, attempts, kernels", [
+    # the card's records came back at once: one window
+    (True, [_window("cpu_op", "kernel", "kernel")], 1, 2),
+    # the first window lost them, the second holds them
+    (True, [_window("cpu_op", "cuda_runtime"), _window("cpu_op", "kernel")],
+     2, 1),
+    # every window lost them: the last is returned, and says so
+    (True, [_window("cpu_op")] * profiling.CAPTURE_ATTEMPTS,
+     profiling.CAPTURE_ATTEMPTS, 0),
+    # no card profiled: a window without kernels is the answer
+    (False, [_window("cpu_op")], 1, 0),
+])
+def test_capture_retakes_a_window_without_the_cards_records(
+        monkeypatch, on_card, windows, attempts, kernels):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    monkeypatch.setattr(profiling, "_activities", lambda: acts)
+    taken = []
+
+    def fake_window(ms):
+        taken.append(ms)
+        return windows[len(taken) - 1]
+
+    monkeypatch.setattr(profiling, "_profile_window", fake_window)
+    trace = profiling.capture_trace(99999)
+    assert taken == [profiling.MAX_TRACE_MS] * attempts
+    assert trace is windows[attempts - 1]
+    assert trace["vdbCapture"] == {"ms": profiling.MAX_TRACE_MS,
+                                   "attempts": attempts,
+                                   "kernel_records": kernels}
+
+
+def _free_ports(n: int) -> list[int]:
+    """``n`` distinct ports free at the time of the call."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def test_server_main_serves_traces_on_profile_port(tmp_path):
+    """``server.main --profile-port`` starts the trace server beside the
+    gRPC server (it raised ``NotImplementedError`` before the port of
+    ``utils/profiling.py``) and shuts down on SIGTERM."""
+    import grpc
+
+    trace_port, grpc_port, metrics_port = _free_ports(3)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "cuda_acceleratedvectordatabaseengine_tpu_torch.server.main",
+         "--device", "cpu", "--address", f"127.0.0.1:{grpc_port}",
+         "--data-path", str(tmp_path / "data"),
+         "--metrics-port", str(metrics_port),
+         "--profile-port", str(trace_port)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        channel = grpc.insecure_channel(f"127.0.0.1:{grpc_port}")
+        grpc.channel_ready_future(channel).result(timeout=120)
+        channel.close()
+        url = f"http://127.0.0.1:{trace_port}/trace?ms=50"
+        with urllib.request.urlopen(url, timeout=60) as r:
+            trace = json.loads(r.read())
+        assert isinstance(trace["traceEvents"], list)
+        assert proc.poll() is None
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    assert "NotImplementedError" not in err, err[-2000:]
+    assert f"profiler traces on :{trace_port}" in out, (out, err[-2000:])

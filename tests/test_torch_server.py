@@ -686,9 +686,17 @@ def test_auth_token_compared_in_constant_time(tmp_path, monkeypatch):
 
 
 def test_main_refuses_unported_options(tmp_path):
-    with pytest.raises(NotImplementedError, match="profil"):
-        t_main.main(["--profile-port", "9999", "--data-path",
-                     str(tmp_path / "d")])
+    # --profile-port is ported (tests/test_torch_profiling.py serves a
+    # trace through it); a taken port fails before the engine loads
+    import socket
+
+    with socket.socket() as taken:
+        taken.bind(("", 0))
+        taken.listen()
+        with pytest.raises(OSError):
+            t_main.main(["--profile-port", str(taken.getsockname()[1]),
+                         "--data-path", str(tmp_path / "d"),
+                         "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="parallel"):
         t_main.main(["--shard-serving", "on", "--data-path",
                      str(tmp_path / "d"), "--device", "cpu"])
