@@ -135,9 +135,36 @@ fails (non-zero exit, no result line) when any phase fails:
    (d) served on each path (gate: the native serve ran the native
    rerank). Phases 16 and 17 each start with every launch counter at 0
    and gate K1, K2 and K3; the kernel report's launches add phase 17's.
+18. the sharded paths (``parallel/``) on meshes of shards on the one card
+   (``make_mesh(devices=[cuda] * n)``; shards on one card run one after
+   another), each part with every launch counter at 0 before it and its
+   kernels gated after: (b) right after 2c, K1 and K2 on every stripe of
+   a 4-way slot striping at the main shapes (K1 int8, K2 top-k and
+   emit_full) against their plain versions (phases 2 and 2b hold small
+   striped cases too); (c) right after 9, a 4-shard ``ShardedIVFPQIndex``
+   over pq-1M (ADC-only equal to one device; reranked recall@10 at 32 at
+   least one device's less 0.001); (a) right after 11b, a
+   ``ShardedIVFFlatIndex`` over flat-1M on 1 shard (the publish copies no
+   arena) and 4 (K1 and K3 at the calibrated nprobe and 32, k 100), and
+   over flat-1M-bf16 with ``"pallas"`` (K4): equal to the single-device
+   search, recall@10 ≥ 0.95, each kernel once per shard and search; QPS
+   and ms a batch beside the unsharded figures, traced device ms of a
+   shard's scan (``sharded.scan``) and of the merge (``sharded.merge``);
+   (d) right after 12, ``ShardedStreamingIVFFlatIndex.from_base`` with
+   512 slots over 4 shards (equal to phase 12's answers; hit rate, H2D
+   GB, waves);
+   (e) after 14, ``build_on_mesh`` of flat-1M on 4 shards trained by
+   ``sharded_kmeans_fit`` (inertia within 2% of ``kmeans_fit`` on the
+   same sample, recall@10 ≥ 0.95 at 32; train s, pack s); (f) after 17,
+   a ``VdbEngine`` with an explicit 4-shard mesh recovering phase 16's
+   epochs (``flat`` sharded, ``pqcap`` on one device): 32 clients, 1024
+   single queries and 256 reranked ones, each answer equal to the
+   library search of the live index; 10K served ids removed, none
+   returned; ``shard_serving: on`` from YAML builds a 1-shard mesh. The
+   kernel report's launches add phase 18's.
 
-They run in the order 0, 1, 2, 2b, 2c, 3, 7-9, 15a, 10, 15b, 4-6, 11, 11b,
-12, 13, 14, 16, 17.
+They run in the order 0, 1, 2, 2b, 2c, 18b, 3, 7-9, 18c, 15a, 10, 15b,
+4-6, 11, 11b, 18a, 12, 18d, 13, 14, 18e, 16, 17, 18f.
 
 The second-to-last line is the kernel report JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -610,6 +637,16 @@ def phase_kernel_vs_plain(seed: int, dev) -> dict:
                                       Metric.L2, time_it=True)
     del main
     torch.cuda.empty_cache()
+    # slot striping as a sharded index launches K1 (2 shards, each offset)
+    res["striped_small_max_abs_err"] = max(
+        check_striped("l2_i8_striped_x2", make_scan_case(
+            gen, dev, nlist=16, cap=256, dim=64, batch=48, nprobe=6,
+            dtype=torch.int8, metric=Metric.L2, neg=True), 2, 10, Metric.L2,
+            "grouped", "phase2"),
+        check_striped("ip_bf16_striped_x4", make_scan_case(
+            gen, dev, nlist=16, cap=256, dim=96, batch=48, nprobe=6,
+            dtype=torch.bfloat16, metric=Metric.INNER_PRODUCT, short=True),
+            4, 10, Metric.INNER_PRODUCT, "grouped", "phase2"))
     return res
 
 
@@ -897,6 +934,14 @@ def phase_pq_kernel_vs_plain(seed: int, dev) -> dict:
             emit_full=True)
     del main
     torch.cuda.empty_cache()
+    # slot striping as a sharded index launches K2 (2 shards, each offset)
+    case = make_pq_case(gen, dev, **dict(base, metric=Metric.L2, neg=True,
+                                         short=True))
+    res["striped_small"] = {"max_abs_err": max(
+        check_striped("l2_striped_x2", case, 2, 10, Metric.L2, "pq",
+                      "phase2b"),
+        check_striped("l2_striped_emit_full_x2", case, 2, 40, Metric.L2,
+                      "pq", "phase2b", emit_full=True))}
     return res
 
 
@@ -1716,7 +1761,8 @@ def phase_full_row_index_checks(idx, bidx, queries, cal_nprobe) -> dict:
     return out
 
 
-def phase_streaming(dev, idx, q_np, truth, cal_nprobe) -> dict:
+def phase_streaming(dev, idx, q_np, truth, cal_nprobe,
+                    answers=None) -> dict:
     """Phase 12, the streaming tier: a ``StreamingIVFFlatIndex`` built
     from the phase-4 index with ``CACHE_SLOTS`` lists in the device cache
     (half the lists), serving 1024-query batches at the
@@ -1726,7 +1772,8 @@ def phase_streaming(dev, idx, q_np, truth, cal_nprobe) -> dict:
     resident index is timed just before each tier and just after it is
     dropped (the tier must be gone at once: no reference cycle may keep
     its cache), with the host's CPU time, page faults and context
-    switches per batch."""
+    switches per batch. ``answers`` receives each tier's last result per
+    (kernel, nprobe label), for phase 18 (d)."""
     import numpy as np
     import torch
 
@@ -1774,6 +1821,8 @@ def phase_streaming(dev, idx, q_np, truth, cal_nprobe) -> dict:
             if res["launches"][key] <= 0:
                 raise AssertionError(f"streaming {impl} never launched "
                                      f"{key.upper()}")
+            if answers is not None:
+                answers[(key, np_label)] = got
             res["trace"] = trace_search(
                 tier, q_np, vdb.SearchParams(nprobe=nprobe, k=k),
                 res["ms_per_batch_median"], stage_names=STREAM_STAGES,
@@ -2390,7 +2439,7 @@ def phase_pq_main_path(args, dev):
     if out["recall10_p32_rr"] < 0.90:
         raise AssertionError(f"IVF-PQ recall@10 with rerank at nprobe 32: "
                              f"{out['recall10_p32_rr']} < 0.90")
-    return out, idx, queries, q_np, min(cal["nprobe"], nlist), geom
+    return out, idx, queries, q_np, min(cal["nprobe"], nlist), geom, truth
 
 
 def check_index_pq_scan(idx, q_dev, nprobe, keep) -> dict:
@@ -3444,6 +3493,531 @@ def phase_tools(args, dev, q_np, shared) -> dict:
 
 # --------------------------------------------------------------------------- #
 
+# --------------------------------------------------------------------------- #
+# phase 18: the sharded paths (parallel/) on the card
+# --------------------------------------------------------------------------- #
+
+SHARDS = 4            # shards of phase 18's meshes, all on the one card
+SHARDED_REPS = 5      # timed batches per setting of phase 18 (a) and (c)
+SHARDED_STREAM_REPS = 1   # ... and of (d) (after one warm-up batch)
+SHARDED_STAGES = ("sharded.coarse_probe", "sharded.scan", "sharded.merge")
+# every hand-written kernel a shard launches belongs to its shard's scan
+SHARDED_KERNEL_STAGES = tuple(
+    (frag, "sharded.scan") for frag, _ in
+    K1_KERNEL_STAGES + K3_KERNEL_STAGES + K4_KERNEL_STAGES
+    + K2_KERNEL_STAGES)
+
+
+def card_mesh(dev, n: int):
+    """A mesh of ``n`` shards, all on the one card (each shard its own
+    tensors), the counterpart of the JAX package's virtual device mesh."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
+        make_mesh,
+    )
+
+    return make_mesh(devices=[dev] * n)
+
+
+def sharded_trace(view, q_np, params, batch_ms) -> dict:
+    """One traced sharded search: device ms of the coarse probe, of all
+    shards' scans (and so of one shard's launch, on one card one after
+    another) and of the merge."""
+    tr = trace_search(view, q_np, params, batch_ms,
+                      stage_names=SHARDED_STAGES,
+                      kernel_stages=SHARDED_KERNEL_STAGES)
+    scan = tr["stages"]["sharded.scan"]["device_ms"]
+    tr["device_ms_per_shard_scan"] = (
+        scan / view.n_shards if isinstance(scan, float) else scan)
+    tr["merge_device_ms"] = tr["stages"]["sharded.merge"]["device_ms"]
+    return tr
+
+
+def check_striped(name, case, n, k, metric, kernel, label, **kw) -> float:
+    """K1 (``kernel="grouped"``) or K2 (``"pq"``) on every stripe of a
+    slot-striped copy of ``case`` (``slot_stride`` n, each ``slot_offset``,
+    the logical ``global_capacity``) against its plain version on the same
+    stripe; the kernel's distances are also held against float64 through
+    the logical positions. Returns the largest kernel−plain difference;
+    raises on disagreement."""
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
+        grouped_pq_scan as gps,
+        grouped_scan as gs,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.testing import (
+        assert_topk_match,
+    )
+
+    q = case["q"]
+    atol = (ATOL_QSQ * (q * q).sum(1)).cpu().numpy()
+    worst, ties = 0.0, 0
+    for s in range(n):
+        if kernel == "grouped":
+            cap = case["arena"].shape[1]
+            local = [case["arena"][:, s::n].contiguous(),
+                     case["arena_sq"][:, s::n].contiguous()]
+            args = (q, *local, case["counts"], case["probe"], k, metric)
+            kw2 = dict(kw, arena_scale=(
+                None if case["arena_scale"] is None
+                else case["arena_scale"][:, s::n].contiguous()),
+                arena_anchors=case["arena_anchors"])
+            scan, plain = (gs.scan_probed_lists_grouped,
+                           gs.scan_probed_lists_grouped_reference)
+        else:
+            cap = case["codes_t"].shape[2]
+            args = (q, case["codes_t"][:, :, s::n].contiguous(),
+                    case["code_sq"][:, s::n].contiguous(), case["counts"],
+                    case["cen"], case["cb"], case["probe"], k, metric)
+            kw2 = dict(kw)
+            scan, plain = (gps.scan_probed_codes_grouped,
+                           gps.scan_probed_codes_grouped_reference)
+        stripe = dict(slot_stride=n, slot_offset=s, global_capacity=cap)
+        d_k, p_k = scan(*args, **kw2, **stripe)
+        torch.cuda.synchronize()
+        d_p, p_p = plain(*args, **kw2, **stripe)
+        cmp = assert_topk_match(d_k.cpu().numpy(), p_k.cpu().numpy(),
+                                d_p.cpu().numpy(), p_p.cpu().numpy(),
+                                rtol=RTOL, atol=atol)
+        # logical positions index the unstriped case's rows
+        if kernel == "grouped":
+            f64 = f64_distance_error(case, d_k, p_k, metric, "K1 striped")
+        else:
+            f64 = pq_f64_distance_error(case, d_k, p_k, metric,
+                                        "K2 striped")
+        worst = max(worst, cmp.max_abs_err)
+        ties += cmp.n_id_differences
+    log(label, json.dumps({"case": name, "kernel": kernel, "shards": n,
+                           "k": k, **{key: str(v) for key, v in kw.items()},
+                           "max_abs_err": worst,
+                           "id_differences_at_ties": ties,
+                           "last_f64_err": f64}))
+    return worst
+
+
+def phase_striped_kernels(seed: int, dev) -> dict:
+    """Phase 18 (b): K1 and K2 launched on slot stripes, as a sharded
+    index launches them (``slot_stride`` 4, every ``slot_offset``), held
+    against their plain versions at the main shapes: K1 on phase 2's int8
+    geometry (nlist 1024, cap 1408 → 352 a stripe, D 768, B 1024, nprobe
+    32, k 10), K2 on phase 2b's (nlist 4096, cap 384 → 96 a stripe, m 96,
+    B 512, nprobe 32) in top-k mode (k 10) and emit_full mode (keep 40)."""
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
+        Metric,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    main = make_scan_case(gen, dev, nlist=1024, cap=1408, dim=768,
+                          batch=1024, nprobe=32, dtype=torch.int8,
+                          metric=Metric.L2)
+    out = {"k1_main_int8_x4": check_striped(
+        "main_int8_residual_768_x4", main, SHARDS, 10, Metric.L2, "grouped",
+        "phase18b")}
+    del main
+    torch.cuda.empty_cache()
+    main = make_pq_case(gen, dev, nlist=4096, cap=384, msub=96, dsub=8,
+                        batch=512, nprobe=32, metric=Metric.L2,
+                        counts=(160, 330))
+    out["k2_main_topk_x4"] = check_striped(
+        "main_pq_topk_k10_x4", main, SHARDS, 10, Metric.L2, "pq",
+        "phase18b")
+    out["k2_main_emit_full_x4"] = check_striped(
+        "main_pq_emit_full_keep40_x4", main, SHARDS, 40, Metric.L2, "pq",
+        "phase18b", emit_full=True)
+    del main
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_flat(dev, idx, bidx, q_np, truth, cal_nprobe) -> dict:
+    """Phase 18 (a), run while phase 11's indexes are alive: a
+    ``ShardedIVFFlatIndex`` over the phase-4 int8 index on a 1-shard mesh
+    (its publish must not copy the arena: allocated bytes rise by less
+    than 5% of it) and on a 4-shard mesh on the card, at the calibrated
+    nprobe and 32 with ``"auto"`` (K1) and ``"pallas_sorted"`` (K3), and
+    k 100 (K3); then a 4-shard view over phase 11's bf16 index with
+    ``"pallas"`` (K4). Gates: each answer equals the single-device search
+    of the same base (ids up to ties, RTOL + ATOL_QSQ·‖q‖²), recall@10 ≥
+    0.95, each kernel launched once per shard and search, and the 1-shard
+    view's ``memory_stats`` not counting the arena it shares with its base
+    again. Prints QPS and ms a batch beside the unsharded
+    figures, and the traced device ms per shard launch and of the
+    merge."""
+    import numpy as np
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch import SearchParams
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
+        ShardedIVFFlatIndex,
+    )
+
+    counters = scan_counters()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    one = ShardedIVFFlatIndex(idx, card_mesh(dev, 1))
+    torch.cuda.synchronize()
+    arena_bytes = idx.arena.nbytes_device()
+    out = {"one_shard_publish_bytes": torch.cuda.memory_allocated() - mem0,
+           "arena_bytes": arena_bytes}
+    if out["one_shard_publish_bytes"] >= 0.05 * arena_bytes:
+        raise AssertionError(f"the 1-shard publish allocated "
+                             f"{out['one_shard_publish_bytes']} bytes")
+    # the accounting agrees: the aliased arena is counted once, as the base's
+    out["one_shard_striped_bytes"] = one.memory_stats()["striped_bytes"]
+    if out["one_shard_striped_bytes"] >= 0.05 * arena_bytes:
+        raise AssertionError(f"the 1-shard view counts "
+                             f"{out['one_shard_striped_bytes']} bytes again")
+    t0 = time.perf_counter()
+    four = ShardedIVFFlatIndex(idx, card_mesh(dev, SHARDS))
+    torch.cuda.synchronize()
+    out["four_shard_publish_s"] = time.perf_counter() - t0
+    settings = (("auto", "auto", cal_nprobe, 10, "k1"),
+                ("p32", "auto", 32, 10, "k1"),
+                ("sorted_auto", "pallas_sorted", cal_nprobe, 10, "k3"),
+                ("sorted_p32", "pallas_sorted", 32, 10, "k3"),
+                ("k100_p32", "auto", 32, 100, "k3"))
+    for label, impl, nprobe, k, key in settings:
+        idx.config.scan_impl = impl
+        res = {"unsharded": serve_setting(idx, q_np, truth, nprobe, k,
+                                          SHARDED_REPS, counters)}
+        ref = res["unsharded"][1]
+        res["unsharded"] = res["unsharded"][0]
+        for name, view in (("x1", one), ("x4", four)):
+            view.scan_impl = impl
+            got_res, got = serve_setting(view, q_np, truth, nprobe, k,
+                                         SHARDED_REPS, counters)
+            got_res.update(same_results(f"18a {label} {name}", got, ref,
+                                        q_np))
+            searches = SHARDED_REPS + 1
+            n = view.n_shards
+            launched = got_res["launches"][key]
+            if launched != n * searches:
+                raise AssertionError(f"18a {label} {name}: {key.upper()} "
+                                     f"launched {launched} times for "
+                                     f"{searches} searches on {n} shards")
+            if k == 10 and got_res["recall10"] < 0.95:
+                raise AssertionError(f"18a {label} {name}: recall@10 "
+                                     f"{got_res['recall10']} < 0.95")
+            res[name] = got_res
+        out[label] = res
+        log("phase18a", json.dumps({label: res}))
+    idx.config.scan_impl = "auto"
+    four.scan_impl = "auto"
+    out["trace_x4_p32"] = sharded_trace(
+        four, q_np, SearchParams(nprobe=32, k=10),
+        out["p32"]["x4"]["ms_per_batch_median"])
+    del one, four
+    torch.cuda.empty_cache()
+    # K4 over the bf16 index
+    bidx.config.scan_impl = "pallas"
+    ref_res, ref = serve_setting(bidx, q_np, truth, 32, 10, SHARDED_REPS,
+                                 counters)
+    view = ShardedIVFFlatIndex(bidx, card_mesh(dev, SHARDS),
+                               scan_impl="pallas")
+    got_res, got = serve_setting(view, q_np, truth, 32, 10, SHARDED_REPS,
+                                 counters)
+    got_res.update(same_results("18a bf16 pallas x4", got, ref, q_np))
+    if got_res["launches"]["k4"] != SHARDS * (SHARDED_REPS + 1):
+        raise AssertionError(f"18a bf16 pallas: K4 launched "
+                             f"{got_res['launches']['k4']} times")
+    if got_res["recall10"] < 0.95:
+        raise AssertionError(f"18a bf16 pallas: recall@10 "
+                             f"{got_res['recall10']} < 0.95")
+    out["bf16_pallas_p32"] = {"unsharded": ref_res, "x4": got_res}
+    bidx.config.scan_impl = "auto"
+    del view
+    torch.cuda.empty_cache()
+    log("phase18a_trace", json.dumps(out["trace_x4_p32"]))
+    return out
+
+
+def phase_sharded_pq(dev, idx, q_np, truth, cal_nprobe, pq_path) -> dict:
+    """Phase 18 (c), right after phase 9 on the pq-1M index: a 4-shard
+    ``ShardedIVFPQIndex`` (K2 on each stripe, the per-shard exact rerank
+    over the striped raw rows). Gates: ADC-only answers equal the
+    single-device search up to ties (calibrated nprobe and 32); reranked
+    recall@10 at nprobe 32 at least the single-device figure less 0.001
+    (the merged pool is a superset; 0.001 allows one tie at the k-th place
+    in 1,000 queries); K2 launched at least once per shard and search."""
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch import SearchParams
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
+        ShardedIVFPQIndex,
+    )
+
+    counters = {"k2": all_counters()["k2"]}
+    t0 = time.perf_counter()
+    view = ShardedIVFPQIndex(idx, card_mesh(dev, SHARDS))
+    torch.cuda.synchronize()
+    out = {"publish_s": time.perf_counter() - t0,
+           "single_device_recall10_p32_rr_phase7": pq_path["recall10_p32_rr"]}
+    for label, nprobe, rr in (("auto", cal_nprobe, False),
+                              ("p32", 32, False), ("p32_rr", 32, True)):
+        ref_res, ref = serve_setting(idx, q_np, truth, nprobe, 10,
+                                     SHARDED_REPS, counters, rerank=rr)
+        got_res, got = serve_setting(view, q_np, truth, nprobe, 10,
+                                     SHARDED_REPS, counters, rerank=rr)
+        if rr:
+            if got_res["recall10"] < ref_res["recall10"] - 0.001:
+                raise AssertionError(
+                    f"18c {label}: sharded recall@10 {got_res['recall10']} "
+                    f"< single-device {ref_res['recall10']} - 0.001")
+        else:
+            got_res.update(same_results(f"18c {label}", got, ref, q_np))
+        if got_res["launches"]["k2"] < SHARDS * (SHARDED_REPS + 1):
+            raise AssertionError(f"18c {label}: K2 launched "
+                                 f"{got_res['launches']['k2']} times")
+        out[label] = {"unsharded": ref_res, "x4": got_res}
+    out["trace_x4_p32_rr"] = sharded_trace(
+        view, q_np, SearchParams(nprobe=32, k=10, use_exact_rerank=True),
+        out["p32_rr"]["x4"]["ms_per_batch_median"])
+    del view
+    torch.cuda.empty_cache()
+    log("phase18c", json.dumps(out))
+    return out
+
+
+def phase_sharded_streaming(dev, idx, q_np, truth, cal_nprobe,
+                            stream_answers) -> dict:
+    """Phase 18 (d), right after phase 12 on the phase-4 index:
+    ``ShardedStreamingIVFFlatIndex.from_base`` with ``CACHE_SLOTS`` cache
+    slots in all, striped over 4 shards on the card, through K1 at the
+    calibrated nprobe and 32. Gate: its answers equal phase 12's
+    single-device streaming answers for the same queries. Prints hit rate,
+    H2D GB and waves per batch."""
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
+        ShardedStreamingIVFFlatIndex,
+    )
+
+    counters = scan_counters()
+    t0 = time.perf_counter()
+    tier = ShardedStreamingIVFFlatIndex.from_base(
+        idx, card_mesh(dev, SHARDS), cache_slots=CACHE_SLOTS)
+    out = {"build_s": time.perf_counter() - t0,
+           "cache_gb": tier.cache.memory_bytes() / 1e9,
+           "cache_slots": CACHE_SLOTS, "shards": SHARDS}
+    for np_label, nprobe in (("auto", cal_nprobe), ("p32", 32)):
+        st0 = tier.stats()
+        res, got = serve_setting(tier, q_np, truth, nprobe, 10,
+                                 SHARDED_STREAM_REPS, counters)
+        st1 = tier.stats()
+        batches = SHARDED_STREAM_REPS + 1
+        looked = (st1["hits"] - st0["hits"]) + (st1["misses"]
+                                                - st0["misses"])
+        res.update(
+            hit_rate=(st1["hits"] - st0["hits"]) / max(looked, 1),
+            waves_per_batch=(st1["waves"] - st0["waves"]) / batches,
+            h2d_gb_per_batch=(st1["h2d_bytes"] - st0["h2d_bytes"]) / 1e9
+            / batches,
+            **same_results(f"18d sharded streaming at nprobe {nprobe}", got,
+                           stream_answers[("k1", np_label)], q_np))
+        if res["launches"]["k1"] < SHARDS:
+            raise AssertionError("18d never launched K1 on every shard")
+        out[np_label] = res
+    del tier
+    torch.cuda.empty_cache()
+    log("phase18d", json.dumps(out))
+    return out
+
+
+def phase_mesh_build(args, dev, q_np, truth, centers) -> dict:
+    """Phase 18 (e): ``ShardedIVFFlatIndex.build_on_mesh`` of the phase-4
+    corpus (1M × 768, int8, nlist 1024) on 4 shards on the card, trained
+    by ``sharded_kmeans_fit`` on the build's own sample (every 7th row,
+    131,072 rows), then packed onto the stripes. Gates: recall@10 ≥ 0.95
+    at nprobe 32; the sharded trainer's inertia on the sample within 2% of
+    the port's ``kmeans_fit`` on the same sample (same iterations).
+    Prints train s and pack s."""
+    import numpy as np
+    import torch
+
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.kmeans import (
+        kmeans_fit,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
+        ShardedIVFFlatIndex,
+        sharded_kmeans_fit,
+    )
+
+    n, chunk = args.n, -(-args.n // args.chunks)
+    x = torch.cat([corpus_chunk(centers, s, min(chunk, n - s), args.seed)
+                   for s in range(0, n, chunk)])
+    cfg = vdb.IVFFlatConfig(dimension=args.dim, nlist=args.nlist,
+                            dtype="int8")
+    mesh = card_mesh(dev, SHARDS)
+    cap_train = cfg.train_sample_per_list * cfg.nlist
+    sample = x[::max(n // cap_train, 1)][:cap_train].float()
+
+    def inertia(c):
+        d = torch.cdist(sample, c).pow(2).min(1).values
+        return float(d.double().mean())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cents = sharded_kmeans_fit(
+        mesh, torch.Generator(device=dev).manual_seed(args.seed + 18),
+        sample, cfg.nlist, iters=cfg.train_iters)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref, _ = kmeans_fit(sample, cfg.nlist, iters=cfg.train_iters,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            args.seed + 18))
+    torch.cuda.synchronize()
+    single_train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    view = ShardedIVFFlatIndex.build_on_mesh(mesh, cfg, x, centroids=cents)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    del x
+    torch.cuda.empty_cache()
+    out = {"n": n, "train_rows": int(sample.shape[0]), "train_s": train_s,
+           "single_device_train_s": single_train_s, "pack_s": pack_s,
+           "inertia_sharded": inertia(cents), "inertia_single": inertia(ref),
+           "global_cap": view.global_cap,
+           "stripe_gb": sum(t.numel() for t in view.arena_s) / 1e9}
+    out["inertia_ratio"] = out["inertia_sharded"] / out["inertia_single"]
+    res, _ = serve_setting(view, q_np, truth, 32, 10, SHARDED_REPS,
+                           scan_counters())
+    out["p32"] = res
+    log("phase18e", json.dumps(out))
+    if out["inertia_ratio"] > 1.02:
+        raise AssertionError(f"sharded k-means inertia {out['inertia_ratio']}"
+                             f" × the single-device trainer's")
+    if res["recall10"] < 0.95:
+        raise AssertionError(f"mesh build: recall@10 {res['recall10']} < "
+                             f"0.95 at nprobe 32")
+    if res["launches"]["k1"] < SHARDS:
+        raise AssertionError("mesh build: K1 never launched on every shard")
+    del view, sample
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_serving(args, dev, q_np, shared) -> dict:
+    """Phase 18 (f), after phase 17: phase 16's engine closed, and a
+    ``VdbEngine`` with an explicit 4-shard mesh on the card opened on its
+    data path, recovering ``flat`` (built from phase 16's source file) as
+    a ``ShardedIVFFlatIndex`` and ``pqcap`` on one device (its rerank is
+    the host's). 32 closed-loop clients send 1024 single queries to
+    ``flat`` and 256 reranked ones to ``pqcap``. Gates: no request fails;
+    every answer equals the library search of the live index (the sharded
+    view for ``flat``); then 10K of the ids just served removed: none
+    returned. Last, ``shard_serving: on`` read from YAML builds a 1-shard
+    mesh."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch import SearchParams
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
+        ShardedIVFFlatIndex,
+        ShardedIVFPQIndex,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.server.config import (
+        ServerConfig,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.server.service import (
+        VdbEngine,
+    )
+
+    old = shared.pop("engine", None)
+    if old is not None:
+        old.close()
+        del old
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = ServerConfig.from_yaml(
+        str(REPO / "configs" / "production.yaml")).apply_overrides(
+        data_path=os.path.join(shared["root"], "data"),
+        rate_limit_rps=1e9, rate_limit_burst=1_000_000,
+        pq_rerank_k=PQCAP_RERANK_K)
+    t0 = time.perf_counter()
+    engine = VdbEngine(config, device=dev, mesh=card_mesh(dev, SHARDS))
+    out = {"recover_s": time.perf_counter() - t0}
+    try:
+        flat = engine.get_state("flat").index
+        pq = engine.get_state("pqcap").index
+        if not (isinstance(flat, ShardedIVFFlatIndex)
+                and flat.n_shards == SHARDS):
+            raise AssertionError(f"flat is served by {type(flat).__name__}")
+        if isinstance(pq, ShardedIVFPQIndex) or not pq.read_only:
+            raise AssertionError("pqcap did not stay on one device")
+        p_flat = SearchParams(nprobe=config.default_nprobe, k=10)
+        p_pq = SearchParams(nprobe=config.default_nprobe, k=10,
+                            use_exact_rerank=True)
+        counters = all_counters()
+        for name, params, nq in (("flat", p_flat, 1024),
+                                 ("pqcap", p_pq, 256)):
+            before = {key: m.LAUNCHES for key, m in counters.items()}
+            qs = q_np[np.arange(nq) % len(q_np)]
+            answers, lat, failures, wall, co = serve_closed_loop(
+                engine, name, [(qs[i][None], params) for i in range(nq)])
+            if failures:
+                raise AssertionError(f"18f {name}: {len(failures)} requests "
+                                     f"failed: {failures[:3]}")
+            got = stack_answers(answers)
+            index = flat if name == "flat" else pq
+            res = {"qps": nq / wall, "p50_ms": float(np.percentile(lat, 50)),
+                   "p99_ms": float(np.percentile(lat, 99)),
+                   "queries_per_batch": co["items"] / max(co["batches"], 1),
+                   "launches": {key: m.LAUNCHES - before[key]
+                                for key, m in counters.items()},
+                   **same_results(f"18f {name}", got,
+                                  index.search(qs, params), qs)}
+            out[name] = res
+            if name == "flat":
+                served = got[1]
+        if out["flat"]["launches"]["k1"] < SHARDS:
+            raise AssertionError("18f: K1 never launched on every shard")
+        if out["pqcap"]["launches"]["k2"] <= 0:
+            raise AssertionError("18f: pqcap never launched K2")
+        removed = np.unique(served[:, :10].astype(np.uint64))[:10_000]
+        t0 = time.perf_counter()
+        got_n, total = engine.remove_vectors("flat", removed)
+        out["remove"] = {"ids": int(removed.size), "removed": got_n,
+                         "ntotal": total,
+                         "s": time.perf_counter() - t0}
+        qs = q_np[np.arange(1024) % len(q_np)]
+        answers, _, failures, _, _ = serve_closed_loop(
+            engine, "flat", [(q[None], p_flat) for q in qs])
+        after = stack_answers(answers)
+        out["remove"]["removed_ids_returned"] = int(
+            np.isin(after[1], removed).sum())
+        if failures or got_n != removed.size or \
+                out["remove"]["removed_ids_returned"]:
+            raise AssertionError(f"18f removal: {out['remove']}, "
+                                 f"{len(failures)} failures")
+    finally:
+        engine.close()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "on.yaml")
+        with open(path, "w") as f:
+            f.write('server:\n  shard_serving: "on"\n')
+        cfg = ServerConfig.from_yaml(path).apply_overrides(
+            data_path=os.path.join(tmp, "data"))
+        eng = VdbEngine(cfg, device=dev)
+        try:
+            out["yaml_on_mesh_shards"] = eng.mesh.devices.size
+        finally:
+            eng.close()
+    if out["yaml_on_mesh_shards"] != 1:
+        raise AssertionError("shard_serving: on did not build a 1-card mesh")
+    log("phase18f", json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -3533,14 +4107,16 @@ def main(argv=None) -> int:
     mark("2b_k2")
     k34 = phase_full_row_kernels_vs_plain(args.seed, dev)  # phase 2c
     mark("2c_k3_k4")
+    striped = phase_striped_kernels(args.seed, dev)        # phase 18 (b)
+    mark("18b_striped_kernels")
     phase_quickstart(dev)                          # phase 3
     mark("3_quickstart")
     # The IVF-PQ phases run before the IVF-Flat ones, so that the streaming
     # tier (phase 12, heavy host copies) runs last and no later phase is
     # timed after it.
     grouped_pq_scan.LAUNCHES = 0                   # phase 7: the IVF-PQ path
-    pq_path, pq_idx, pq_q, pq_q_np, pq_cal, pq_geom = phase_pq_main_path(
-        args, dev)
+    (pq_path, pq_idx, pq_q, pq_q_np, pq_cal, pq_geom,
+     pq_truth) = phase_pq_main_path(args, dev)
     pq_launches = grouped_pq_scan.LAUNCHES
     log("phase7_k2_launches", pq_launches)
     if pq_launches <= 0:
@@ -3567,6 +4143,8 @@ def main(argv=None) -> int:
         lifecycle[name] = {**res, "launches": launches}
         mark(name)
 
+    drive("18c_sharded_pq", phase_sharded_pq, dev, pq_idx, pq_q_np,
+          pq_truth, pq_cal, pq_path, need=("k2",))
     drive("15a_pq_removal", phase_pq_removal, args, dev, pq_idx, pq_q,
           pq_q_np, pq_geom, pq_cal, need=("k2",))
     del pq_idx, pq_q
@@ -3603,18 +4181,25 @@ def main(argv=None) -> int:
             raise AssertionError(f"phase 11 never launched {key.upper()}")
     full_row_checks = phase_full_row_index_checks(  # phase 11b
         idx, bidx, queries, cal_nprobe)
+    mark("11b_full_row_checks")
+    drive("18a_sharded_flat", phase_sharded_flat, dev, idx, bidx, q_np,
+          truth, cal_nprobe, need=("k1", "k3", "k4"))
     del bidx
     torch.cuda.empty_cache()
-    mark("11b_full_row_checks")
     for mod in counters.values():                  # phase 12: streaming
         mod.LAUNCHES = 0
-    streaming = phase_streaming(dev, idx, q_np, truth, cal_nprobe)
+    stream_answers = {}
+    streaming = phase_streaming(dev, idx, q_np, truth, cal_nprobe,
+                                stream_answers)
     launches12 = {n: m.LAUNCHES for n, m in counters.items()}
     log("phase12_launches", json.dumps(launches12))
     mark("12_streaming")
     for key in ("k1", "k3"):
         if launches12[key] <= 0:
             raise AssertionError(f"phase 12 never launched {key.upper()}")
+    drive("18d_sharded_streaming", phase_sharded_streaming, dev, idx, q_np,
+          truth, cal_nprobe, stream_answers, need=("k1",))
+    del stream_answers
     drive("13_flat_lifecycle", phase_flat_lifecycle, args, dev, idx,
           queries, q_np, cal_nprobe, centers, need=("k1", "k3"))
     del idx
@@ -3622,15 +4207,24 @@ def main(argv=None) -> int:
     drive("14_rerank_builder", phase_rerank_builder, args, dev, queries,
           q_np, truth, centers, need=("k1",))
     torch.cuda.empty_cache()
+    drive("18e_mesh_build", phase_mesh_build, args, dev, q_np, truth,
+          centers, need=("k1",))
     shared = {}        # phase 16's source file and engine, for phase 17
     try:
         drive("16_serving", phase_serving, args, dev, q_np, truth, centers,
               shared, need=("k1", "k2", "k3"))
         drive("17_tools", phase_tools, args, dev, q_np, shared,
               need=("k1", "k2", "k3"))
+        drive("18f_sharded_serving", phase_sharded_serving, args, dev, q_np,
+              shared, need=("k1", "k2"))
     finally:
         release_serving(shared)
     tools_launches = lifecycle["17_tools"]["launches"]
+    # phase 18's sharded paths, each driven with every counter at 0
+    p18 = {key: sum(v["launches"][key] for name, v in lifecycle.items()
+                    if name.startswith("18"))
+           for key in every_counter}
+    log("phase18_launches", json.dumps(p18))
     log("phase_seconds", json.dumps(phase_s))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -3644,9 +4238,12 @@ def main(argv=None) -> int:
 
     report = {"kernels": [{
         "name": "grouped_scan", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches + tools_launches["k1"],
+        "replaces": K1_REPLACES,
+        "launches": launches + tools_launches["k1"] + p18["k1"],
         "max_abs_err": max([k1["max_abs_err"],
                             k1["bf16_raw"]["max_abs_err"],
+                            k1["striped_small_max_abs_err"],
+                            striped["k1_main_int8_x4"],
                             checks["index_scan_auto"]["max_abs_err"],
                             checks["index_scan_p32"]["max_abs_err"]]
                            + [c["max_abs_err"]
@@ -3655,15 +4252,17 @@ def main(argv=None) -> int:
     }, {
         "name": "grouped_pq_scan", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES,
-        "launches": pq_launches + tools_launches["k2"],
+        "launches": pq_launches + tools_launches["k2"] + p18["k2"],
         "max_abs_err": max([r["max_abs_err"] for r in k2.values()]
+                           + [striped["k2_main_topk_x4"],
+                              striped["k2_main_emit_full_x4"]]
                            + [c["max_abs_err"] for key, c in pq_checks.items()
                               if key.startswith("index_pq_scan")]),
         **timing(k2["topk_k10"]),
     }, {
         "name": "sorted_scan", "route": "cuda", "source": K34_SOURCE,
         "replaces": K3_REPLACES,
-        "launches": launches11["k3"] + tools_launches["k3"],
+        "launches": launches11["k3"] + tools_launches["k3"] + p18["k3"],
         "max_abs_err": max([k34["small_max_abs_err"]["sorted"],
                             k34["k3"]["max_abs_err"],
                             k34["k3_bf16"]["max_abs_err"]]
@@ -3672,7 +4271,8 @@ def main(argv=None) -> int:
         **timing(k34["k3"]),
     }, {
         "name": "pair_scan", "route": "cuda", "source": K34_SOURCE,
-        "replaces": K4_REPLACES, "launches": launches11["k4"],
+        "replaces": K4_REPLACES,
+        "launches": launches11["k4"] + tools_launches["k4"] + p18["k4"],
         "max_abs_err": max([k34["small_max_abs_err"]["pairs"],
                             k34["k4"]["max_abs_err"]]
                            + [c["max_abs_err"]
@@ -3691,6 +4291,7 @@ def main(argv=None) -> int:
             "launches_phase12": launches12,
             "pq_main_path": pq_path, "pq_index_checks": pq_checks,
             "opq": opq, "lifecycle": lifecycle,
+            "striped_kernels": striped, "launches_phase18": p18,
             "f64_worst_share_of_tol": F64_WORST,
             "phase_seconds": phase_s, **report},
             indent=1))

@@ -68,22 +68,18 @@ class HbmListCache:
         self.dim = dim
         self.dtype = torch_dtype(dtype)
         self.policy = policy
-        dev = self.device
         f32 = torch.float32
-        self.cache_arena = torch.zeros((n_slots + 1, capacity, dim),
-                                       dtype=self.dtype, device=dev)
-        self.cache_sq = torch.zeros((n_slots + 1, capacity), dtype=f32,
-                                    device=dev)
-        self.cache_counts = torch.zeros((n_slots + 1,), dtype=torch.int32,
-                                        device=dev)
+        rows = n_slots + 1
+        zeros = self._device_zeros
+        self.cache_arena = zeros((rows, capacity, dim), self.dtype, 1)
+        self.cache_sq = zeros((rows, capacity), f32, 1)
+        self.cache_counts = zeros((rows,), torch.int32)
         self.quantized = self.dtype == torch.int8
         self.cache_scale = (
-            torch.zeros((n_slots + 1, capacity), dtype=f32, device=dev)
-            if self.quantized else None
+            zeros((rows, capacity), f32, 1) if self.quantized else None
         )
         self.cache_anchors = (
-            torch.zeros((n_slots + 1, dim), dtype=f32, device=dev)
-            if self.quantized else None
+            zeros((rows, dim), f32) if self.quantized else None
         )
         self._lock = threading.Lock()
         self._upload_lock = threading.Lock()   # the staging buffers
@@ -99,6 +95,11 @@ class HbmListCache:
         self._turn = 0
 
     # ------------------------------------------------------------------ #
+
+    def _device_zeros(self, shape, dtype, cap_axis=None) -> torch.Tensor:
+        """A zero device plane; ``cap_axis`` names its slot-capacity axis
+        (a sharded cache stripes that axis over its mesh)."""
+        return torch.zeros(shape, dtype=dtype, device=self.device)
 
     def get_hit_rate(self) -> float:
         total = self.hits + self.misses
@@ -198,7 +199,7 @@ class HbmListCache:
         return mapping
 
     def _batch_lists(self) -> int:
-        per_list = self.capacity * self.dim * self.cache_arena.element_size()
+        per_list = self.capacity * self.dim * self.dtype.itemsize
         return max(1, min(self.n_slots,
                           self.UPLOAD_BATCH_BYTES // max(per_list, 1)))
 
@@ -214,7 +215,7 @@ class HbmListCache:
                                         pin_memory=pin),
                     "counts": torch.zeros((n,), dtype=torch.int32,
                                           pin_memory=pin),
-                    "event": None,
+                    "events": [],
                 }
                 if self.quantized:
                     for name, shape in (("sq", (n, cap)),
@@ -225,8 +226,8 @@ class HbmListCache:
                 self._staging.append(buf)
         buf = self._staging[self._turn]
         self._turn = 1 - self._turn
-        if buf["event"] is not None:
-            buf["event"].synchronize()
+        for event in buf["events"]:
+            event.synchronize()
         return buf
 
     def _upload(self, lists, slots, host_fetch) -> None:
@@ -252,28 +253,47 @@ class HbmListCache:
                 buf["scale"][i, c:] = 0.0
                 buf["anchors"][i] = torch.from_numpy(
                     np.asarray(an, np.float32))
+        planes = {"rows": rows, "counts": counts}
+        if self.quantized:
+            planes.update((name, buf[name][:n])
+                          for name in ("sq", "scale", "anchors"))
+        buf["events"] = self._write_slots(slots, planes, buf)
+        self.h2d_bytes += sum(t.numel() * t.element_size()
+                              for t in planes.values())
+
+    @staticmethod
+    def _copied(dev) -> list:
+        """An event recorded on ``dev``'s current stream after the copies
+        issued there (none off CUDA, where copies are synchronous)."""
+        if dev.type != "cuda":
+            return []
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        return [event]
+
+    def _write_slots(self, slots, planes: dict, buf: dict) -> list:
+        """Copy one staged batch (host ``planes`` of the staging buffer
+        ``buf``: ``rows``, ``counts`` and, int8, ``sq`` / ``scale`` /
+        ``anchors``) into the cache ``slots`` in place, issued on the
+        current stream; returns the events the buffer's next user waits
+        on."""
         dev = self.device
         slot_d = torch.tensor(slots, dtype=torch.long).to(dev)
-        rows_d = rows.to(dev, non_blocking=True)
+        rows_d = planes["rows"].to(dev, non_blocking=True)
         self.cache_arena.index_copy_(0, slot_d, rows_d)
-        self.cache_counts.index_copy_(0, slot_d,
-                                      counts.to(dev, non_blocking=True))
-        moved = rows.numel() * rows.element_size() + n * 4
+        self.cache_counts.index_copy_(
+            0, slot_d, planes["counts"].to(dev, non_blocking=True))
         if self.quantized:
             for name, dst in (("sq", self.cache_sq),
                               ("scale", self.cache_scale),
                               ("anchors", self.cache_anchors)):
-                part = buf[name][:n]
-                dst.index_copy_(0, slot_d, part.to(dev, non_blocking=True))
-                moved += part.numel() * 4
+                dst.index_copy_(0, slot_d,
+                                planes[name].to(dev, non_blocking=True))
         else:
             # norms of the STORED (cast) representation
             rf = rows_d.float()
             self.cache_sq.index_copy_(0, slot_d, (rf * rf).sum(-1))
-        self.h2d_bytes += moved
-        if dev.type == "cuda":
-            buf["event"] = torch.cuda.Event()
-            buf["event"].record(torch.cuda.current_stream(dev))
+        return self._copied(dev)
 
     def memory_bytes(self) -> int:
         """Device bytes of the cache tensors."""

@@ -325,8 +325,8 @@ class StreamingIVFFlatIndex:
             budget = max_device_bytes or (per_slot * max(nlist // 4, 1))
             cache_slots = max(int(budget // max(per_slot, 1)), 1)
         cache_slots = min(cache_slots, nlist)
-        self.cache = HbmListCache(cache_slots, cap, config.dimension, dtype,
-                                  policy, device=self.device)
+        self.cache = self._make_cache(cache_slots, cap, config.dimension,
+                                      dtype, policy)
         # the scan for a shallow search; a deeper one is routed per call
         self.scan_impl = resolve_scan(
             scan_impl, on_cuda=self.device.type == "cuda",
@@ -347,6 +347,10 @@ class StreamingIVFFlatIndex:
             _stage_lists, self.cache, self.store, self._cache_gate))
         self.batches = 0
         self.waves = 0
+
+    def _make_cache(self, cache_slots, cap, dim, dtype, policy):
+        return HbmListCache(cache_slots, cap, dim, dtype, policy,
+                            device=self.device)
 
     # ------------------------------------------------------------------ #
     # serving surface

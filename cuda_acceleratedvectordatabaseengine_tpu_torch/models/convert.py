@@ -4,9 +4,10 @@
 index's device state as numpy arrays (``np.asarray`` of each
 ``jax.Array``) and build this package's ``IVFFlatIndex`` / ``IVFPQIndex``
 with identical centroids, codes, codebooks, rotation, scales, norms,
-anchors, counts and ids, so both packages can search the *same* index. No
-JAX import is needed: bfloat16 arrays arrive as ``ml_dtypes`` numpy arrays
-and are reinterpreted bit for bit.
+anchors, counts and ids, so both packages can search the *same* index;
+:func:`sharded_ivf_flat_from_arrays` does the same for a JAX sharded
+IVF-Flat view's stripes. No JAX import is needed: bfloat16 arrays arrive
+as ``ml_dtypes`` numpy arrays and are reinterpreted bit for bit.
 """
 
 from __future__ import annotations
@@ -160,3 +161,63 @@ def ivf_pq_from_arrays(
         idx._ids = ids
     idx.trained = True
     return idx
+
+
+def sharded_ivf_flat_from_arrays(
+    config: IVFFlatConfig,
+    mesh,
+    *,
+    arena_s: np.ndarray,
+    arena_sq_s: np.ndarray,
+    arena_scale: np.ndarray | None,
+    anchors: np.ndarray | None,
+    centroids: np.ndarray,
+    counts: np.ndarray,
+    ids: np.ndarray,
+    global_cap: int,
+    scan_impl: str = "auto",
+):
+    """A ``parallel.ShardedIVFFlatIndex`` on ``mesh`` holding exactly the
+    state of a JAX sharded view (``np.asarray`` of its arrays): the
+    striped arena ``arena_s [nlist, global_cap, D]`` in physical order
+    (stripe ``s`` is the slot range ``[s·cap_l, (s+1)·cap_l)``, local slot
+    ``j`` = logical ``j·N + s``), its norms, its per-row scales
+    (``arena_scale``, None when the view has none), its residual
+    ``anchors`` (None likewise), the centroids, the counts and the
+    ``[nlist, global_cap]`` id table. A view built by ``build_on_mesh``
+    has no base; this is how its stripes cross over. The view is
+    read-only, as a mesh-built one is."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel.sharded \
+        import ShardedIVFFlatIndex
+
+    n = mesh.size
+    nlist, cap, dim = np.shape(arena_s)
+    if cap != global_cap or cap % n:
+        raise ValueError(
+            f"striped arena capacity {cap} does not match global_cap "
+            f"{global_cap} over {n} shards")
+    cap_l = cap // n
+
+    def stripes(a):
+        return [_tensor(np.asarray(a)[:, s * cap_l:(s + 1) * cap_l], dev)
+                for s, dev in enumerate(mesh.devices)]
+
+    arena_parts = stripes(arena_s)
+    if arena_parts[0].dtype != torch_dtype(config.dtype):
+        raise ValueError(
+            f"arena dtype {arena_parts[0].dtype} does not match config "
+            f"dtype {config.dtype}")
+    counts = np.asarray(counts, np.int64)
+    return ShardedIVFFlatIndex._from_stripes(
+        mesh, config, scan_impl,
+        arena_parts,
+        stripes(np.asarray(arena_sq_s, np.float32)),
+        (stripes(np.asarray(arena_scale, np.float32))
+         if arena_scale is not None else None),
+        ([_tensor(np.asarray(anchors, np.float32), dev)
+          for dev in mesh.devices] if anchors is not None else None),
+        torch.from_numpy(counts.astype(np.int32)),
+        _tensor(np.asarray(centroids, np.float32), mesh.leader),
+        np.asarray(ids, np.uint64).copy(), int(global_cap),
+        int(counts.max()) if counts.size else 0,
+    )

@@ -170,6 +170,52 @@ def _gather_adc(q, centroids, codebooks, code_arena_t, counts, probe_ids,
     return best_d, best_p
 
 
+def grouped_adc(q, code_arena_t, code_sq, counts, centroids, codebooks,
+                probe_ids, keep, metric, k_inner=0, scan_capacity=None,
+                slot_stride=1, slot_offset=0, global_capacity=None):
+    """The top-``keep`` ADC candidates of the probed lists through the
+    grouped kernel K2 (``ops/grouped_pq_scan.py``): ``(dists [B, keep],
+    pos [B, keep])``. Deep shortlists (a rerank feed) skip the in-kernel
+    top-k, whose cost grows with its depth: full distance rows + one
+    top-keep, unless the caller chose per-list ``k_inner`` truncation.
+    The row transient is bounded by chunking the probe axis (chunks cover
+    disjoint lists, so the merge is exact). ``q`` is in the codes' frame
+    (rotated under OPQ, unit for cosine); the striping arguments describe
+    one shard of a slot-striped code arena (``parallel/sharded.py``)."""
+    b = q.shape[0]
+    nprobe = probe_ids.shape[1]
+    cap = code_arena_t.shape[2]
+    emit_full = keep > 32 and not k_inner
+    step_p = nprobe
+    if emit_full:
+        cap_b = cap
+        if scan_capacity is not None:
+            cap_b = min(cap_b, -(-scan_capacity // 128) * 128)
+        n_chunks = 1
+        while b * step_p * cap_b * 4 > _FULL_ROWS_BYTES and step_p > 1:
+            n_chunks += 1
+            step_p = -(-nprobe // n_chunks)
+    kernel_metric = (Metric.INNER_PRODUCT
+                     if metric == Metric.INNER_PRODUCT else Metric.L2)
+    parts = [
+        scan_probed_codes_grouped(
+            q, code_arena_t, code_sq, counts, centroids, codebooks,
+            probe_ids[:, s:s + step_p].contiguous(), keep, kernel_metric,
+            k_inner=(k_inner or None), emit_full=emit_full,
+            scan_capacity=scan_capacity, slot_stride=slot_stride,
+            slot_offset=slot_offset, global_capacity=global_capacity,
+        )
+        for s in range(0, nprobe, step_p)
+    ]
+    if len(parts) == 1:
+        return parts[0]
+    with record_function("grouped_pq_scan.epilogue"):
+        return topk_smallest(
+            torch.cat([p[0] for p in parts], 1), keep,
+            idx=torch.cat([p[1] for p in parts], 1),
+        )
+
+
 def _ivf_pq_search_device(
     queries, centroids, codebooks, code_arena_t, code_sq, counts, raw_arena,
     raw_sq, raw_scale, raw_anchors, nprobe, k, metric, rerank_k,
@@ -198,40 +244,10 @@ def _ivf_pq_search_device(
 
     keep = max(k, rerank_k)
     if scan_impl == "grouped":
-        # Deep shortlists (a rerank feed) skip the in-kernel top-k, whose
-        # cost grows with its depth: full distance rows + one top-keep,
-        # unless the caller chose per-list k_inner truncation. The row
-        # transient is bounded by chunking the probe axis (chunks cover
-        # disjoint lists, so the merge is exact).
-        emit_full = keep > 32 and not k_inner
-        step_p = nprobe
-        if emit_full:
-            cap_b = cap
-            if scan_capacity is not None:
-                cap_b = min(cap_b, -(-scan_capacity // 128) * 128)
-            n_chunks = 1
-            while b * step_p * cap_b * 4 > _FULL_ROWS_BYTES and step_p > 1:
-                n_chunks += 1
-                step_p = -(-nprobe // n_chunks)
-        kernel_metric = (Metric.INNER_PRODUCT
-                         if metric == Metric.INNER_PRODUCT else Metric.L2)
-        parts = [
-            scan_probed_codes_grouped(
-                q, code_arena_t, code_sq, counts, centroids, codebooks,
-                probe_ids[:, s:s + step_p].contiguous(), keep, kernel_metric,
-                k_inner=(k_inner or None), emit_full=emit_full,
-                scan_capacity=scan_capacity,
-            )
-            for s in range(0, nprobe, step_p)
-        ]
-        if len(parts) == 1:
-            best_d, best_p = parts[0]
-        else:
-            with record_function("grouped_pq_scan.epilogue"):
-                best_d, best_p = topk_smallest(
-                    torch.cat([p[0] for p in parts], 1), keep,
-                    idx=torch.cat([p[1] for p in parts], 1),
-                )
+        best_d, best_p = grouped_adc(
+            q, code_arena_t, code_sq, counts, centroids, codebooks,
+            probe_ids, keep, metric, k_inner=k_inner,
+            scan_capacity=scan_capacity)
     else:
         with record_function("ivf_pq.gather_adc"):
             best_d, best_p = _gather_adc(q, centroids, codebooks,

@@ -76,22 +76,31 @@ def resolve_scan(name: str, *, on_cuda: bool, k: int = 1,
 
 def scan_flat(name, q, arena, arena_sq, counts, probe, k, metric, *,
               arena_scale=None, arena_anchors=None, m_budget=None,
-              scan_capacity=None):
+              scan_capacity=None, slot_stride=1, slot_offset=0,
+              global_capacity=None):
     """Scan the probed lists with the scan ``name`` selects (see
     :func:`resolve_scan`); returns ``(dists [B, ≥k], pos [B, ≥k])`` as the
-    selected scan does."""
+    selected scan does. The striping arguments describe one shard of a
+    slot-striped arena (``parallel/sharded.py``) as in
+    ``ops/scan.scan_probed_lists``; ``scan_capacity`` bounds the shard's
+    local slot prefix."""
     impl = resolve_scan(name, on_cuda=arena.is_cuda, k=k,
                         scaled=arena_scale is not None)
     args = (q, arena, arena_sq, counts, probe, k, metric)
+    stripe = dict(slot_stride=slot_stride, slot_offset=slot_offset,
+                  global_capacity=global_capacity)
     if impl == "grouped":
         return scan_probed_lists_grouped(
             *args, m_budget=m_budget, arena_scale=arena_scale,
-            arena_anchors=arena_anchors, scan_capacity=scan_capacity)
+            arena_anchors=arena_anchors, scan_capacity=scan_capacity,
+            **stripe)
     if impl == "sorted":
         return scan_probed_lists_sorted(
             *args, m_budget=m_budget, arena_scale=arena_scale,
-            arena_anchors=arena_anchors, scan_capacity=scan_capacity)
+            arena_anchors=arena_anchors, scan_capacity=scan_capacity,
+            **stripe)
     if impl == "pallas":
-        return scan_probed_lists_pairs(*args, scan_capacity=scan_capacity)
+        return scan_probed_lists_pairs(*args, scan_capacity=scan_capacity,
+                                       **stripe)
     return scan_probed_lists(*args, arena_scale=arena_scale,
-                             arena_anchors=arena_anchors)
+                             arena_anchors=arena_anchors, **stripe)

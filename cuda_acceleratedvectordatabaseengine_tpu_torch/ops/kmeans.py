@@ -187,6 +187,31 @@ def _reseed_step(new_centroids, counts, cand_v, cand_vecs, samp_vecs,
     return torch.where(reseed[:, None], placed, new_centroids)
 
 
+def _lloyd_chunk(xc: torch.Tensor, centroids: torch.Tensor, nc: int,
+                 w: torch.Tensor | None = None):
+    """One chunk's share of a Lloyd iteration: the partial ``onehot.T @
+    xc`` sums, counts and distortion, and the reseed candidates — the
+    ``nc`` highest-distortion rows (orphaned modes) and a stratified sample
+    of ``nc`` rows with their assignment (split donors for overfull lists).
+    ``w`` is a 0 / 1 row weight (None: every row counts); a row of weight 0
+    joins no cluster, adds no distortion and is never a candidate.
+    Returns ``(sums, counts, distortion, cand_v, cand_x, samp_x, samp_a,
+    assignments)``."""
+    k = centroids.shape[0]
+    d_min, a = pairwise_distance(xc, centroids, Metric.L2).min(-1)
+    onehot = (a[:, None] == torch.arange(k, device=xc.device)[None, :]).float()
+    if w is None:
+        d_part = d_min.clamp_min(0.0).sum()
+    else:
+        onehot = onehot * w[:, None]
+        d_min = torch.where(w > 0, d_min, float("-inf"))
+        d_part = (d_min.clamp_min(0.0) * w).sum()
+    top_v, top_i = torch.topk(d_min, nc)
+    samp = torch.arange(nc, device=xc.device) * max(xc.shape[0] // nc, 1)
+    return (onehot.T @ xc, onehot.sum(0), d_part, top_v, xc[top_i],
+            xc[samp], a[samp], a)
+
+
 def kmeans_fit(
     x: torch.Tensor,
     k: int,
@@ -219,7 +244,6 @@ def kmeans_fit(
 
     cs = min(chunk_size, max(n, 1))
     n_cand = min(32, cs)
-    ar_k = torch.arange(k, device=dev)
     assigns = None
     for it in range(iters):
         sums = torch.zeros((k, dim), dtype=torch.float32, device=dev)
@@ -227,24 +251,16 @@ def kmeans_fit(
         d_tot = torch.zeros((), dtype=torch.float32, device=dev)
         parts, cand_v, cand_x, samp_x, samp_a = [], [], [], [], []
         for xc in _chunks(x, cs):
-            d = pairwise_distance(xc, centroids, Metric.L2)
-            d_min, a = d.min(-1)
-            onehot = (a[:, None] == ar_k[None, :]).float()
-            sums += onehot.T @ xc                     # [k, C] @ [C, D]
-            counts += onehot.sum(0)
-            d_tot += d_min.clamp_min(0.0).sum()
-            # Reseed candidates: the highest-distortion rows of the chunk
-            # (orphaned modes) and a stratified sample with its assignment
-            # (split donors for overfull lists).
-            nc = min(n_cand, xc.shape[0])
-            top_v, top_i = torch.topk(d_min, nc)
-            stride = max(xc.shape[0] // nc, 1)
-            samp = torch.arange(nc, device=dev) * stride
+            c_sums, c_counts, c_d, top_v, top_x, s_x, s_a, a = _lloyd_chunk(
+                xc, centroids, min(n_cand, xc.shape[0]))
+            sums += c_sums
+            counts += c_counts
+            d_tot += c_d
             parts.append(a.int())
             cand_v.append(top_v)
-            cand_x.append(xc[top_i])
-            samp_x.append(xc[samp])
-            samp_a.append(a[samp])
+            cand_x.append(top_x)
+            samp_x.append(s_x)
+            samp_a.append(s_a)
         new_centroids = torch.where(
             (counts > 0)[:, None], sums / counts.clamp_min(1.0)[:, None],
             centroids,

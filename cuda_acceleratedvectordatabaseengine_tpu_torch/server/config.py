@@ -287,9 +287,11 @@ class ServerConfig:
     # k-th ADC distance skip the host gather+dot (0 = fixed depth).
     pq_rerank_margin: float = 0.0
 
-    # Multi-device serving: auto | on | off. The mesh (the JAX package's
-    # parallel/) is not ported: "on" and a mesh_shards > 1 raise;
-    # "auto" and "off" serve one device.
+    # Sharded serving over a device mesh (parallel/): auto | on | off.
+    # "auto" builds a mesh only over more than one device, "on" always
+    # (one shard on one device), "off" never; mesh_shards shards over the
+    # first visible CUDA devices (more than are visible raises), or that
+    # many CPU shards for an engine on the CPU.
     shard_serving: str = "auto"
     mesh_shards: int = 0        # 0 = all visible devices
     # Profiler trace server port (0 = disabled): GET /trace?ms=N answers

@@ -103,12 +103,12 @@ def _server_credentials(config: ServerConfig) -> grpc.ServerCredentials:
     )
 
 
-def build_server(config: ServerConfig, device=None):
+def build_server(config: ServerConfig, device=None, mesh=None):
     """Construct ``(grpc.Server, VdbEngine, HealthServicer, port)`` with
-    the engine on ``device`` (``"cuda"`` unless another is named);
-    separate from :func:`main` so tests run an in-process server on an
-    ephemeral port."""
-    engine = VdbEngine(config, device=device)
+    the engine on ``device`` (``"cuda"`` unless another is named) and an
+    optional explicit serving ``mesh``; separate from :func:`main` so
+    tests run an in-process server on an ephemeral port."""
+    engine = VdbEngine(config, device=device, mesh=mesh)
     query = QueryServiceImpl(engine)
     admin = AdminServiceImpl(engine)
     health = HealthServicer(device=engine.device)
@@ -177,7 +177,7 @@ def main(argv=None) -> int:
                    help="on-demand profiler traces: GET /trace?ms=N")
     p.add_argument("--shard-serving", dest="shard_serving",
                    choices=("auto", "on", "off"),
-                   help="multi-device serving ('on' is not ported)")
+                   help="sharded serving over a device mesh")
     p.add_argument("--device", default=None,
                    help="serving device (default: cuda)")
     args = p.parse_args(argv)
@@ -205,6 +205,9 @@ def main(argv=None) -> int:
 
     server, engine, health, port = build_server(config, device=args.device)
     print(device_banner(engine.device))
+    if engine.mesh is not None:
+        print(f"[vdb] sharded serving over {engine.mesh.devices.size} "
+              f"devices")
     print(f"[vdb] listening on {config.address}, data at {config.data_path}")
     if tracer is not None:
         print(f"[vdb] profiler traces on :{tracer.server_address[1]}"

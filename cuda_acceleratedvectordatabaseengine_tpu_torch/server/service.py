@@ -21,9 +21,12 @@ Differences from the JAX engine:
 - a snapshot that fails to reload at start-up is logged through
   ``get_logger`` and recorded on the index state (``IndexState.error``);
 - ``close()`` also stops every index's coalescer;
-- unported options raise ``NotImplementedError``: ``shard_serving="on"``
-  or ``mesh_shards`` > 1 (the mesh, ``parallel/``) and a
-  ``query_upload_dtype`` other than ``"float32"``.
+- an unported option raises ``NotImplementedError``: a
+  ``query_upload_dtype`` other than ``"float32"``;
+- the mesh of sharded serving (``parallel/``) is one process's list of
+  devices: ``shard_serving`` / ``mesh_shards`` build it over the visible
+  devices of the engine's device type (on the CPU, ``mesh_shards`` CPU
+  shards), and ``VdbEngine(mesh=...)`` takes an explicit one, which wins.
 """
 
 from __future__ import annotations
@@ -58,6 +61,12 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_pq import (
     IVFPQConfig,
     IVFPQIndex,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
+    ShardedIVFFlatIndex,
+    ShardedIVFPQIndex,
+    ShardedStreamingIVFFlatIndex,
+    make_mesh,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import Metric
 from cuda_acceleratedvectordatabaseengine_tpu_torch.server.balancer import (
@@ -147,10 +156,13 @@ class BuildJob:
 
 class VdbEngine:
     """Shared engine state: index registry, epochs, metrics, admission. All
-    indices live on ``device`` (``"cuda"`` unless another is named)."""
+    indices live on ``device`` (``"cuda"`` unless another is named); with a
+    mesh (``mesh``, or one built from ``shard_serving`` / ``mesh_shards``)
+    resident IVF-Flat / IVF-PQ indices serve through the sharded views and
+    streaming tiers cache on the mesh."""
 
     def __init__(self, config: ServerConfig,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, mesh=None):
         self.config = config
         self.device = resolve_device(device)
         mode = config.shard_serving
@@ -158,19 +170,26 @@ class VdbEngine:
             raise ValueError(
                 f"shard_serving must be auto|on|off, got {mode!r}"
             )
-        if mode == "on" or (mode == "auto" and config.mesh_shards > 1):
-            raise NotImplementedError(
-                "sharded serving over a device mesh (shard_serving='on', "
-                "mesh_shards > 1) needs the port of parallel/; use "
-                "shard_serving 'auto' or 'off' to serve one device"
-            )
         if config.query_upload_dtype != "float32":
             raise NotImplementedError(
                 f"query_upload_dtype {config.query_upload_dtype!r} is not "
                 f"ported; only 'float32' is"
             )
-        # the mesh of sharded serving; always None in this package
-        self.mesh = None
+        # Sharded serving: epoch activation wraps resident indices in the
+        # sharded views and builds streaming tiers on the mesh, so every
+        # coalesced batch dispatches one mesh-wide search. An explicit mesh
+        # wins over the config; "auto" builds one only over more than one
+        # device.
+        self.mesh = mesh
+        if mesh is None and mode != "off":
+            n = config.mesh_shards or (
+                torch.cuda.device_count() if self.device.type == "cuda"
+                else 1)
+            if n > 1 or mode == "on":
+                self.mesh = (make_mesh(n) if self.device.type == "cuda"
+                             else make_mesh(devices=[self.device] * n))
+        if self.mesh is not None:
+            log.info("sharded serving over %d devices", self.mesh.size)
         os.makedirs(config.data_path, exist_ok=True)
         self.epochs = EpochManager(
             os.path.join(config.data_path, "epochs"),
@@ -350,14 +369,22 @@ class VdbEngine:
                     cfg.nlist,
                     max(cfg.nlist // 4, self.config.max_batch_size),
                 )
-            index = StreamingIVFFlatIndex.from_store(
-                store, torch.from_numpy(centroids).to(self.device), cfg,
+            cache_kw = dict(
                 cache_slots=slots,
                 max_device_bytes=self.config.streaming_cache_bytes or None,
                 capacity=cap,
                 policy=self.config.streaming_cache_policy,
-                device=self.device,
             )
+            if self.mesh is not None:
+                # the cache's slot bytes stripe over the mesh: the cached
+                # working set grows with the shard count
+                index = ShardedStreamingIVFFlatIndex(
+                    self.mesh, store, torch.from_numpy(centroids), cfg,
+                    **cache_kw)
+            else:
+                index = StreamingIVFFlatIndex.from_store(
+                    store, torch.from_numpy(centroids).to(self.device), cfg,
+                    device=self.device, **cache_kw)
         elif tier == "pq_capacity" and man.kind == "ivf_pq":
             # Capacity tier: codes rebuild the device arena; raw rows load
             # into an int8 host store serving the exact rerank.
@@ -385,6 +412,19 @@ class VdbEngine:
                     "serving tier); rebuild an epoch to bake them",
                     st.name, int(tombs.size),
                 )
+
+        if (
+            self.mesh is not None
+            and isinstance(index, (IVFFlatIndex, IVFPQIndex))
+            and not getattr(index, "read_only", False)
+        ):
+            # Resident tier on a mesh: publish the loaded (and tombstone-
+            # replayed) arena as slot stripes. The base stays attached for
+            # mutations and snapshots; the pq_capacity tier (read-only, its
+            # second stage the host reranker) stays on one device.
+            index = (ShardedIVFPQIndex(index, self.mesh)
+                     if isinstance(index, IVFPQIndex)
+                     else ShardedIVFFlatIndex(index, self.mesh))
 
         # Warm every batch size the coalescer can emit and every serving
         # nprobe (the configured ones and the snapshot's calibration)

@@ -28,8 +28,10 @@ from typing import Callable
 import torch
 
 MAX_TRACE_MS = 10_000   # longest capture one request may ask for
-CAPTURE_ATTEMPTS = 2    # windows per capture while the card's records miss
+CAPTURE_ATTEMPTS = 3    # windows per capture while the card's records miss
 KERNEL_CAT = "kernel"   # the trace category of the card's kernels
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")  # host API calls ...
+LAUNCH_MARK = "LaunchKernel"                   # ... of these, the launches
 
 
 def _activities() -> list:
@@ -69,28 +71,44 @@ def _profile_window(ms: float) -> dict:
         os.unlink(path)
 
 
+def _card_records(trace: dict) -> tuple[int, int]:
+    """(kernel records, kernel launches) in a window's trace: the card's
+    kernels, and the host's runtime / driver calls that launched one."""
+    kernels = launches = 0
+    for e in trace["traceEvents"]:
+        if e.get("cat") == KERNEL_CAT:
+            kernels += 1
+        elif e.get("cat") in LAUNCH_CATS and LAUNCH_MARK in str(e.get("name")):
+            launches += 1
+    return kernels, launches
+
+
 def capture_trace(ms: float) -> dict:
     """Profile the whole process for ``ms`` milliseconds (capped at
     :data:`MAX_TRACE_MS`); return the Chrome trace as a dict (its
     ``traceEvents`` list holds the ops and kernels of the window).
 
-    Where the card is profiled, a window whose trace holds no kernel record
-    is captured again, up to :data:`CAPTURE_ATTEMPTS` windows in all:
-    ``torch.profiler`` now and then returns a window's host ops without the
-    card's records, which happened once on an H100 while a served index
-    launched kernels throughout the window. ``trace["vdbCapture"]`` gives
-    the window, the number of windows taken and the kernel records of the
-    one returned, so a client sees a capture that lost the card's side."""
+    Where the card is profiled, a window that lost the card's records is
+    captured again, up to :data:`CAPTURE_ATTEMPTS` windows in all. A window
+    lost them when it holds no kernel record, or fewer than half as many
+    kernel records as kernel launches: ``torch.profiler`` now and then
+    returns a window's host ops and launches with none or almost none of
+    the card's kernels (on an H100, once with no kernel record and once
+    with 2 kernel records beside 179 copies, while a served index launched
+    kernels throughout the window). ``trace["vdbCapture"]`` gives the
+    window, the number of windows taken and the kernel records and launches
+    of the one returned, so a client sees a capture that lost the card's
+    side."""
     ms = min(max(float(ms), 1.0), MAX_TRACE_MS)
     on_card = torch.profiler.ProfilerActivity.CUDA in _activities()
     for attempt in range(1, CAPTURE_ATTEMPTS + 1):
         trace = _profile_window(ms)
-        kernels = sum(e.get("cat") == KERNEL_CAT
-                      for e in trace["traceEvents"])
-        if kernels or not on_card:
+        kernels, launches = _card_records(trace)
+        if not on_card or (kernels and 2 * kernels >= launches):
             break
     trace["vdbCapture"] = {"ms": ms, "attempts": attempt,
-                           "kernel_records": kernels}
+                           "kernel_records": kernels,
+                           "kernel_launches": launches}
     return trace
 
 

@@ -37,6 +37,9 @@ def test_port_imports_and_searches_without_jax():
             pair_scan, pq, scan, sorted_scan)
         from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
             batching)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch import parallel
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
+            mesh, sharded, sharded_streaming)
         x = np.random.default_rng(0).standard_normal((512, 16), np.float32)
         idx = vdb.IVFFlatIndex(vdb.IVFFlatConfig(dimension=16, nlist=8,
                                                  dtype="int8",
@@ -85,6 +88,32 @@ def test_port_imports_and_searches_without_jax():
         d, ids = built.search(x[:4], vdb.SearchParams(
             nprobe=8, k=3, use_exact_rerank=True))
         assert (ids[:, 0] == np.arange(4)).all(), ids
+        cpu4 = parallel.make_mesh(devices=["cpu"] * 4)
+        view = parallel.ShardedIVFFlatIndex.build_on_mesh(
+            cpu4, vdb.IVFFlatConfig(dimension=16, nlist=8, dtype="int8",
+                                    train_iters=3), x, chunk_rows=200)
+        d, ids = view.search(x[:4], vdb.SearchParams(nprobe=8, k=3))
+        assert (ids[:, 0] == np.arange(4)).all(), ids
+        stripes = lambda parts: np.concatenate(  # noqa: E731
+            [t.numpy() for t in parts], 1)
+        carried = convert.sharded_ivf_flat_from_arrays(
+            view.config, cpu4, arena_s=stripes(view.arena_s),
+            arena_sq_s=stripes(view.arena_sq_s),
+            arena_scale=stripes(view.arena_scale),
+            anchors=view.arena_anchors[0].numpy(),
+            centroids=view.centroids.numpy(), counts=view.counts[0].numpy(),
+            ids=view._ids_table, global_cap=view.global_cap)
+        assert (carried.search(x[:4], vdb.SearchParams(nprobe=8, k=3))[1]
+                == ids).all()
+        pq_view = parallel.ShardedIVFPQIndex(pq_idx, cpu4)
+        d, ids = pq_view.search(x[4:8], vdb.SearchParams(
+            nprobe=8, k=3, use_exact_rerank=True))
+        assert (ids[:, 0] == np.arange(4, 8)).all(), ids
+        tier = parallel.ShardedStreamingIVFFlatIndex.from_base(
+            idx, cpu4, cache_slots=4)
+        d, ids = tier.search(x[4:8], vdb.SearchParams(nprobe=8, k=3))
+        assert (ids[:, 0] == np.arange(4, 8)).all(), ids
+        assert mesh.SHARD_AXIS == "shard" and sharded_streaming
         assert sys.modules["pyarrow"] is None
         assert (grouped_scan.LAUNCHES == grouped_pq_scan.LAUNCHES
                 == sorted_scan.LAUNCHES == pair_scan.LAUNCHES == 0)

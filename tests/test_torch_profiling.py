@@ -93,7 +93,8 @@ def test_trace_server_serves_captures():
         # the other thread's range: every thread is recorded
         assert "vdb.busy_thread" in _names(trace)
         assert trace["vdbCapture"] == {"ms": 50.0, "attempts": 1,
-                                       "kernel_records": 0}
+                                       "kernel_records": 0,
+                                       "kernel_launches": 0}
         for path, code in (("/nope", 404), ("/trace?ms=abc", 400)):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 urllib.request.urlopen(base + path, timeout=30)
@@ -109,24 +110,32 @@ def test_trace_server_serves_captures():
 
 
 def _window(*cats: str) -> dict:
-    return {"traceEvents": [{"name": f"e{i}", "cat": c}
-                            for i, c in enumerate(cats)]}
+    """A trace of one event per entry: a category, or ``"launch"`` for a
+    runtime call that launched a kernel."""
+    return {"traceEvents": [
+        {"name": "cudaLaunchKernel", "cat": "cuda_runtime"} if c == "launch"
+        else {"name": f"e{i}", "cat": c} for i, c in enumerate(cats)]}
 
 
-@pytest.mark.parametrize("on_card, windows, attempts, kernels", [
+@pytest.mark.parametrize("on_card, windows, attempts, kernels, launches", [
     # the card's records came back at once: one window
-    (True, [_window("cpu_op", "kernel", "kernel")], 1, 2),
+    (True, [_window("cpu_op", "launch", "launch", "kernel", "kernel")],
+     1, 2, 2),
     # the first window lost them, the second holds them
     (True, [_window("cpu_op", "cuda_runtime"), _window("cpu_op", "kernel")],
-     2, 1),
+     2, 1, 0),
+    # the first window kept 1 kernel record of 4 launches: taken again
+    (True, [_window("launch", "launch", "launch", "launch", "kernel"),
+            _window("launch", "launch", "launch", "kernel", "kernel")],
+     2, 2, 3),
     # every window lost them: the last is returned, and says so
-    (True, [_window("cpu_op")] * profiling.CAPTURE_ATTEMPTS,
-     profiling.CAPTURE_ATTEMPTS, 0),
+    (True, [_window("cpu_op", "launch")] * profiling.CAPTURE_ATTEMPTS,
+     profiling.CAPTURE_ATTEMPTS, 0, 1),
     # no card profiled: a window without kernels is the answer
-    (False, [_window("cpu_op")], 1, 0),
+    (False, [_window("cpu_op")], 1, 0, 0),
 ])
 def test_capture_retakes_a_window_without_the_cards_records(
-        monkeypatch, on_card, windows, attempts, kernels):
+        monkeypatch, on_card, windows, attempts, kernels, launches):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if on_card:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -143,7 +152,8 @@ def test_capture_retakes_a_window_without_the_cards_records(
     assert trace is windows[attempts - 1]
     assert trace["vdbCapture"] == {"ms": profiling.MAX_TRACE_MS,
                                    "attempts": attempts,
-                                   "kernel_records": kernels}
+                                   "kernel_records": kernels,
+                                   "kernel_launches": launches}
 
 
 def _free_ports(n: int) -> list[int]:

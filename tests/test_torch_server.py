@@ -685,7 +685,7 @@ def test_auth_token_compared_in_constant_time(tmp_path, monkeypatch):
         engine.close()
 
 
-def test_main_refuses_unported_options(tmp_path):
+def test_main_refuses_unported_options(tmp_path, monkeypatch):
     # --profile-port is ported (tests/test_torch_profiling.py serves a
     # trace through it); a taken port fails before the engine loads
     import socket
@@ -697,9 +697,25 @@ def test_main_refuses_unported_options(tmp_path):
             t_main.main(["--profile-port", str(taken.getsockname()[1]),
                          "--data-path", str(tmp_path / "d"),
                          "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # --shard-serving on is ported (parallel/): the engine that main
+    # builds serves over a one-shard mesh
+    # (tests/test_torch_server_sharded.py)
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def build(config, device=None, mesh=None):
+        engine = t_main.VdbEngine(config, device=device, mesh=mesh)
+        seen["mesh"] = engine.mesh
+        engine.close()
+        raise Built
+
+    monkeypatch.setattr(t_main, "build_server", build)
+    with pytest.raises(Built):
         t_main.main(["--shard-serving", "on", "--data-path",
                      str(tmp_path / "d"), "--device", "cpu"])
+    assert seen["mesh"].devices.size == 1
     assert t_main.device_banner("cpu") == "[vdb] device: cpu"
 
 

@@ -866,8 +866,18 @@ def test_engine_deadline_and_queue_shedding(tmp_path, rng, monkeypatch):
     (dict(query_upload_dtype="bfloat16"), "query_upload_dtype"),
 ])
 def test_engine_unported_options_raise(tmp_path, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        t_service.VdbEngine(_config(tmp_path, **kw), device="cpu")
+    if match == "parallel":
+        # ported since (parallel/): the option builds the engine's mesh,
+        # "on" over one CPU shard, mesh_shards over that many
+        eng = t_service.VdbEngine(_config(tmp_path, **kw), device="cpu")
+        try:
+            assert eng.mesh.devices.size == kw.get("mesh_shards", 1)
+            assert all(d.type == "cpu" for d in eng.mesh.devices)
+        finally:
+            eng.close()
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            t_service.VdbEngine(_config(tmp_path, **kw), device="cpu")
     with pytest.raises(ValueError, match="shard_serving"):
         t_service.VdbEngine(_config(tmp_path, shard_serving="maybe"),
                             device="cpu")
