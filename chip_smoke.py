@@ -9,10 +9,11 @@ fails (non-zero exit, no result line) when any phase fails:
 1. build: compiles the kernel sources of the checkout (``csrc/*.cu``, one
    ``nvcc`` per source, all started together);
 2. K1 vs plain: the grouped-scan kernel against its plain PyTorch version
-   on the card, at the main-path shape, at a raw bf16 arena of that
-   geometry and at small shapes that cover every metric, arena dtype and
-   edge case; both times. Here and in phases 2b, 2c, 5, 8 and 11b, each
-   kernel result's distances are also held against float64: a kernel's
+   on the card, at the main-path shape, at a raw bf16 and an fp32 arena of
+   that geometry and at small shapes that cover every metric, arena dtype
+   and edge case (fp32 at D 64, D 30 and D 768); both times. Here and in
+   phases 2b, 2c, 5, 8, 11b, 11c and 18b, each kernel result's distances
+   are also held against float64: a kernel's
    distance outside the tolerance ``RTOL · |d| + ATOL_QSQ · ‖q‖²`` fails
    the run, and the worst share of it per scan is printed before the
    report;
@@ -52,9 +53,10 @@ fails (non-zero exit, no result line) when any phase fails:
 2c. K3 (sorted full-row scan) and K4 (pair full-row scan) against their
    plain versions on small cases (every metric, int8 with scale +- anchor
    for K3 and as raw codes for K4, bf16 / fp32, -1 probes, short lists, the
-   scan-capacity prefix, a hot list, slot striping, k 100, D 30 / D 100)
-   and at the main shapes (K3 on the int8 geometry of phase 4 and on a raw
-   bf16 arena of it; K4 on the bf16 arena, on raw int8 and on fp32): rows
+   scan-capacity prefix, a hot list, slot striping, k 100, D 30 / D 100 /
+   D 768) and at the main shapes (K3 on the int8 geometry of phase 4, on a
+   raw bf16 and on an fp32 arena of it; K4 on the bf16 arena, on raw int8
+   and on fp32): rows
    and top-k, both times and the roofline bound (K4's ``ms`` spans its
    wrapper, pair packing included; ``packed_ms`` the launch alone);
 11. IVF-Flat through the scan names of K3 and K4 at full width, run right
@@ -67,6 +69,14 @@ fails (non-zero exit, no result line) when any phase fails:
    plain versions on the two indexes phase 11 served, at the calibrated
    nprobe and 32 (K3 on int8 and bf16, also k 100; K4 on bf16; K1 on
    bf16);
+11c. ``flat-1M-f32``, after 18 (a): an fp32 index of the same corpus and
+   geometry (4.4 GB of arena) built like phase 11's bf16 one, served at the
+   calibrated nprobe and 32 through ``"auto"`` (K1), ``"pallas_sorted"``
+   (K3) and ``"pallas"`` (K4): all equal, recall@10 >= 0.95 each; a k 100
+   search through ``"auto"`` must launch K3; one traced K1 batch at 32;
+   build s, arena GB, QPS, ms a batch and launches; then, after its
+   launch counts are read, K1, K3 and K4 against their plain versions on
+   the index; the index is freed before phase 12;
 12. the streaming tier over the phase-4 index with 512 cache slots (half
    the lists on the card): 1024-query batches at the calibrated nprobe and
    32 through K1 and K3, each equal to the resident index; QPS, hit rate,
@@ -140,7 +150,8 @@ fails (non-zero exit, no result line) when any phase fails:
    another), each part with every launch counter at 0 before it and its
    kernels gated after: (b) right after 2c, K1 and K2 on every stripe of
    a 4-way slot striping at the main shapes (K1 int8, K2 top-k and
-   emit_full) against their plain versions (phases 2 and 2b hold small
+   emit_full), K1 and K3 on both stripes of a 2-way striping of the fp32
+   main shape, against their plain versions (phases 2 and 2b hold small
    striped cases too); (c) right after 9, a 4-shard ``ShardedIVFPQIndex``
    over pq-1M (ADC-only equal to one device; reranked recall@10 at 32 at
    least one device's less 0.001); (a) right after 11b, a
@@ -164,7 +175,7 @@ fails (non-zero exit, no result line) when any phase fails:
    kernel report's launches add phase 18's.
 
 They run in the order 0, 1, 2, 2b, 2c, 18b, 3, 7-9, 18c, 15a, 10, 15b,
-4-6, 11, 11b, 18a, 12, 18d, 13, 14, 18e, 16, 17, 18f.
+4-6, 11, 11b, 18a, 11c, 12, 18d, 13, 14, 18e, 16, 17, 18f.
 
 The second-to-last line is the kernel report JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -202,9 +213,11 @@ RTOL = 1e-5          # distance tolerance, relative ...
 ATOL_QSQ = 1e-5      # ... plus this × ‖q‖² (fp32 sums in another order)
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): fp32 on the
 # CUDA cores (K2's dots of fp32 queries with fp32 codebook entries, however
-# the kernel sums them, and K1 / K3 / K4 on fp32 arenas run there), dense
-# bf16 on the tensor cores (K1, K3 and K4 on int8 and bf16 arenas run there
-# as three exact bf16 products per multiply-add), and HBM3 bandwidth.
+# the kernel sums them, and K4 on fp32 arenas run there; K1 and K3 on fp32
+# arenas run as six exact bf16 products on the tensor cores, but their bound
+# keeps this count: bytes bound them either way), dense bf16 on the tensor
+# cores (K1, K3 and K4 on int8 and bf16 arenas run there as three exact
+# bf16 products per multiply-add), and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 BF16_PLANES = 3      # hi / mid / lo bf16 planes of an fp32 query
@@ -235,9 +248,11 @@ def ptxas_summary(nvcc_log: str) -> dict:
         used = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         if name and used:
-            # mangled template arguments: a = int8, Li<n> / Lb<n> literals
+            # mangled template arguments: a = int8, f = fp32, Li<n> / Lb<n>
+            # literals
             targs = (name.group(2) or "").replace("13__nv_bfloat16", "bf16,")
             targs = re.sub(r"^a", "int8,", targs)
+            targs = re.sub(r"^f", "f32,", targs)
             targs = re.sub(r"L[ib](\d+)E?", r"\1,", targs).strip(",")
             into = adc if name.group(1).startswith("pq_") else tensor_core
             into[f"{name.group(1)}<{targs}>"] = [
@@ -617,6 +632,13 @@ def phase_kernel_vs_plain(seed: int, dev) -> dict:
         ("ip_bf16_dim30", dict(nlist=8, cap=300, dim=30, batch=32, nprobe=4,
                                dtype=torch.bfloat16,
                                metric=Metric.INNER_PRODUCT), 7, 8, None),
+        # fp32 at D 768: 24 chunks of 32, a hot list over rows of width 64,
+        # k 64 (two merge registers a lane)
+        ("l2_f32_768_hot_list_k64", dict(nlist=64, cap=512, dim=768,
+                                         batch=512, nprobe=8,
+                                         dtype=torch.float32,
+                                         metric=Metric.L2, hot=True), 64,
+         None, None),
     ]
     for name, spec, k, m, scap in small:
         check_scan_case(name, make_scan_case(gen, dev, **spec), k,
@@ -635,6 +657,14 @@ def phase_kernel_vs_plain(seed: int, dev) -> dict:
                           metric=Metric.L2)
     res["bf16_raw"] = check_scan_case("main_bf16_raw_768", main, 10,
                                       Metric.L2, time_it=True)
+    del main
+    torch.cuda.empty_cache()
+    # an fp32 arena of the same geometry (4.4 GB)
+    main = make_scan_case(gen, dev, nlist=1024, cap=1408, dim=768,
+                          batch=1024, nprobe=32, dtype=torch.float32,
+                          metric=Metric.L2)
+    res["f32"] = check_scan_case("main_f32_768", main, 10, Metric.L2,
+                                 time_it=True)
     del main
     torch.cuda.empty_cache()
     # slot striping as a sharded index launches K1 (2 shards, each offset)
@@ -1053,9 +1083,9 @@ def phase_full_row_kernels_vs_plain(seed: int, dev) -> dict:
     anchor (K3), bf16 and fp32 arenas (K4), -1 probes, lists shorter than
     k, the scan-capacity prefix, a hot list over many pairs, slot striping
     and k 100; then at the main shapes: K3 on the IVF-Flat int8 geometry
-    (nlist 1024, cap 1408, D 768, B 1024, nprobe 32, k 10) and on a raw
-    bf16 arena of it, K4 on bf16, raw int8 and fp32 arenas of the same
-    geometry."""
+    (nlist 1024, cap 1408, D 768, B 1024, nprobe 32, k 10), on a raw bf16
+    and on an fp32 arena of it, K4 on bf16, raw int8 and fp32 arenas of
+    the same geometry."""
     import torch
 
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
@@ -1107,6 +1137,9 @@ def phase_full_row_kernels_vs_plain(seed: int, dev) -> dict:
         ("k3_cos_bf16_dim30", "sorted",
          dict(base, cap=300, dim=30, dtype=bf, metric=Metric.COSINE), 7, 8,
          None, None),
+        ("k3_cos_f32_768_neg", "sorted",
+         dict(nlist=64, cap=384, dim=768, batch=256, nprobe=8, dtype=f32,
+              metric=Metric.COSINE, neg=True), 10, None, None, None),
         ("k4_l2_bf16_neg_short", "pairs",
          dict(base, dtype=bf, metric=Metric.L2, neg=True, short=True), 10,
          None, None, None),
@@ -1161,6 +1194,9 @@ def phase_full_row_kernels_vs_plain(seed: int, dev) -> dict:
         ("k4_l2_f32_768", "pairs",
          dict(nlist=64, cap=384, dim=768, batch=256, nprobe=8, dtype=f32,
               metric=Metric.L2), 10, None, None, None),
+        ("k4_ip_f32_768_neg", "pairs",
+         dict(nlist=64, cap=384, dim=768, batch=256, nprobe=8, dtype=f32,
+              metric=Metric.INNER_PRODUCT, neg=True), 10, None, None, None),
     ]
     out = {"small_max_abs_err": {"sorted": 0.0, "pairs": 0.0}}
     for name, kernel, spec, k, m, scap, strp in small:
@@ -1171,6 +1207,7 @@ def phase_full_row_kernels_vs_plain(seed: int, dev) -> dict:
         err[kernel] = max(err[kernel], res["max_abs_err"])
     for key, kernel, dtype, tag in (("k3", "sorted", i8, "int8_residual"),
                                     ("k3_bf16", "sorted", bf, "bf16_raw"),
+                                    ("k3_f32", "sorted", f32, "f32"),
                                     ("k4", "pairs", bf, "bf16"),
                                     ("k4_i8", "pairs", i8, "int8_raw"),
                                     ("k4_f32", "pairs", f32, "f32")):
@@ -1276,11 +1313,9 @@ SEARCH_STAGES = ("ivf_flat.upload", "ivf_flat.coarse_probe",
                  "grouped_scan.pack", "grouped_scan.rows",
                  "grouped_scan.epilogue", "ivf_flat.finalize")
 # The hand-written flat scans' kernels by name (tensor-core kernels on
-# int8 / bf16 arenas, CUDA-core ones on fp32) and the stage each belongs to.
-K1_KERNEL_STAGES = (("grouped_scan_tc_kernel", "grouped_scan.rows"),
-                    ("grouped_scan_kernel", "grouped_scan.rows"))
-K3_KERNEL_STAGES = (("sorted_scan_tc_kernel", "sorted_scan.rows"),
-                    ("sorted_scan_kernel", "sorted_scan.rows"))
+# every arena dtype) and the stage each belongs to.
+K1_KERNEL_STAGES = (("grouped_scan_tc_kernel", "grouped_scan.rows"),)
+K3_KERNEL_STAGES = (("sorted_scan_tc_kernel", "sorted_scan.rows"),)
 # K4 runs K3's tensor-core kernel in its block-norm variant inside its own
 # range (int8 / bf16 arenas), its pair-per-CTA kernel on fp32 arenas
 K4_KERNEL_STAGES = (("sorted_scan_tc_kernel", "pair_scan.rows"),
@@ -1712,15 +1747,17 @@ def phase_full_row_paths(args, dev, idx, q_np, truth, cal_nprobe, centers,
     return out, bidx
 
 
-def phase_full_row_index_checks(idx, bidx, queries, cal_nprobe) -> dict:
-    """Phase 11b, after phase 11's launch counts are read: K3 and K4
-    against their plain versions on the indexes phase 11 served, on the
-    probes their coarse step gives the phase-4 queries, at the calibrated
-    nprobe and at 32: K3 on the int8 index (k 10, and k 100 at 32, the
-    deep-k route) and on the bf16 index, K4 on the bf16 index (the arena
-    ``"pallas"`` sends to it); and K1 on the bf16 index (raw values,
-    where fp32 accumulation loses the most), with its distances against
-    float64."""
+def phase_full_row_index_checks(indexes, queries, cal_nprobe,
+                                label="phase11b") -> dict:
+    """Phase 11b (and 11c's checks), after the launch counts of the phase
+    that served the indexes are read: kernels against their plain versions
+    on those indexes, on the probes their coarse step gives the phase-4
+    queries, at the calibrated nprobe and at 32. ``indexes`` holds (tag,
+    index, kernels): phase 11b runs K3 on the int8 index (k 10, and k 100
+    at 32, the deep-k route), K3, K4 (the arena ``"pallas"`` sends to it)
+    and K1 (raw values, where fp32 accumulation loses the most) on the
+    bf16 index; phase 11c K1, K3 and K4 on the fp32 index. Every kernel's
+    distances are also held against float64."""
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
         Metric,
         pairwise_distance,
@@ -1733,8 +1770,7 @@ def phase_full_row_index_checks(idx, bidx, queries, cal_nprobe) -> dict:
     )
 
     out = {"sorted": [], "pairs": [], "grouped": []}
-    for tag, index, kernels in (("int8", idx, ("sorted",)),
-                                ("bf16", bidx, ("sorted", "pairs"))):
+    for tag, index, kernels in indexes:
         a = index.arena
         q = (l2_normalize(queries) if index.metric == Metric.COSINE
              else queries)
@@ -1746,18 +1782,91 @@ def phase_full_row_index_checks(idx, bidx, queries, cal_nprobe) -> dict:
                         arena_scale=a.arena_scale, arena_anchors=a.anchors)
             depths = (10, 100) if (tag == "int8" and nprobe == 32) else (10,)
             for kernel in kernels:
+                if kernel == "grouped":
+                    res = check_index_scan(index, queries, nprobe, 10)
+                    log(label, json.dumps({"case": f"index_{tag}_grouped_p"
+                                           f"{nprobe}_k10", **res}))
+                    out["grouped"].append(res)
+                    continue
                 for k in depths:
                     out[kernel].append(check_full_row_case(
                         f"index_{tag}_{kernel}_p{nprobe}_k{k}", case, k,
                         index.metric, kernel, m_budget=index.config.m_budget,
-                        scan_capacity=a.scan_capacity_hint(),
-                        label="phase11b"))
-        if tag == "bf16":
-            for nprobe in (cal_nprobe, 32):
-                res = check_index_scan(index, queries, nprobe, 10)
-                log("phase11b", json.dumps({"case": f"index_bf16_grouped_p"
-                                            f"{nprobe}_k10", **res}))
-                out["grouped"].append(res)
+                        scan_capacity=a.scan_capacity_hint(), label=label))
+    return out
+
+
+def phase_flat_f32(args, dev, q_np, truth, cal_nprobe, centers, capacity,
+                   keep) -> dict:
+    """Phase 11c, ``flat-1M-f32``: an fp32 IVF-Flat index of the phase-4
+    corpus and geometry (nlist 1024, the same capacity, the same chunks;
+    4.4 GB of arena), built with ``train_from_device`` and
+    ``append_balanced``, served at the calibrated nprobe and at 32 through
+    ``"auto"`` (K1), ``"pallas_sorted"`` (K3) and ``"pallas"`` (K4, its
+    pair-per-CTA kernel on fp32): all three equal, recall@10 ≥ 0.95 each;
+    then a k 100 search through ``"auto"``, which must launch K3 (K1 keeps
+    at most 64), its top 10 equal to the k 10 answer; and one traced K1
+    batch at nprobe 32. ``keep["index"]`` receives the index, for the
+    kernel checks made after this phase's launch counts are read."""
+    import numpy as np
+    import torch
+
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+
+    k, reps, counters = 10, FULL_ROW_REPS, scan_counters()
+    n, dim, nlist = args.n, args.dim, args.nlist
+    chunk = -(-n // args.chunks)
+    fidx = vdb.IVFFlatIndex(vdb.IVFFlatConfig(
+        dimension=dim, nlist=nlist, dtype="float32",
+        max_capacity_factor=4.0), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        xc = corpus_chunk(centers, s, m, args.seed)
+        if s == 0:
+            fidx.train_from_device(xc)
+        fidx.append_balanced(xc, ids=np.arange(s, s + m, dtype=np.uint64),
+                             capacity=capacity)
+        del xc
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0,
+           "arena_gb": fidx.arena.nbytes_device() / 1e9}
+    if fidx.ntotal != n or fidx.arena.arena.dtype != torch.float32:
+        raise AssertionError(f"fp32 build: ntotal {fidx.ntotal}, arena "
+                             f"{fidx.arena.arena.dtype}")
+
+    def serve(impl, label, nprobe, kk=k):
+        fidx.config.scan_impl = impl
+        res, result = serve_setting(fidx, q_np, truth, nprobe, kk, reps,
+                                    counters)
+        out[label] = res
+        return result
+
+    ref = {}
+    for np_label, nprobe in (("auto", cal_nprobe), ("p32", 32)):
+        ref[np_label] = serve("auto", f"k1_{np_label}", nprobe)
+        for impl, key in (("pallas_sorted", "k3"), ("pallas", "k4")):
+            got = serve(impl, f"{key}_{np_label}", nprobe)
+            out[f"{key}_{np_label}"].update(same_results(
+                f"fp32 {key} vs K1 at nprobe {nprobe}", got, ref[np_label],
+                q_np))
+    deep = serve("auto", "k1_route_k100_p32", 32, kk=100)
+    out["k1_route_k100_p32"].update(same_results(
+        "fp32 k 100 top 10 vs k 10", (deep[0][:, :k], deep[1][:, :k]),
+        ref["p32"], q_np))
+    fidx.config.scan_impl = "auto"
+    if out["k1_route_k100_p32"]["launches"]["k3"] <= 0:
+        raise AssertionError("the fp32 k 100 search never launched K3")
+    for label, res in out.items():
+        if isinstance(res, dict) and res["recall10"] < 0.95:
+            raise AssertionError(f"phase 11c {label}: recall@10 "
+                                 f"{res['recall10']} < 0.95")
+    out["trace_k1_p32"] = trace_search(
+        fidx, q_np, vdb.SearchParams(nprobe=32, k=k),
+        out["k1_p32"]["ms_per_batch_median"])
+    log("phase11c", json.dumps(out))
+    keep["index"] = fidx
     return out
 
 
@@ -3533,17 +3642,18 @@ def sharded_trace(view, q_np, params, batch_ms) -> dict:
 
 
 def check_striped(name, case, n, k, metric, kernel, label, **kw) -> float:
-    """K1 (``kernel="grouped"``) or K2 (``"pq"``) on every stripe of a
-    slot-striped copy of ``case`` (``slot_stride`` n, each ``slot_offset``,
-    the logical ``global_capacity``) against its plain version on the same
-    stripe; the kernel's distances are also held against float64 through
-    the logical positions. Returns the largest kernel−plain difference;
-    raises on disagreement."""
+    """K1 (``kernel="grouped"``), K3 (``"sorted"``) or K2 (``"pq"``) on
+    every stripe of a slot-striped copy of ``case`` (``slot_stride`` n, each
+    ``slot_offset``, the logical ``global_capacity``) against its plain
+    version on the same stripe; the kernel's distances are also held
+    against float64 through the logical positions. Returns the largest
+    kernel−plain difference; raises on disagreement."""
     import torch
 
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
         grouped_pq_scan as gps,
         grouped_scan as gs,
+        sorted_scan as ss,
     )
     from cuda_acceleratedvectordatabaseengine_tpu_torch.testing import (
         assert_topk_match,
@@ -3552,8 +3662,10 @@ def check_striped(name, case, n, k, metric, kernel, label, **kw) -> float:
     q = case["q"]
     atol = (ATOL_QSQ * (q * q).sum(1)).cpu().numpy()
     worst, ties = 0.0, 0
+    flat = kernel in ("grouped", "sorted")
+    who = {"grouped": "K1", "sorted": "K3", "pq": "K2"}[kernel]
     for s in range(n):
-        if kernel == "grouped":
+        if flat:
             cap = case["arena"].shape[1]
             local = [case["arena"][:, s::n].contiguous(),
                      case["arena_sq"][:, s::n].contiguous()]
@@ -3562,8 +3674,11 @@ def check_striped(name, case, n, k, metric, kernel, label, **kw) -> float:
                 None if case["arena_scale"] is None
                 else case["arena_scale"][:, s::n].contiguous()),
                 arena_anchors=case["arena_anchors"])
-            scan, plain = (gs.scan_probed_lists_grouped,
-                           gs.scan_probed_lists_grouped_reference)
+            scan, plain = ((gs.scan_probed_lists_grouped,
+                            gs.scan_probed_lists_grouped_reference)
+                           if kernel == "grouped" else
+                           (ss.scan_probed_lists_sorted,
+                            ss.scan_probed_lists_sorted_reference))
         else:
             cap = case["codes_t"].shape[2]
             args = (q, case["codes_t"][:, :, s::n].contiguous(),
@@ -3580,11 +3695,12 @@ def check_striped(name, case, n, k, metric, kernel, label, **kw) -> float:
                                 d_p.cpu().numpy(), p_p.cpu().numpy(),
                                 rtol=RTOL, atol=atol)
         # logical positions index the unstriped case's rows
-        if kernel == "grouped":
-            f64 = f64_distance_error(case, d_k, p_k, metric, "K1 striped")
+        if flat:
+            f64 = f64_distance_error(case, d_k, p_k, metric,
+                                     f"{who} striped")
         else:
             f64 = pq_f64_distance_error(case, d_k, p_k, metric,
-                                        "K2 striped")
+                                        f"{who} striped")
         worst = max(worst, cmp.max_abs_err)
         ties += cmp.n_id_differences
     log(label, json.dumps({"case": name, "kernel": kernel, "shards": n,
@@ -3596,12 +3712,14 @@ def check_striped(name, case, n, k, metric, kernel, label, **kw) -> float:
 
 
 def phase_striped_kernels(seed: int, dev) -> dict:
-    """Phase 18 (b): K1 and K2 launched on slot stripes, as a sharded
-    index launches them (``slot_stride`` 4, every ``slot_offset``), held
-    against their plain versions at the main shapes: K1 on phase 2's int8
-    geometry (nlist 1024, cap 1408 → 352 a stripe, D 768, B 1024, nprobe
-    32, k 10), K2 on phase 2b's (nlist 4096, cap 384 → 96 a stripe, m 96,
-    B 512, nprobe 32) in top-k mode (k 10) and emit_full mode (keep 40)."""
+    """Phase 18 (b): K1, K3 and K2 launched on slot stripes, as a sharded
+    index launches them (``slot_stride`` 4, or 2, every ``slot_offset``),
+    held against their plain versions at the main shapes: K1 on phase 2's
+    int8 geometry (nlist 1024, cap 1408 → 352 a stripe, D 768, B 1024,
+    nprobe 32, k 10), K1 and K3 on its fp32 arena over 2 stripes (704
+    slots a stripe), K2 on phase 2b's (nlist 4096, cap 384 → 96 a stripe,
+    m 96, B 512, nprobe 32) in top-k mode (k 10) and emit_full mode (keep
+    40)."""
     import torch
 
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
@@ -3615,6 +3733,15 @@ def phase_striped_kernels(seed: int, dev) -> dict:
     out = {"k1_main_int8_x4": check_striped(
         "main_int8_residual_768_x4", main, SHARDS, 10, Metric.L2, "grouped",
         "phase18b")}
+    del main
+    torch.cuda.empty_cache()
+    main = make_scan_case(gen, dev, nlist=1024, cap=1408, dim=768,
+                          batch=1024, nprobe=32, dtype=torch.float32,
+                          metric=Metric.L2)
+    for key, kernel in (("k1", "grouped"), ("k3", "sorted")):
+        out[f"{key}_main_f32_x2"] = check_striped(
+            f"main_{key}_f32_768_x2", main, 2, 10, Metric.L2, kernel,
+            "phase18b")
     del main
     torch.cuda.empty_cache()
     main = make_pq_case(gen, dev, nlist=4096, cap=384, msub=96, dsub=8,
@@ -4180,12 +4307,22 @@ def main(argv=None) -> int:
         if launches11[key] <= 0:
             raise AssertionError(f"phase 11 never launched {key.upper()}")
     full_row_checks = phase_full_row_index_checks(  # phase 11b
-        idx, bidx, queries, cal_nprobe)
+        (("int8", idx, ("sorted",)),
+         ("bf16", bidx, ("sorted", "pairs", "grouped"))), queries,
+        cal_nprobe)
     mark("11b_full_row_checks")
     drive("18a_sharded_flat", phase_sharded_flat, dev, idx, bidx, q_np,
           truth, cal_nprobe, need=("k1", "k3", "k4"))
     del bidx
     torch.cuda.empty_cache()
+    f32_keep = {}             # phase 11c: the fp32 index, for its checks
+    drive("11c_flat_f32", phase_flat_f32, args, dev, q_np, truth,
+          cal_nprobe, centers, capacity, f32_keep, need=("k1", "k3", "k4"))
+    f32_checks = phase_full_row_index_checks(
+        (("f32", f32_keep.pop("index"), ("grouped", "sorted", "pairs")),),
+        queries, cal_nprobe, label="phase11c")
+    torch.cuda.empty_cache()
+    mark("11c_checks")
     for mod in counters.values():                  # phase 12: streaming
         mod.LAUNCHES = 0
     stream_answers = {}
@@ -4229,26 +4366,36 @@ def main(argv=None) -> int:
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
-    def timing(main_shape):
-        # times measured here at the kernel's main shape; no single PyTorch
-        # call computes any of these scans, so there is no library time
-        return {key: main_shape[key] for key in
-                ("ms", "plain_ms", "bound_ms", "bound_by")} | {
-                    "library_ms": None}
+    def timing(main_shape, f32=None):
+        # times measured here at the kernel's main shape (and, under
+        # "f32", at its fp32 arena); no single PyTorch call computes any of
+        # these scans, so there is no library time
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+        out = {key: main_shape[key] for key in keys} | {"library_ms": None}
+        if f32 is not None:
+            out["f32"] = {key: f32[key] for key in keys}
+        return out
+
+    # phase 11c's launches (the fp32 index), driven with every counter at 0
+    p11c = lifecycle["11c_flat_f32"]["launches"]
 
     report = {"kernels": [{
         "name": "grouped_scan", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": launches + tools_launches["k1"] + p18["k1"],
+        "launches": (launches + p11c["k1"] + tools_launches["k1"]
+                     + p18["k1"]),
         "max_abs_err": max([k1["max_abs_err"],
                             k1["bf16_raw"]["max_abs_err"],
+                            k1["f32"]["max_abs_err"],
                             k1["striped_small_max_abs_err"],
                             striped["k1_main_int8_x4"],
+                            striped["k1_main_f32_x2"],
                             checks["index_scan_auto"]["max_abs_err"],
                             checks["index_scan_p32"]["max_abs_err"]]
                            + [c["max_abs_err"]
-                              for c in full_row_checks["grouped"]]),
-        **timing(k1),
+                              for c in full_row_checks["grouped"]
+                              + f32_checks["grouped"]]),
+        **timing(k1, k1["f32"]),
     }, {
         "name": "grouped_pq_scan", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES,
@@ -4262,22 +4409,29 @@ def main(argv=None) -> int:
     }, {
         "name": "sorted_scan", "route": "cuda", "source": K34_SOURCE,
         "replaces": K3_REPLACES,
-        "launches": launches11["k3"] + tools_launches["k3"] + p18["k3"],
+        "launches": (launches11["k3"] + p11c["k3"] + tools_launches["k3"]
+                     + p18["k3"]),
         "max_abs_err": max([k34["small_max_abs_err"]["sorted"],
                             k34["k3"]["max_abs_err"],
-                            k34["k3_bf16"]["max_abs_err"]]
+                            k34["k3_bf16"]["max_abs_err"],
+                            k34["k3_f32"]["max_abs_err"],
+                            striped["k3_main_f32_x2"]]
                            + [c["max_abs_err"]
-                              for c in full_row_checks["sorted"]]),
-        **timing(k34["k3"]),
+                              for c in full_row_checks["sorted"]
+                              + f32_checks["sorted"]]),
+        **timing(k34["k3"], k34["k3_f32"]),
     }, {
         "name": "pair_scan", "route": "cuda", "source": K34_SOURCE,
         "replaces": K4_REPLACES,
-        "launches": launches11["k4"] + tools_launches["k4"] + p18["k4"],
+        "launches": (launches11["k4"] + p11c["k4"] + tools_launches["k4"]
+                     + p18["k4"]),
         "max_abs_err": max([k34["small_max_abs_err"]["pairs"],
-                            k34["k4"]["max_abs_err"]]
+                            k34["k4"]["max_abs_err"],
+                            k34["k4_f32"]["max_abs_err"]]
                            + [c["max_abs_err"]
-                              for c in full_row_checks["pairs"]]),
-        **timing(k34["k4"]),
+                              for c in full_row_checks["pairs"]
+                              + f32_checks["pairs"]]),
+        **timing(k34["k4"], k34["k4_f32"]),
     }]}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -4287,6 +4441,7 @@ def main(argv=None) -> int:
             "index_checks": checks, "k2_main_shape": k2,
             "k34_main_shapes": k34, "full_row_paths": full_rows,
             "full_row_index_checks": full_row_checks,
+            "flat_f32_index_checks": f32_checks,
             "streaming": streaming, "launches_phase11": launches11,
             "launches_phase12": launches12,
             "pq_main_path": pq_path, "pq_index_checks": pq_checks,

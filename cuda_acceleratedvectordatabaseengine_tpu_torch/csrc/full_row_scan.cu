@@ -19,29 +19,29 @@
 // Design. The TPU kernel sorted the pairs by list so consecutive grid steps
 // could reuse one VMEM block. Here the wrapper sorts the pairs by list on
 // the device and packs runs of same-list pairs into list-rows of at most M
-// pairs (the packing of K1). One CTA takes one list-row. On int8 and bf16
-// arenas (sorted_scan_tc_kernel) the dots run on the tensor cores, on exact
-// bf16 products, on the engine K1 shares (tc_scan.cuh): the wrapper splits
-// the fp32
-// queries into three bf16 planes once per call; two producer warps stream
-// 256-slot tiles, D in chunks of 64, and the row's plane chunks through a
-// cp.async ring ordered by mbarriers; eight consumer warps run mma.sync
-// m16n8k16 bf16 with fp32 accumulators (a fresh one per 64-wide chunk of
-// D, the chunks summed on the CUDA cores), write each tile's distances to
-// shared memory, then write each pair's row segment to its (b, p) place
-// with coalesced stores. fp32 arenas keep the CUDA-core kernel
-// (sorted_scan_kernel: fp32 query rows and 32-slot tiles staged in shared
-// memory, grouped_common.cuh's tile_dots). Pairs of probe -1 sit in
-// sentinel rows (list id nlist), which read nothing and write +inf rows.
+// pairs (the packing of K1). One CTA takes one list-row.
+// sorted_scan_tc_kernel runs the dots on the tensor cores, on exact bf16
+// products, on the engine K1 shares (tc_scan.cuh): the wrapper splits the
+// fp32 queries into three bf16 planes once per call; two producer warps
+// stream 256-slot tiles, D in chunks (64 wide on int8 / bf16 arenas, 32 on
+// fp32, whose values the consumers split into three bf16 planes in
+// registers), and the row's plane chunks through a cp.async ring ordered
+// by mbarriers; eight consumer warps run mma.sync m16n8k16 bf16 with fp32
+// accumulators (a fresh one per chunk, the chunks summed on the CUDA
+// cores), write each tile's distances to shared memory, then write each
+// pair's row segment to its (b, p) place with coalesced stores. Pairs of
+// probe -1 sit in sentinel rows (list id nlist), which read nothing and
+// write +inf rows.
 //
 // What bounds K3 on the H100 (SXM, 700 W). At the IVF-Flat main shape
-// (B 1024, nprobe 32, about 1000 rows a list, D 768, int8) it must read the
-// probed lists once and write 185 MB of rows, about 1 GB: 0.30 ms at
-// 3.35 TB/s; its three bf16 products (3 x 53 GFLOP) need 0.16 ms at
-// 989 TFLOP/s, so bytes bound it. The fp32 loop of the first version took
-// 17.0 ms against an operation floor of 0.79 ms; timed builds of K1 with
-// parts edited out put that time in the shared dot loop, which this design
-// replaces.
+// (B 1024, nprobe 32, about 1000 rows a list, D 768) it must read the
+// probed lists once and write 185 MB of rows: about 1 GB on int8, 0.30 ms
+// at 3.35 TB/s, against three bf16 products of 53 GFLOP, 0.16 ms at
+// 989 TFLOP/s; 3.4 GB on fp32, 1.02 ms, against six products, 0.33 ms. So
+// bytes bound it. This kernel takes 1.33 ms on int8 (4.4x the bound) and
+// 2.41 ms on fp32 (2.4x); the fp32 CUDA-core loop of the first version
+// took 17.0 and 12.6 ms (NVIDIA H100 80GB HBM3, 700 W), and timed builds of
+// K1 with parts edited out put that time in the shared dot loop.
 //
 // K4, vdb_pair_scan and vdb_pair_scan_f32, replaces pallas_scan.py::
 // scan_probed_lists_pallas (kernel body _kernel). Wrapper and plain version:
@@ -71,13 +71,14 @@
 // fp32 arenas keep the pair-per-CTA kernel (pair_scan_kernel: the query in
 // shared memory, one warp per slot, lanes over consecutive 4-element groups,
 // q.x and x.x reduced with shuffles, pairs handed over in list order so that
-// CTAs running together find their list in L2). Their operands are not exact
-// in bf16, so the tensor cores are out, and K3's CUDA-core list-row kernel
-// with block norms was timed beside it at the fp32 main shape: 20.8 ms
-// against 10.0 ms (NVIDIA H100 80GB HBM3, 700 W), and its lane-serial norm
-// sums lay at 0.34 of the scans' tolerance from float64 where this kernel's
-// shuffle-reduced ones lie at 0.03. The fp32 dot loop over a shared tile is
-// bound by its instruction rate, as it was in K1 and K3 before they left it.
+// CTAs running together find their list in L2): 10.1 ms at the fp32 main
+// shape (NVIDIA H100 80GB HBM3, 700 W), 9.8x its bound. A CUDA-core
+// list-row kernel with block norms, timed beside it there, took 20.8 ms,
+// and its lane-serial norm sums lay at 0.34 of the scans' tolerance from
+// float64 where this kernel's shuffle-reduced ones lie at 0.03. K3's
+// tensor-core kernel now takes fp32 arenas (six plane products), but not
+// yet in its block-norm variant: how its |x|^2 of split fp32 values sums
+// against that tolerance is the open question of the next version.
 
 #include "grouped_common.cuh"
 #include "tc_scan.cuh"
@@ -91,108 +92,10 @@ namespace {
 
 using namespace vdb;
 
-template <typename T, int MPT, int SPL>
-__global__ void __launch_bounds__(kThreads)
-sorted_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
-                   const float* __restrict__ arena_sq,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ anchors,
-                   const int* __restrict__ counts,
-                   const int* __restrict__ row_list,
-                   const int* __restrict__ pair_table,
-                   float* __restrict__ out, int m, int dim, int nlist,
-                   int cap, int cap_s, int nprobe, int metric) {
-  constexpr int TS = 32 * SPL;
-  const int row = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int dp = padded_dim(dim);
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [m][dp]
-  float* qsq = qs + static_cast<size_t>(m) * dp;
-  float* qa = qsq + m;
-  int* qi = reinterpret_cast<int*>(qa + m);  // pair index b * nprobe + p
-  T* tile = reinterpret_cast<T*>(smem + query_smem_bytes(m, dim));
-
-  const int* prow = pair_table + static_cast<size_t>(row) * m;
-  const int list = row_list[row];
-  if (list < 0 || list >= nlist) {  // sentinel row: pairs of probe -1
-    for (int mm = warp; mm < m; mm += kWarps) {
-      const int p = prow[mm];
-      if (p < 0) continue;
-      float* o = out + static_cast<size_t>(p) * cap_s;
-      for (int s = lane; s < cap_s; s += 32) o[s] = INFINITY;
-    }
-    return;
-  }
-
-  load_row_queries(qs, qi, tile, q, prow, m, dim, nprobe, TS);
-  row_query_norms(qs, qsq, qa,
-                  anchors != nullptr ? anchors + static_cast<size_t>(list) * dim
-                                     : nullptr,
-                  m, dim);
-  // (the first tile's __syncthreads publishes qsq / qa)
-
-  const int lim = min(counts[list], cap_s);
-  const T* lbase = arena + static_cast<size_t>(list) * cap * dim;
-  const float* sq_l = arena_sq + static_cast<size_t>(list) * cap;
-  const float* sc_l =
-      scale != nullptr ? scale + static_cast<size_t>(list) * cap : nullptr;
-  const int nq = (m - warp + kWarps - 1) / kWarps;  // queries of this warp
-  const bool vec16 = (static_cast<size_t>(dim) * sizeof(T) % 16 == 0) &&
-                     (reinterpret_cast<uintptr_t>(arena) % 16 == 0);
-
-  for (int s0 = 0; s0 < lim; s0 += TS) {
-    const int nt = min(TS, lim - s0);
-    __syncthreads();  // the previous tile is consumed
-    stage_tile(tile, lbase, s0, nt, dim, vec16);
-    __syncthreads();
-
-    float acc[MPT][SPL];
-    tile_dots<T, MPT, SPL>(acc, tile, qs, dim, nq);
-
-    float xsq[SPL];
-    float sc[SPL];
-#pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      const int t = lane + 32 * j;
-      xsq[j] = t < nt ? sq_l[s0 + t] : 0.f;
-      sc[j] = (t < nt && sc_l != nullptr) ? sc_l[s0 + t] : 1.f;
-    }
-#pragma unroll
-    for (int i = 0; i < MPT; ++i) {
-      if (i < nq) {
-        const int mm = warp + kWarps * i;
-        const int p = qi[mm];
-        if (p >= 0) {
-          float* o = out + static_cast<size_t>(p) * cap_s + s0;
-#pragma unroll
-          for (int j = 0; j < SPL; ++j) {
-            const int t = lane + 32 * j;
-            if (t < nt) {
-              o[t] = flat_distance(metric, acc[i][j] * sc[j] + qa[mm],
-                                   qsq[mm], xsq[j]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  // --- slots past the list's count: +inf -----------------------------------
-  __syncthreads();  // qi visible even when the list is empty
-  for (int mm = warp; mm < m; mm += kWarps) {
-    const int p = qi[mm];
-    if (p < 0) continue;
-    float* o = out + static_cast<size_t>(p) * cap_s;
-    for (int s = lim + lane; s < cap_s; s += 32) o[s] = INFINITY;
-  }
-}
-
-// Tensor-core list-row scan (int8 / bf16 arenas): full rows out. BLOCK is
-// the norm source: false, K3 (arena_sq, with scale and anchor); true, K4
-// (|x|^2 formed from the staged chunks by tile_mma, nothing else read).
+// Tensor-core list-row scan: full rows out. BLOCK is the norm source:
+// false, K3 on int8, bf16 and fp32 arenas (arena_sq, with scale and
+// anchor); true, K4 on int8 and bf16 arenas (|x|^2 formed from the staged
+// chunks by tile_mma, nothing else read).
 template <typename T, bool BLOCK>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 sorted_scan_tc_kernel(const float* __restrict__ q,
@@ -245,7 +148,7 @@ sorted_scan_tc_kernel(const float* __restrict__ q,
       BLOCK ? nullptr : arena_sq + static_cast<size_t>(list) * cap;
   const float* sc_l =
       scale != nullptr ? scale + static_cast<size_t>(list) * cap : nullptr;
-  const int nchunks = (dim + tc::kDK - 1) / tc::kDK;
+  const int nchunks = tc::n_chunks(dim, sizeof(T));
   const bool block_norms = BLOCK && metric == kL2;
 
   int item = 0;
@@ -298,46 +201,6 @@ cudaError_t launch_sorted_tc(const float* q, const __nv_bfloat16* planes,
       counts, row_list, pair_table, out, batch, m, dim, nlist, cap, cap_s,
       nprobe, metric, l.stages, l.vec);
   return cudaGetLastError();
-}
-
-template <typename T, int MPT, int SPL>
-cudaError_t launch_sorted(const float* q, const void* arena,
-                          const float* arena_sq, const float* scale,
-                          const float* anchors, const int* counts,
-                          const int* row_list, const int* pair_table,
-                          float* out, int n_rows, int m, int dim, int nlist,
-                          int cap, int cap_s, int nprobe, int metric,
-                          int dtype, cudaStream_t stream) {
-  auto kernel = sorted_scan_kernel<T, MPT, SPL>;
-  const size_t smem = flat_row_smem_bytes(m, dim, dtype);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<n_rows, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(arena), arena_sq, scale, anchors, counts,
-      row_list, pair_table, out, m, dim, nlist, cap, cap_s, nprobe, metric);
-  return cudaGetLastError();
-}
-
-template <typename T, int SPL>
-cudaError_t dispatch_sorted(int mpt, const float* q, const void* arena,
-                            const float* arena_sq, const float* scale,
-                            const float* anchors, const int* counts,
-                            const int* row_list, const int* pair_table,
-                            float* out, int n_rows, int m, int dim, int nlist,
-                            int cap, int cap_s, int nprobe, int metric,
-                            int dtype, cudaStream_t stream) {
-#define VDB_LAUNCH(MPT)                                                       \
-  return launch_sorted<T, MPT, SPL>(q, arena, arena_sq, scale, anchors,       \
-                                    counts, row_list, pair_table, out, n_rows, \
-                                    m, dim, nlist, cap, cap_s, nprobe, metric, \
-                                    dtype, stream)
-  if (mpt <= 1) VDB_LAUNCH(1);
-  if (mpt <= 2) VDB_LAUNCH(2);
-  if (mpt <= 4) VDB_LAUNCH(4);
-  VDB_LAUNCH(8);
-#undef VDB_LAUNCH
 }
 
 // K4 on fp32 arenas: one CTA per (query, probe) pair, one warp per slot.
@@ -406,8 +269,9 @@ pair_scan_kernel(const float* __restrict__ q, const float* __restrict__ arena,
   }
 }
 
-// One launch of the tensor-core list-row kernel on an int8 / bf16 arena, with
-// either norm source.
+// One launch of the tensor-core list-row kernel with either norm source:
+// K3 (BLOCK false) on an int8, bf16 or fp32 arena, K4 (BLOCK true) on an
+// int8 or bf16 arena.
 template <bool BLOCK>
 cudaError_t launch_list_rows_tc(const void* q, const void* planes,
                                 const void* arena, const void* arena_sq,
@@ -437,6 +301,13 @@ cudaError_t launch_list_rows_tc(const void* q, const void* planes,
         qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim, nlist,
         cap, cap_s, nprobe, metric, st);
   }
+  if constexpr (!BLOCK) {
+    if (dtype == kF32) {
+      return launch_sorted_tc<float, false>(
+          qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim,
+          nlist, cap, cap_s, nprobe, metric, st);
+    }
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -444,20 +315,17 @@ cudaError_t launch_list_rows_tc(const void* q, const void* planes,
 
 extern "C" {
 
-// Largest list-row width M of the full-row scans (K3, K4) at this dimension
-// and arena dtype (0: none fits): 64 on int8 / bf16 arenas (tensor cores, D
-// staged in chunks), the shared-memory bound of M fp32 query rows on fp32
-// arenas.
+// Largest list-row width M of the list-row scans (K3; K4 on int8 / bf16) at
+// this dimension and arena dtype (0: none fits): 64 on int8, bf16 and fp32
+// arenas (D staged in chunks, so independent of D).
 int vdb_sorted_scan_max_m(int dim, int dtype) {
-  if (dim <= 0) return 0;
-  if (dtype == kInt8) return tc::max_m(1);
-  if (dtype == kBf16) return tc::max_m(2);
-  return flat_row_max_m(dim, dtype);
+  if (dim <= 0 || dtype < kInt8 || dtype > kF32) return 0;
+  return tc::max_m(elem_size(dtype));
 }
 
 // Launch the sorted scan (K3) on `stream`. Returns a cudaError_t (0 =
 // launched). Pointers: q [B, dim] f32; planes [3, B, dim] bf16, the query's
-// hi / mid / lo split (int8 / bf16 arenas; ignored on f32); arena
+// hi / mid / lo split; arena
 // [nlist, cap, dim] of `dtype` (0 int8, 1 bf16, 2 f32); arena_sq
 // [nlist, cap] f32; scale [nlist, cap] f32 or null; anchors [nlist, dim]
 // f32 or null; counts [nlist] i32 (local); row_list [n_rows] i32 (nlist =
@@ -474,18 +342,8 @@ int vdb_sorted_scan(const void* q, const void* planes, const void* arena,
   if (n_rows <= 0 || batch <= 0 || m <= 0 ||
       m > vdb_sorted_scan_max_m(dim, dtype) || cap_s <= 0 || cap_s > cap ||
       nlist <= 0 || nprobe <= 0 || metric < kL2 || metric > kCosine ||
-      arena_sq == nullptr || (dtype != kF32 && planes == nullptr)) {
+      arena_sq == nullptr || planes == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (dtype == kF32) {
-    return static_cast<int>(dispatch_sorted<float, 1>(
-        (m + kWarps - 1) / kWarps, static_cast<const float*>(q), arena,
-        static_cast<const float*>(arena_sq), static_cast<const float*>(scale),
-        static_cast<const float*>(anchors), static_cast<const int*>(counts),
-        static_cast<const int*>(row_list),
-        static_cast<const int*>(pair_table), static_cast<float*>(out), n_rows,
-        m, dim, nlist, cap, cap_s, nprobe, metric, dtype,
-        static_cast<cudaStream_t>(stream)));
   }
   return static_cast<int>(launch_list_rows_tc<false>(
       q, planes, arena, arena_sq, scale, anchors, counts, row_list, pair_table,

@@ -20,52 +20,48 @@
 // [n_rows, M, k] distances and slots, +inf / -1 where a list has fewer than
 // k rows, for sentinel rows (list id >= nlist) and for empty query slots.
 //
-// Design. On int8 and bf16 arenas (the IVF-Flat main path) the dots run on
-// the tensor cores, on exact bf16 products (tc_scan.cuh): the wrapper
-// splits the fp32 queries into three bf16 planes [3, B, D] once per call,
-// and grouped_scan_tc_kernel gives one CTA of 10 warps to one list-row.
-// Warps 8-9 stream the list's tiles of 256 slots, D in chunks of 64, and the
-// row's query-plane chunks through a 2-4 stage cp.async ring ordered by
+// Design. The dots run on the tensor cores, on exact bf16 products
+// (tc_scan.cuh): the wrapper splits the fp32 queries into three bf16 planes
+// [3, B, D] once per call, and grouped_scan_tc_kernel gives one CTA of 10
+// warps to one list-row. Warps 8-9 stream the list's tiles of 256 slots, D
+// in chunks (64 wide on int8 / bf16 arenas, 32 on fp32), and the row's
+// query-plane chunks through a 2-4 stage cp.async ring ordered by
 // mbarriers; warps 0-7 multiply them with mma.sync m16n8k16 bf16 (a fresh
 // fp32 accumulator per chunk, the chunks summed on the CUDA cores; int8
-// widened to bf16 once in registers), turn each tile's
+// widened to bf16 once in registers, fp32 split into three bf16 planes in
+// registers and multiplied as six plane products), turn each tile's
 // accumulators into distances in shared memory, and keep each query's top-k
 // with warp_merge: the running list of query w + 8 i spread over the lanes
 // of warp w (entry r at lane r % 32), a tile whose best candidate cannot
 // beat the current k-th skipped with one ballot, k rounds of shuffle argmin
 // otherwise, ties to the smaller slot. |q|^2 and q . anchor stay fp32 on
-// the CUDA cores. The row width is at most 64 at any D (the ring holds D
-// chunks), reported by vdb_grouped_scan_max_m.
-//
-// fp32 arenas are not exact in bf16 and keep the CUDA-core kernel
-// (grouped_scan_kernel): the CTA reads its M fp32 query rows into shared
-// memory, stages 32-slot tiles and runs grouped_common.cuh's tile_dots
-// (warp w owns queries w, w+8, ...; lane t slot t) before the same
-// warp_merge.
+// the CUDA cores. The row width is at most 64 at any D and arena dtype (the
+// ring holds D chunks), reported by vdb_grouped_scan_max_m.
 //
 // What bounds it on the H100 (SXM, 700 W). At the IVF-Flat main shape
-// (int8 residual, D 768, nlist 1024, cap 1408, B 1024, nprobe 32, k 10) a
-// call must read the probed lists once, about 0.82 GB: 0.245 ms at
-// 3.35 TB/s. The three bf16 products are 3 x 52.5 GFLOP, 0.16 ms at
-// 989 TFLOP/s, so bytes bound it. The fp32 loop of the first version could
-// never beat 0.78 ms (52.5 GFLOP at 67 TFLOP/s) and took 16.9 ms: builds of
-// it with parts edited out, timed on an NVIDIA H100 80GB HBM3 at 700 W,
-// showed the dot loop's issue rate as the limiter (16.9 ms with staging
-// skipped, 2.5 ms with the dots skipped, 2.1 ms with both, 7.2 ms at M 16),
-// not the tile loads and not the top-k.
+// (D 768, nlist 1024, cap 1408, B 1024, nprobe 32, k 10) a call must read
+// the probed lists once: 0.82 GB of int8 residuals, 0.245 ms at 3.35 TB/s,
+// against three bf16 products of 52.5 GFLOP, 0.16 ms at 989 TFLOP/s; 3.2 GB
+// on an fp32 arena, 0.96 ms, against six products of 54 GFLOP, 0.33 ms. So
+// bytes bound it. The fp32 CUDA-core loop of the first version (fp32 query
+// rows and 32-slot tiles in shared memory, one FMA chain per query and slot)
+// could never beat 0.78 ms (52.5 GFLOP at 67 TFLOP/s) and was bound by its
+// issue rate: 16.9 ms on int8 (16.9 ms with the tile staging skipped, 2.5
+// ms with the dots skipped, 2.1 ms with both, 7.2 ms at M 16) and 32.0 ms
+// on fp32, timed on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
 //
 // The pieces shared with K3 (full_row_scan.cu): the tensor-core engine in
-// tc_scan.cuh; with K2 and K3, the helpers, tile staging, fp32 tile dots
-// and warp_merge in grouped_common.cuh.
+// tc_scan.cuh; with K2 and K3, the helpers and warp_merge in
+// grouped_common.cuh.
 //
-// What later versions change. The tensor-core kernel takes 1.95 ms at the
-// main shape, 8x its bound, in three parts of about equal size that run
-// one after another (tc_scan.cuh): the ring, the mma and the top-k merge.
-// So: merge warps of their own behind a double-buffered distance tile, so
-// that one tile's merge overlaps the next tile's mma; wgmma instead of
-// mma.sync (the slot tile as the register operand, the planes in shared
-// memory); the query planes kept resident where M allows, instead of
-// re-read for every tile; and one list tile shared by all rows of a list
+// What later versions change. The tensor-core kernel takes 1.92 ms at the
+// int8 main shape, 7.8x its bound, and 3.07 ms on fp32, 3.2x (NVIDIA H100
+// 80GB HBM3, 700 W), in three parts that run one after another
+// (tc_scan.cuh): the ring, the mma and the top-k merge. So: merge warps of their own behind a double-buffered distance
+// tile, so that one tile's merge overlaps the next tile's mma; wgmma
+// instead of mma.sync (the slot tile as the register operand, the planes
+// in shared memory); the query planes kept resident where M allows, instead
+// of re-read for every tile; and one list tile shared by all rows of a list
 // (a persistent CTA per list), so that a list is read from HBM once per
 // batch.
 
@@ -83,131 +79,7 @@ namespace {
 
 using namespace vdb;
 
-template <typename T, int MPT, int SPL, int KPL>
-__global__ void __launch_bounds__(kThreads)
-grouped_scan_kernel(const float* __restrict__ q, const T* __restrict__ arena,
-                    const float* __restrict__ arena_sq,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ anchors,
-                    const int* __restrict__ counts,
-                    const int* __restrict__ row_list,
-                    const int* __restrict__ qrow_table,
-                    float* __restrict__ out_d, int* __restrict__ out_s, int m,
-                    int dim, int nlist, int cap, int cap_s, int k,
-                    int metric) {
-  constexpr int TS = 32 * SPL;
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int dp = padded_dim(dim);
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [m][dp]
-  float* qsq = qs + static_cast<size_t>(m) * dp;
-  float* qa = qsq + m;
-  int* qi = reinterpret_cast<int*>(qa + m);
-  T* tile = reinterpret_cast<T*>(smem + query_smem_bytes(m, dim));
-
-  float* od = out_d + static_cast<size_t>(row) * m * k;
-  int* os = out_s + static_cast<size_t>(row) * m * k;
-  const int list = row_list[row];
-  if (list < 0 || list >= nlist) {  // sentinel row: nothing to scan
-    for (int i = tid; i < m * k; i += kThreads) {
-      od[i] = INFINITY;
-      os[i] = -1;
-    }
-    return;
-  }
-
-  // --- this row's queries, straight from q [B, D] --------------------------
-  load_row_queries(qs, qi, tile, q, qrow_table + static_cast<size_t>(row) * m,
-                   m, dim, 1, TS);
-  row_query_norms(qs, qsq, qa,
-                  anchors != nullptr ? anchors + static_cast<size_t>(list) * dim
-                                     : nullptr,
-                  m, dim);
-  // (the first tile's __syncthreads publishes qsq / qa)
-
-  // --- walk the occupied slot prefix in tiles of TS slots ------------------
-  const int lim = min(counts[list], cap_s);
-  const T* lbase = arena + static_cast<size_t>(list) * cap * dim;
-  const float* sq_l = arena_sq + static_cast<size_t>(list) * cap;
-  const float* sc_l =
-      scale != nullptr ? scale + static_cast<size_t>(list) * cap : nullptr;
-  const int nq = (m - warp + kWarps - 1) / kWarps;  // queries of this warp
-  const bool vec16 = (static_cast<size_t>(dim) * sizeof(T) % 16 == 0) &&
-                     (reinterpret_cast<uintptr_t>(arena) % 16 == 0);
-
-  float bd[MPT][KPL];
-  int bs[MPT][KPL];
-  float kth[MPT];
-#pragma unroll
-  for (int i = 0; i < MPT; ++i) {
-    kth[i] = INFINITY;
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      bd[i][j] = INFINITY;
-      bs[i][j] = INT_MAX;
-    }
-  }
-
-  for (int s0 = 0; s0 < lim; s0 += TS) {
-    const int nt = min(TS, lim - s0);
-    __syncthreads();  // the previous tile is consumed
-    stage_tile(tile, lbase, s0, nt, dim, vec16);
-    __syncthreads();
-
-    float acc[MPT][SPL];
-    tile_dots<T, MPT, SPL>(acc, tile, qs, dim, nq);
-
-    float xsq[SPL];
-    float sc[SPL];
-    bool valid[SPL];
-#pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      const int t = lane + 32 * j;
-      valid[j] = t < nt;
-      xsq[j] = valid[j] ? sq_l[s0 + t] : 0.f;
-      sc[j] = (valid[j] && sc_l != nullptr) ? sc_l[s0 + t] : 1.f;
-    }
-#pragma unroll
-    for (int i = 0; i < MPT; ++i) {
-      if (i < nq) {
-        const int mm = warp + kWarps * i;
-        float cd[SPL];
-#pragma unroll
-        for (int j = 0; j < SPL; ++j) {
-          const float qx = acc[i][j] * sc[j] + qa[mm];
-          cd[j] = valid[j] ? flat_distance(metric, qx, qsq[mm], xsq[j])
-                           : INFINITY;
-        }
-        warp_merge<SPL, KPL>(bd[i], bs[i], kth[i], cd, s0 + lane, k);
-      }
-    }
-  }
-
-  // --- write the per-query top-k -------------------------------------------
-  __syncthreads();  // qi / qsq visible even when the list is empty
-#pragma unroll
-  for (int i = 0; i < MPT; ++i) {
-    if (i < nq) {
-      const int mm = warp + kWarps * i;
-      const bool live = qi[mm] >= 0;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const int r = lane + 32 * j;
-        if (r < k) {
-          const bool hit = live && bd[i][j] != INFINITY;
-          od[mm * k + r] = hit ? bd[i][j] : INFINITY;
-          os[mm * k + r] = hit ? bs[i][j] : -1;
-        }
-      }
-    }
-  }
-}
-
-// Tensor-core list-row scan with the fused top-k (int8 / bf16 arenas).
+// Tensor-core list-row scan with the fused top-k (int8, bf16, fp32 arenas).
 template <typename T, int KPL>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 grouped_scan_tc_kernel(const float* __restrict__ q,
@@ -259,7 +131,7 @@ grouped_scan_tc_kernel(const float* __restrict__ q,
   const float* sq_l = arena_sq + static_cast<size_t>(list) * cap;
   const float* sc_l =
       scale != nullptr ? scale + static_cast<size_t>(list) * cap : nullptr;
-  const int nchunks = (dim + tc::kDK - 1) / tc::kDK;
+  const int nchunks = tc::n_chunks(dim, sizeof(T));
 
   float bd[8][KPL];
   int bs[8][KPL];
@@ -342,83 +214,21 @@ cudaError_t launch_tc(const float* q, const __nv_bfloat16* planes,
   return cudaGetLastError();
 }
 
-template <typename T, int MPT, int SPL, int KPL>
-cudaError_t launch(const float* q, const void* arena, const float* arena_sq,
-                   const float* scale, const float* anchors, const int* counts,
-                   const int* row_list, const int* qrow_table, float* out_d,
-                   int* out_s, int n_rows, int m, int dim, int nlist, int cap,
-                   int cap_s, int k, int metric, int dtype,
-                   cudaStream_t stream) {
-  auto kernel = grouped_scan_kernel<T, MPT, SPL, KPL>;
-  const size_t smem = flat_row_smem_bytes(m, dim, dtype);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<n_rows, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(arena), arena_sq, scale, anchors, counts,
-      row_list, qrow_table, out_d, out_s, m, dim, nlist, cap, cap_s, k,
-      metric);
-  return cudaGetLastError();
-}
-
-template <typename T, int SPL, int KPL>
-cudaError_t dispatch_m(int mpt, const float* q, const void* arena,
-                       const float* arena_sq, const float* scale,
-                       const float* anchors, const int* counts,
-                       const int* row_list, const int* qrow_table,
-                       float* out_d, int* out_s, int n_rows, int m, int dim,
-                       int nlist, int cap, int cap_s, int k, int metric,
-                       int dtype, cudaStream_t stream) {
-#define VDB_LAUNCH(MPT)                                                      \
-  return launch<T, MPT, SPL, KPL>(q, arena, arena_sq, scale, anchors, counts, \
-                                  row_list, qrow_table, out_d, out_s, n_rows, \
-                                  m, dim, nlist, cap, cap_s, k, metric, dtype, \
-                                  stream)
-  if (mpt <= 1) VDB_LAUNCH(1);
-  if (mpt <= 2) VDB_LAUNCH(2);
-  if (mpt <= 4) VDB_LAUNCH(4);
-  VDB_LAUNCH(8);
-#undef VDB_LAUNCH
-}
-
-template <typename T, int SPL>
-cudaError_t dispatch_k(int mpt, const float* q, const void* arena,
-                       const float* arena_sq, const float* scale,
-                       const float* anchors, const int* counts,
-                       const int* row_list, const int* qrow_table,
-                       float* out_d, int* out_s, int n_rows, int m, int dim,
-                       int nlist, int cap, int cap_s, int k, int metric,
-                       int dtype, cudaStream_t stream) {
-  if (k <= 32) {
-    return dispatch_m<T, SPL, 1>(mpt, q, arena, arena_sq, scale, anchors,
-                                 counts, row_list, qrow_table, out_d, out_s,
-                                 n_rows, m, dim, nlist, cap, cap_s, k, metric,
-                                 dtype, stream);
-  }
-  return dispatch_m<T, SPL, 2>(mpt, q, arena, arena_sq, scale, anchors, counts,
-                               row_list, qrow_table, out_d, out_s, n_rows, m,
-                               dim, nlist, cap, cap_s, k, metric, dtype,
-                               stream);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Largest list-row width M the scan takes at this dimension and arena dtype
-// (0: none fits): 64 on int8 / bf16 arenas (tensor cores, D staged in
-// chunks), the shared-memory bound of M fp32 query rows on fp32 arenas.
+// (0: none fits): 64 on int8, bf16 and fp32 arenas (D staged in chunks, so
+// independent of D).
 int vdb_grouped_scan_max_m(int dim, int dtype) {
-  if (dim <= 0) return 0;
-  if (dtype == kInt8) return tc::max_m(1);
-  if (dtype == kBf16) return tc::max_m(2);
-  return flat_row_max_m(dim, dtype);
+  if (dim <= 0 || dtype < kInt8 || dtype > kF32) return 0;
+  return tc::max_m(elem_size(dtype));
 }
 
 // Launch the grouped scan on `stream`. Returns a cudaError_t (0 = launched).
 // Pointers: q [B, dim] f32; planes [3, B, dim] bf16, the query's hi / mid /
-// lo split (int8 / bf16 arenas; ignored on f32); arena [nlist, cap, dim] of
+// lo split; arena [nlist, cap, dim] of
 // `dtype` (0 int8, 1 bf16, 2 f32); arena_sq [nlist, cap] f32; scale
 // [nlist, cap] f32 or null; anchors [nlist, dim] f32 or null; counts
 // [nlist] i32; row_list [n_rows] i32; qrow_table [n_rows, m] i32; out_d /
@@ -433,7 +243,7 @@ int vdb_grouped_scan(const void* q, const void* planes, const void* arena,
   if (n_rows <= 0 || batch <= 0 || m <= 0 ||
       m > vdb_grouped_scan_max_m(dim, dtype) || k <= 0 || k > 64 ||
       cap_s <= 0 || cap_s > cap || nlist <= 0 || metric < kL2 ||
-      metric > kCosine || (dtype != kF32 && planes == nullptr)) {
+      metric > kCosine || planes == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* qf = static_cast<const float*>(q);
@@ -460,9 +270,9 @@ int vdb_grouped_scan(const void* q, const void* planes, const void* arena,
                                      cap, cap_s, k, metric, st);
       break;
     case kF32:
-      err = dispatch_k<float, 1>((m + kWarps - 1) / kWarps, qf, arena, sq,
-                                 sc, an, cn, rl, qt, od, os, n_rows, m, dim,
-                                 nlist, cap, cap_s, k, metric, dtype, st);
+      err = launch_tc<float>(qf, qp, arena, sq, sc, an, cn, rl, qt, od, os,
+                             n_rows, batch, m, dim, nlist, cap, cap_s, k,
+                             metric, st);
       break;
     default:
       err = cudaErrorInvalidValue;

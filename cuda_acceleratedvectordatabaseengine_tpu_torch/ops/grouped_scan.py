@@ -12,10 +12,11 @@ smallest per (query, list); an epilogue takes the final top-k over
 Two implementations of the per-row step sit side by side:
 
 - :func:`_grouped_rows_cuda` launches the hand-written Hopper kernel in
-  ``csrc/grouped_scan.cu`` and adds one to :data:`LAUNCHES` per launch; on
-  int8 and bf16 arenas it first splits the fp32 queries into three bf16
-  planes (:func:`split_query_bf16x3`), which the kernel multiplies with
-  the codes on the tensor cores (exact products, fp32 sums);
+  ``csrc/grouped_scan.cu`` and adds one to :data:`LAUNCHES` per launch; it
+  first splits the fp32 queries into three bf16 planes
+  (:func:`split_query_bf16x3`), which the kernel multiplies with the
+  stored values on the tensor cores (exact products, fp32 sums; an fp32
+  arena's values are split the same way inside the kernel);
 - :func:`_grouped_rows_reference` is the plain PyTorch version of the same
   function.
 
@@ -207,10 +208,13 @@ def split_query_bf16x3(q: torch.Tensor) -> torch.Tensor:
     """The query's three bf16 planes ``[3, B, D]``: hi = bf16(q), mid =
     bf16(q - hi), lo = bf16(q - hi - mid). Both differences are exact in
     fp32 and hi + mid + lo == q exactly (three 8-bit significands cover
-    fp32's 24, barring underflow far below any distance that matters), so
-    the three bf16 products with an int8 or bf16 code are exact and their
-    fp32 sum is the dot up to fp32 accumulation: what the tensor-core scans
-    (K1, K3) compute."""
+    fp32's 24), unless the lo plane falls below bf16's smallest subnormal
+    2⁻¹³³ (|q| < 2⁻¹¹⁰, where the sum is off by at most 2⁻¹³⁴). So the three
+    bf16 products with an int8 or bf16 code are exact and their fp32 sum
+    is the dot up to fp32 accumulation: what the tensor-core scans (K1, K3,
+    K4) compute. The kernels split an fp32 arena's values the same way, in
+    registers, and sum six of the nine plane products (hh, hm, mh, hl, lh,
+    mm; ``csrc/tc_scan.cuh``)."""
     q = q.float()
     hi = q.to(torch.bfloat16)
     r = q - hi.float()
@@ -221,10 +225,9 @@ def split_query_bf16x3(q: torch.Tensor) -> torch.Tensor:
 
 def kernel_max_m(dim: int, arena_dtype: torch.dtype) -> int:
     """Widest list-row the CUDA kernel takes at this dimension and arena
-    dtype: 64 on int8 / bf16 arenas (the tensor-core kernel stages D in
-    chunks), on fp32 arenas the most fp32 query rows that fit the 227 KB of
-    shared memory of one CTA beside a slot tile. Builds the kernel library
-    if needed."""
+    dtype: 64 on int8, bf16 and fp32 arenas (the tensor-core kernel stages
+    D in chunks, so the width does not depend on D). Builds the kernel
+    library if needed."""
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops._build import (
         load_library,
     )
@@ -290,12 +293,12 @@ def check_list_row_args(check, q, arena, arena_sq, counts, row_list, table,
           f"bound at D={dim}, {arena.dtype}")
 
 
-def query_planes(q: torch.Tensor, arena_dtype: torch.dtype):
-    """The ``[3, B, D]`` bf16 planes the tensor-core kernels read (int8 /
-    bf16 arenas, contiguous), None for an fp32 arena (the CUDA-core
-    kernel reads the fp32 queries)."""
-    if arena_dtype == torch.float32:
-        return None
+def query_planes(q: torch.Tensor, arena_dtype: torch.dtype) -> torch.Tensor:
+    """The contiguous ``[3, B, D]`` bf16 planes the tensor-core kernels
+    read beside an arena of ``arena_dtype`` (int8, bf16 or fp32; raises on
+    another)."""
+    if arena_dtype not in _DTYPE_IDS:
+        raise ValueError(f"the kernels take no {arena_dtype} arena")
     return split_query_bf16x3(q).contiguous()
 
 

@@ -22,10 +22,12 @@ planes, ``cp.async`` ring, ``mma.sync``) in its block-norm variant, which
 forms each slot's ``|x|²`` once per tile from the chunks it stages anyway
 (int8 exactly in int32, bf16 as fp32 sums of exact products). IP and cosine
 form no norms. What bounds it then: the bytes (the probed lists once, the
-rows out), as for K3. fp32 arenas, whose values are not exact in bf16, keep
-the pair-per-CTA CUDA-core kernel (one warp per slot, pairs in list order):
-at the fp32 main shape it took half the time of K3's CUDA-core list-row
-kernel with block norms. The kernel is chosen by the arena's dtype, in
+rows out), as for K3. fp32 arenas keep the pair-per-CTA CUDA-core kernel
+(one warp per slot, pairs in list order): at the fp32 main shape it took
+half the time of a CUDA-core list-row kernel with block norms. K3's
+tensor-core kernel takes fp32 arenas, but not in its block-norm variant
+(how the norms of split fp32 values sum against the tolerance is still
+open). The kernel is chosen by the arena's dtype, in
 :func:`_pair_rows_cuda`.
 
 Two implementations of the row step sit side by side:

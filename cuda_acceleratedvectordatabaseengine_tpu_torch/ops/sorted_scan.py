@@ -15,9 +15,10 @@ of the step sit side by side:
 
 - :func:`_sorted_rows_cuda` launches the hand-written Hopper kernel in
   ``csrc/full_row_scan.cu`` and adds one to :data:`LAUNCHES` per launch;
-  on int8 and bf16 arenas it passes the query's three bf16 planes
+  it passes the query's three bf16 planes
   (``grouped_scan.split_query_bf16x3``), which the kernel multiplies with
-  the codes on the tensor cores (exact products, fp32 sums);
+  the stored values on the tensor cores (exact products, fp32 sums; an
+  fp32 arena's values are split the same way inside the kernel);
 - :func:`_sorted_rows_reference` is the plain PyTorch version.
 
 :func:`scan_probed_lists_sorted` takes the plain version for CPU tensors and
@@ -151,9 +152,8 @@ def _sorted_rows_reference(q, arena, arena_sq, counts, row_list, pair_table,
 
 def kernel_max_m(dim: int, arena_dtype: torch.dtype) -> int:
     """Widest list-row the CUDA kernel takes at this dimension and arena
-    dtype: 64 on int8 / bf16 arenas (tensor cores, D staged in chunks), on
-    fp32 arenas the most fp32 query rows that fit one CTA's shared memory
-    beside a slot tile. Builds the kernel library if needed."""
+    dtype: 64 on int8, bf16 and fp32 arenas (tensor cores, D staged in
+    chunks). Builds the kernel library if needed."""
     from cuda_acceleratedvectordatabaseengine_tpu_torch.ops._build import (
         load_library,
     )
