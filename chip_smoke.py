@@ -134,7 +134,11 @@ fails (non-zero exit, no result line) when any phase fails:
    queries (once traced, once not), 64-query requests, topk 100 (K3),
    streams (gate: success rate 1.0); (f) one ``/trace?ms=500`` capture
    from the profiler trace server during (d)'s first run (gate: it names
-   K1's kernel); (b) ``tools.benchmark``
+   K1's kernel; every window's note printed: records of each kind, their
+   spans, the waits for the card), then, ungated, one window that records
+   the capturing thread only; (h), after every other phase, a directed test of
+   the profiler's window against a backlog on the card
+   (``capture_probe``, ungated); (b) ``tools.benchmark``
    (1M x 768, nlist 1024): the CSV row; (c) ``tools.recall_test`` on
    200K x 768 (its float64 oracle copies the corpus: 6 GB at 1M), flat and
    PQ m 96 (gates at nprobe 32: 0.95 flat; PQ reranked above ADC-only and
@@ -166,7 +170,11 @@ fails (non-zero exit, no result line) when any phase fails:
    GB, waves);
    (e) after 14, ``build_on_mesh`` of flat-1M on 4 shards trained by
    ``sharded_kmeans_fit`` (inertia within 2% of ``kmeans_fit`` on the
-   same sample, recall@10 ≥ 0.95 at 32; train s, pack s); (f) after 17,
+   same sample, recall@10 ≥ 0.95 at 32; train s, pack s); (g) right
+   after 14, a 4-shard view over phase 14's ``store_residuals`` index (the
+   lo plane striped with the arena): a ``use_exact_rerank`` search at
+   nprobe 32 equal to the single-device reranked one (ids up to ties),
+   recall@10 ≥ 0.95, K1 once per shard and search; (f) after 17,
    a ``VdbEngine`` with an explicit 4-shard mesh recovering phase 16's
    epochs (``flat`` sharded, ``pqcap`` on one device): 32 clients, 1024
    single queries and 256 reranked ones, each answer equal to the
@@ -175,7 +183,7 @@ fails (non-zero exit, no result line) when any phase fails:
    kernel report's launches add phase 18's.
 
 They run in the order 0, 1, 2, 2b, 2c, 18b, 3, 7-9, 18c, 15a, 10, 15b,
-4-6, 11, 11b, 18a, 11c, 12, 18d, 13, 14, 18e, 16, 17, 18f.
+4-6, 11, 11b, 18a, 11c, 12, 18d, 13, 14, 18g, 18e, 16, 17, 18f.
 
 The second-to-last line is the kernel report JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -194,6 +202,7 @@ import re
 import resource
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import weakref
@@ -213,11 +222,11 @@ RTOL = 1e-5          # distance tolerance, relative ...
 ATOL_QSQ = 1e-5      # ... plus this × ‖q‖² (fp32 sums in another order)
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): fp32 on the
 # CUDA cores (K2's dots of fp32 queries with fp32 codebook entries, however
-# the kernel sums them, and K4 on fp32 arenas run there; K1 and K3 on fp32
-# arenas run as six exact bf16 products on the tensor cores, but their bound
-# keeps this count: bytes bound them either way), dense bf16 on the tensor
-# cores (K1, K3 and K4 on int8 and bf16 arenas run there as three exact
-# bf16 products per multiply-add), and HBM3 bandwidth.
+# the kernel sums them, run there; K1, K3 and K4 on fp32 arenas run as six
+# exact bf16 products on the tensor cores, but their bound keeps this
+# count: bytes bound them either way), dense bf16 on the tensor cores (K1,
+# K3 and K4 on int8 and bf16 arenas run there as three exact bf16 products
+# per multiply-add), and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 BF16_PLANES = 3      # hi / mid / lo bf16 planes of an fp32 query
@@ -1048,11 +1057,11 @@ def check_full_row_case(name, case, k, metric, kernel, m_budget=None,
                          metric, cap_s)
             rows_kw = {}
             kern, ref = ps._pair_rows_cuda, ps._pair_rows_reference
-        if kernel == "pairs" and case["arena"].dtype != torch.float32:
-            # int8 / bf16: the wrapper packs the pairs into list-rows (K3's
-            # packing) and launches the list-row kernel. `ms` below times
-            # the wrapper, packing included; `packed_ms` is the launch on
-            # rows packed beforehand (what K3's `ms` spans)
+        if kernel == "pairs":
+            # the wrapper packs the pairs into list-rows (K3's packing) and
+            # launches the list-row kernel. `ms` below times the wrapper,
+            # packing included; `packed_ms` is the launch on rows packed
+            # beforehand (what K3's `ms` spans)
             m = min(gs.auto_m_budget(batch * nprobe, nlist),
                     ss.kernel_max_m(dim, case["arena"].dtype))
             row_list, table = ss._pair_table(case["probe"], nlist, m)
@@ -1317,9 +1326,8 @@ SEARCH_STAGES = ("ivf_flat.upload", "ivf_flat.coarse_probe",
 K1_KERNEL_STAGES = (("grouped_scan_tc_kernel", "grouped_scan.rows"),)
 K3_KERNEL_STAGES = (("sorted_scan_tc_kernel", "sorted_scan.rows"),)
 # K4 runs K3's tensor-core kernel in its block-norm variant inside its own
-# range (int8 / bf16 arenas), its pair-per-CTA kernel on fp32 arenas
-K4_KERNEL_STAGES = (("sorted_scan_tc_kernel", "pair_scan.rows"),
-                    ("pair_scan_kernel", "pair_scan.rows"))
+# range, on every arena dtype
+K4_KERNEL_STAGES = (("sorted_scan_tc_kernel", "pair_scan.rows"),)
 K4_SEARCH_STAGES = ("ivf_flat.upload", "ivf_flat.coarse_probe",
                     "pair_scan.rows", "pair_scan.topk", "ivf_flat.finalize")
 K2_KERNEL_STAGES = (("pq_table_scan_kernel", "grouped_pq_scan.rows"),
@@ -1802,8 +1810,9 @@ def phase_flat_f32(args, dev, q_np, truth, cal_nprobe, centers, capacity,
     corpus and geometry (nlist 1024, the same capacity, the same chunks;
     4.4 GB of arena), built with ``train_from_device`` and
     ``append_balanced``, served at the calibrated nprobe and at 32 through
-    ``"auto"`` (K1), ``"pallas_sorted"`` (K3) and ``"pallas"`` (K4, its
-    pair-per-CTA kernel on fp32): all three equal, recall@10 ≥ 0.95 each;
+    ``"auto"`` (K1), ``"pallas_sorted"`` (K3) and ``"pallas"`` (K4, the
+    list-row kernel's fp32 block-norm instance): all three equal, recall@10
+    ≥ 0.95 each;
     then a k 100 search through ``"auto"``, which must launch K3 (K1 keeps
     at most 64), its top 10 equal to the k 10 answer; and one traced K1
     batch at nprobe 32. ``keep["index"]`` receives the index, for the
@@ -2211,7 +2220,8 @@ def phase_flat_lifecycle(args, dev, idx, queries, q_np, cal_nprobe,
     return out
 
 
-def phase_rerank_builder(args, dev, queries, q_np, truth, centers) -> dict:
+def phase_rerank_builder(args, dev, queries, q_np, truth, centers,
+                         keep) -> dict:
     """Phase 14, exact rerank and the builder at full width: a 1M×768
     int8-residual index with ``store_residuals`` built by
     ``build_index_chunked`` (the phase-4 corpus in 4 chunks, a train
@@ -2221,7 +2231,9 @@ def phase_rerank_builder(args, dev, queries, q_np, truth, centers) -> dict:
     the original rows), saved and loaded (rerank results equal: the lo
     plane survived). Then a bf16 ``FlatIndex`` of the same corpus (stored
     exactly: the corpus is bf16): recall@10 ≥ 0.99 and its distances
-    within the fp32 tolerance of the oracle's float64 ones."""
+    within the fp32 tolerance of the oracle's float64 ones. ``keep``
+    receives the index and its reranked answer at nprobe 32 for phase 18
+    (g)."""
     import numpy as np
     import torch
 
@@ -2292,6 +2304,7 @@ def phase_rerank_builder(args, dev, queries, q_np, truth, centers) -> dict:
                                              use_exact_rerank=True))
     out["snapshot"]["same_rerank"] = same_results(
         "loaded vs saved, reranked", got, res["rerank"], q_np)
+    keep.update(index=idx, rerank=res["rerank"])
     del back, idx
     torch.cuda.empty_cache()
 
@@ -3150,11 +3163,11 @@ def release_serving(shared) -> None:
 
 LOAD_TEST_THREADS = 32
 # (name, the load_test flags, requests per thread): (d) of phase 17. The
-# first run carries (f)'s profiler capture (which stalls the server while
+# first run carries (f)'s profiler captures (which stall the server while
 # the profiler starts and stops), so the runs measured after it are
 # untraced.
 LOAD_TESTS = (
-    ("traced_packed_single", ["--packed"], 64),
+    ("traced_packed_single", ["--packed"], 128),
     ("packed_single", ["--packed"], 160),
     ("batch64", ["--packed", "--batch", "64"], 4),
     ("topk100", ["--packed", "--topk", "100"], 4),
@@ -3240,12 +3253,17 @@ def trace_during_load(trace_port, engine, name, result) -> threading.Thread:
     """(f): wait until the server's coalescer has dispatched a batch of
     the load test, then ask the trace server for ``TRACE_MS`` ms; the
     Chrome trace's kernel names, its records per category and the
-    server's ``vdbCapture`` note (windows taken) land in ``result``."""
+    server's ``vdbCapture`` note (windows taken, and each window's
+    records, spans and waits for the card) land in ``result``. Then, while
+    the load still runs, one more window in this process that records the
+    capturing thread's CPU ops only (``utils/profiling._profile_window``
+    with ``all_threads`` off; its note under ``caller_capture``), to hold
+    the two against each other."""
     import collections
     import urllib.request
 
-    from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
-        KERNEL_CAT,
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
+        profiling,
     )
 
     st = engine.get_state(name)
@@ -3269,11 +3287,116 @@ def trace_during_load(trace_port, engine, name, result) -> threading.Thread:
             str(e.get("cat")) for e in events))
         result["capture"] = trace.get("vdbCapture")
         result["kernel_names"] = sorted({
-            e["name"] for e in events if e.get("cat") == KERNEL_CAT})
+            e["name"] for e in events if e.get("cat") == profiling.KERNEL_CAT})
+        batches = st.coalescer.stats()["batches"]
+        time.sleep(0.05)
+        if st.coalescer.stats()["batches"] == batches:
+            result["caller_capture"] = "the load had ended"
+            return
+        result["caller_capture"] = profiling._profile_window(
+            TRACE_MS, all_threads=False)[1]
 
     t = threading.Thread(target=fetch, name="trace-client", daemon=True)
     t.start()
     return t
+
+
+def capture_probe(dev, window_ms: float = 300.0,
+                  backlog_ms: float = 900.0) -> dict:
+    """(h), a directed test of how the profiler keeps the card's records:
+    a thread launches a small matmul every millisecond (as the serving
+    threads do), and halfway through each window a timer thread queues
+    about ``backlog_ms`` of large matmuls, so the window closes with the
+    card that far behind. Four windows in turn: one that closes without
+    waiting for the card (the windows before this PR); then three of
+    ``utils/profiling._profile_window`` (it waits for the card at both
+    ends): every thread's ops, the calling thread's only, every thread's
+    again. Each window's note (``_window_note``: kernel records, launches,
+    copies, their spans, the commonest kernel names) and the backlog left
+    when the first closed. If the profiler kept only the records inside
+    its window, the first window would hold far fewer kernel records than
+    launches; a window that loses them with the waits in place, and the
+    one after it, show whether the loss outlives a window."""
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
+        profiling,
+    )
+
+    big = torch.randn(8192, 8192, device=dev)
+    small = torch.randn(256, 256, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        big @ big
+    torch.cuda.synchronize()
+    per_big_ms = (time.perf_counter() - t0) * 1e3 / 4
+    n_big = max(1, int(backlog_ms / per_big_ms))
+    stop = threading.Event()
+    errors = []
+
+    def on_card(fn):
+        # each thread makes the card's context its own first; an error
+        # stops the probe (a window without launches tests nothing)
+        def run():
+            try:
+                torch.cuda.set_device(big.device)
+                fn()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+        return run
+
+    def launcher():
+        while not stop.is_set():
+            small @ small
+            time.sleep(0.001)
+
+    def burst():
+        for _ in range(n_big):
+            big @ big
+
+    def window_without_waits():
+        with torch.profiler.profile(
+                activities=profiling._activities(),
+                experimental_config=profiling._all_threads_config()) as prof:
+            time.sleep(window_ms / 1e3)
+        t_close = time.perf_counter()
+        torch.cuda.synchronize()
+        left = (time.perf_counter() - t_close) * 1e3
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "probe.json"
+            prof.export_chrome_trace(str(path))
+            note = profiling._window_note(json.loads(path.read_text()))
+        return note | {"backlog_left_at_close_ms": left}
+
+    def waits(all_threads):
+        return lambda: profiling._profile_window(window_ms, all_threads)[1]
+
+    out = {"per_big_matmul_ms": per_big_ms, "burst_matmuls": n_big}
+    thread = threading.Thread(target=on_card(launcher), daemon=True)
+    thread.start()
+    try:
+        for name, take in (("window_without_waits", window_without_waits),
+                           ("window_with_waits", waits(True)),
+                           ("window_caller_thread", waits(False)),
+                           ("window_with_waits_again", waits(True))):
+            timer = threading.Timer(window_ms / 2e3, on_card(burst))
+            timer.start()
+            out[name] = take()
+            timer.join()
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+    torch.cuda.synchronize()
+    del big, small
+    torch.cuda.empty_cache()
+    log("phase17h_capture_probe", json.dumps(out))
+    if errors or not all(out[w]["kernel_launches"] for w in out
+                         if w.startswith("window")):
+        raise AssertionError(f"the capture probe's threads launched "
+                             f"nothing: {errors}")
+    return out
 
 
 def rerank_paths(rr, shortlist, sizes) -> dict:
@@ -3509,7 +3632,8 @@ def phase_tools(args, dev, q_np, shared) -> dict:
         k1_names = [n for n in trace.get("kernel_names", ())
                     if K1_KERNEL_STAGES[0][0] in n]
         out["trace"] = {key: trace.get(key) for key in (
-            "capture_s", "events", "categories", "capture", "error")} | {
+            "capture_s", "events", "categories", "capture", "caller_capture",
+            "error")} | {
             "ms": TRACE_MS, "k1_kernel_names": k1_names,
             "kernels": len(trace.get("kernel_names", ()))}
         log("phase17_trace", json.dumps(out["trace"]))
@@ -4027,6 +4151,53 @@ def phase_mesh_build(args, dev, q_np, truth, centers) -> dict:
     return out
 
 
+def phase_sharded_rerank(dev, keep, q_np, truth) -> dict:
+    """Phase 18 (g), right after 14 on its ``store_residuals`` index
+    (``keep``: the index and its single-device reranked answer at nprobe
+    32): a 4-shard ``ShardedIVFFlatIndex`` stripes the lo plane with the
+    arena and answers a ``use_exact_rerank`` search. Gates: equal to the
+    single-device reranked answer (ids up to ties, RTOL + ATOL_QSQ·‖q‖²),
+    recall@10 ≥ 0.95, K1 once per shard and search, distances that differ
+    from the view's own unreranked ones (the rerank ran), and the lo
+    stripes counted in ``memory_stats``."""
+    import numpy as np
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
+        ShardedIVFFlatIndex,
+    )
+
+    idx, ref = keep.pop("index"), keep.pop("rerank")
+    counters = scan_counters()
+    view = ShardedIVFFlatIndex(idx, card_mesh(dev, SHARDS))
+    lo_bytes = sum(t.numel() * t.element_size() for t in view.arena_lo_s)
+    out = {"lo_stripe_bytes": lo_bytes,
+           "striped_bytes": view.memory_stats()["striped_bytes"]}
+    if lo_bytes <= 0 or out["striped_bytes"] < lo_bytes:
+        raise AssertionError(f"18g: the lo plane's stripes are not "
+                             f"counted: {out}")
+    res, got = serve_setting(view, q_np, truth, 32, 10, SHARDED_REPS,
+                             counters, rerank=True)
+    res.update(same_results("18g sharded rerank x4 vs one device", got, ref,
+                            q_np))
+    plain_res, plain = serve_setting(view, q_np, truth, 32, 10, 1, counters)
+    res["max_change_from_unreranked"] = float(np.abs(got[0]
+                                                     - plain[0]).max())
+    res["unreranked_recall10"] = plain_res["recall10"]
+    if res["max_change_from_unreranked"] <= 0.0:
+        raise AssertionError("18g: the reranked answer equals the scan's")
+    if res["launches"]["k1"] != SHARDS * (SHARDED_REPS + 1):
+        raise AssertionError(f"18g: K1 launched {res['launches']['k1']} "
+                             f"times")
+    if res["recall10"] < 0.95:
+        raise AssertionError(f"18g: recall@10 {res['recall10']} < 0.95")
+    out["rerank_p32_x4"] = res
+    del view, idx
+    torch.cuda.empty_cache()
+    log("phase18g", json.dumps(out))
+    return out
+
+
 def phase_sharded_serving(args, dev, q_np, shared) -> dict:
     """Phase 18 (f), after phase 17: phase 16's engine closed, and a
     ``VdbEngine`` with an explicit 4-shard mesh on the card opened on its
@@ -4225,6 +4396,11 @@ def main(argv=None) -> int:
     native.load_library()
     build["native_build_s"] = time.perf_counter() - t0
     log("phase1", json.dumps(build))
+    # K4 on fp32 arenas: the block-norm instance of the list-row kernel
+    log("phase1_k4_f32", json.dumps({
+        "sorted_scan_tc_kernel<f32,1>": build["tensor_core_kernels"].get(
+            "sorted_scan_tc_kernel<f32,1>"), "as": "[registers, spill "
+        "store bytes]"}))
     mark("0_1_device_build")
 
     dev = torch.device("cuda")
@@ -4341,8 +4517,11 @@ def main(argv=None) -> int:
           queries, q_np, cal_nprobe, centers, need=("k1", "k3"))
     del idx
     torch.cuda.empty_cache()
+    rr_keep = {}       # phase 14's store_residuals index, for 18g
     drive("14_rerank_builder", phase_rerank_builder, args, dev, queries,
-          q_np, truth, centers, need=("k1",))
+          q_np, truth, centers, rr_keep, need=("k1",))
+    drive("18g_sharded_rerank", phase_sharded_rerank, dev, rr_keep, q_np,
+          truth, need=("k1",))
     torch.cuda.empty_cache()
     drive("18e_mesh_build", phase_mesh_build, args, dev, q_np, truth,
           centers, need=("k1",))
@@ -4356,6 +4535,8 @@ def main(argv=None) -> int:
               shared, need=("k1", "k2"))
     finally:
         release_serving(shared)
+    probe = capture_probe(dev)            # 17 (h), after every other phase
+    mark("17h_capture_probe")
     tools_launches = lifecycle["17_tools"]["launches"]
     # phase 18's sharded paths, each driven with every counter at 0
     p18 = {key: sum(v["launches"][key] for name, v in lifecycle.items()
@@ -4447,6 +4628,7 @@ def main(argv=None) -> int:
             "pq_main_path": pq_path, "pq_index_checks": pq_checks,
             "opq": opq, "lifecycle": lifecycle,
             "striped_kernels": striped, "launches_phase18": p18,
+            "capture_probe": probe,
             "f64_worst_share_of_tol": F64_WORST,
             "phase_seconds": phase_s, **report},
             indent=1))

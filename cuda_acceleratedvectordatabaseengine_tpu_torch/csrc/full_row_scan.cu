@@ -43,9 +43,8 @@
 // took 17.0 and 12.6 ms (NVIDIA H100 80GB HBM3, 700 W), and timed builds of
 // K1 with parts edited out put that time in the shared dot loop.
 //
-// K4, vdb_pair_scan and vdb_pair_scan_f32, replaces pallas_scan.py::
-// scan_probed_lists_pallas (kernel body _kernel). Wrapper and plain version:
-// ops/pair_scan.py.
+// K4, vdb_pair_scan, replaces pallas_scan.py::scan_probed_lists_pallas
+// (kernel body _kernel). Wrapper and plain version: ops/pair_scan.py.
 //
 // What it computes. The same rows from the stored block alone: norms are
 // recomputed from the stored values (arena_sq is not read), there is no scale
@@ -57,28 +56,23 @@
 // re-reading: at the bf16 main shape (32 768 pairs over 1024 lists of about
 // 1000 rows, D 768) it pulled 53 GB through L2 in 8.1 ms, took twice as long
 // when handed the pairs out of list order, and no less without its |x|^2
-// FMAs. So on int8 and bf16 arenas K4 runs K3's list-rows on K3's kernel:
-// sorted_scan_tc_kernel<T, BLOCK = true> reads a list once per row of up to
-// 64 same-list pairs, multiplies on the tensor cores (its operands are exact
-// in bf16 as K3's are), and takes the one thing K3 has not, |x|^2 of each
-// slot, from the A fragments tile_mma loads anyway: int8 exactly in int32
-// (dp4a), bf16 as fp32 FMAs of exact products, once per tile and not once
-// per pair, summed over the D chunks as the ring delivers them and over the
-// four lanes that share a slot row. IP and cosine form no norms. What bounds
-// it then is what bounds K3: the bytes (each probed list once, the rows out;
-// 1.8 GB, 0.54 ms at the bf16 main shape).
-//
-// fp32 arenas keep the pair-per-CTA kernel (pair_scan_kernel: the query in
-// shared memory, one warp per slot, lanes over consecutive 4-element groups,
-// q.x and x.x reduced with shuffles, pairs handed over in list order so that
-// CTAs running together find their list in L2): 10.1 ms at the fp32 main
-// shape (NVIDIA H100 80GB HBM3, 700 W), 9.8x its bound. A CUDA-core
-// list-row kernel with block norms, timed beside it there, took 20.8 ms,
-// and its lane-serial norm sums lay at 0.34 of the scans' tolerance from
-// float64 where this kernel's shuffle-reduced ones lie at 0.03. K3's
-// tensor-core kernel now takes fp32 arenas (six plane products), but not
-// yet in its block-norm variant: how its |x|^2 of split fp32 values sums
-// against that tolerance is the open question of the next version.
+// FMAs; on fp32 arenas it took 10.1 ms, 9.8x its bound (NVIDIA H100 80GB
+// HBM3, 700 W). So K4 runs K3's list-rows on K3's kernel, on every arena
+// dtype: sorted_scan_tc_kernel<T, BLOCK = true> reads a list once per row of
+// up to 64 same-list pairs, multiplies on the tensor cores (exact bf16
+// operands as K3's: three query planes, and on fp32 arenas three planes of
+// each value, six products), and takes the one thing K3 has not, |x|^2 of
+// each slot, from the values tile_mma loads anyway: int8 exactly in int32
+// (dp4a), bf16 as fp32 FMAs of exact products, fp32 from the fp32 values
+// themselves (not their hi plane) as a fresh fp32 partial of eight FMAs a
+// chunk, the partials added in fp64; once per tile and not once per pair,
+// summed over the D chunks as the ring delivers them and over the four lanes
+// that share a slot row. IP and cosine form no norms. What bounds it then is
+// what bounds K3: the bytes (each probed list once, the rows out; 1.8 GB,
+// 0.54 ms at the bf16 main shape; 3.4 GB, 1.03 ms on fp32). The launch takes
+// 1.56 ms on bf16 and 2.44 ms on fp32 there (2.9x and 2.4x; NVIDIA H100 80GB
+// HBM3, 700 W); its fp32 distances lie at most 0.07 of the scans' tolerance
+// from float64.
 
 #include "grouped_common.cuh"
 #include "tc_scan.cuh"
@@ -92,10 +86,10 @@ namespace {
 
 using namespace vdb;
 
-// Tensor-core list-row scan: full rows out. BLOCK is the norm source:
-// false, K3 on int8, bf16 and fp32 arenas (arena_sq, with scale and
-// anchor); true, K4 on int8 and bf16 arenas (|x|^2 formed from the staged
-// chunks by tile_mma, nothing else read).
+// Tensor-core list-row scan on int8, bf16 and fp32 arenas: full rows out.
+// BLOCK is the norm source: false, K3 (arena_sq, with scale and anchor);
+// true, K4 (|x|^2 formed from the staged chunks by tile_mma, nothing else
+// read).
 template <typename T, bool BLOCK>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 sorted_scan_tc_kernel(const float* __restrict__ q,
@@ -203,75 +197,8 @@ cudaError_t launch_sorted_tc(const float* q, const __nv_bfloat16* planes,
   return cudaGetLastError();
 }
 
-// K4 on fp32 arenas: one CTA per (query, probe) pair, one warp per slot.
-__global__ void __launch_bounds__(kThreads)
-pair_scan_kernel(const float* __restrict__ q, const float* __restrict__ arena,
-                 const int* __restrict__ counts,
-                 const int* __restrict__ probe,
-                 const int* __restrict__ order, float* __restrict__ out,
-                 int nprobe, int dim, int nlist, int cap, int cap_s,
-                 int metric) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int pair = order[blockIdx.x];
-  const int b = pair / nprobe;
-  const int list = probe[pair];
-  float* o = out + static_cast<size_t>(pair) * cap_s;
-  const int lim = (list >= 0 && list < nlist) ? min(counts[list], cap_s) : 0;
-  for (int s = lim + tid; s < cap_s; s += kThreads) o[s] = INFINITY;
-  if (lim <= 0) return;  // probe -1 or an empty list: nothing to read
-
-  extern __shared__ __align__(16) float qv[];  // [dp], zero-padded
-  const int dp = padded_dim(dim);
-  for (int d = tid; d < dp; d += kThreads) {
-    qv[d] = d < dim ? q[static_cast<size_t>(b) * dim + d] : 0.f;
-  }
-  __syncthreads();
-  float qsq = 0.f;  // every warp forms |q|^2 itself (dim / 32 FMAs a lane)
-  for (int d = lane; d < dim; d += 32) qsq = fmaf(qv[d], qv[d], qsq);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) qsq += __shfl_xor_sync(kFull, qsq, off);
-
-  const float* lbase = arena + static_cast<size_t>(list) * cap * dim;
-  const bool vec4 =
-      (dim % 4 == 0) && (reinterpret_cast<uintptr_t>(arena) % 16 == 0);
-  for (int s = warp; s < lim; s += kWarps) {
-    const float* x = lbase + static_cast<size_t>(s) * dim;
-    float dot = 0.f;
-    float xsq = 0.f;
-    if (vec4) {
-      for (int d = 4 * lane; d < dim; d += 128) {
-        const float4 xv = *reinterpret_cast<const float4*>(x + d);
-        const float4 qq = *reinterpret_cast<const float4*>(qv + d);
-        dot = fmaf(qq.x, xv.x, dot);
-        dot = fmaf(qq.y, xv.y, dot);
-        dot = fmaf(qq.z, xv.z, dot);
-        dot = fmaf(qq.w, xv.w, dot);
-        xsq = fmaf(xv.x, xv.x, xsq);
-        xsq = fmaf(xv.y, xv.y, xsq);
-        xsq = fmaf(xv.z, xv.z, xsq);
-        xsq = fmaf(xv.w, xv.w, xsq);
-      }
-    } else {
-      for (int d = lane; d < dim; d += 32) {
-        const float xf = x[d];
-        dot = fmaf(qv[d], xf, dot);
-        xsq = fmaf(xf, xf, xsq);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      dot += __shfl_xor_sync(kFull, dot, off);
-      xsq += __shfl_xor_sync(kFull, xsq, off);
-    }
-    if (lane == 0) o[s] = flat_distance(metric, dot, qsq, xsq);
-  }
-}
-
-// One launch of the tensor-core list-row kernel with either norm source:
-// K3 (BLOCK false) on an int8, bf16 or fp32 arena, K4 (BLOCK true) on an
-// int8 or bf16 arena.
+// One launch of the tensor-core list-row kernel with either norm source,
+// K3 (BLOCK false) or K4 (BLOCK true), on an int8, bf16 or fp32 arena.
 template <bool BLOCK>
 cudaError_t launch_list_rows_tc(const void* q, const void* planes,
                                 const void* arena, const void* arena_sq,
@@ -301,12 +228,10 @@ cudaError_t launch_list_rows_tc(const void* q, const void* planes,
         qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim, nlist,
         cap, cap_s, nprobe, metric, st);
   }
-  if constexpr (!BLOCK) {
-    if (dtype == kF32) {
-      return launch_sorted_tc<float, false>(
-          qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim,
-          nlist, cap, cap_s, nprobe, metric, st);
-    }
+  if (dtype == kF32) {
+    return launch_sorted_tc<float, BLOCK>(
+        qf, qp, arena, sq, sc, an, cn, rl, pt, o, n_rows, batch, m, dim, nlist,
+        cap, cap_s, nprobe, metric, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -315,7 +240,7 @@ cudaError_t launch_list_rows_tc(const void* q, const void* planes,
 
 extern "C" {
 
-// Largest list-row width M of the list-row scans (K3; K4 on int8 / bf16) at
+// Largest list-row width M of the list-row scans (K3, K4) at
 // this dimension and arena dtype (0: none fits): 64 on int8, bf16 and fp32
 // arenas (D staged in chunks, so independent of D).
 int vdb_sorted_scan_max_m(int dim, int dtype) {
@@ -351,17 +276,16 @@ int vdb_sorted_scan(const void* q, const void* planes, const void* arena,
       stream));
 }
 
-// Launch the pair scan (K4) of an int8 or bf16 arena on `stream`: K3's
-// tensor-core list-row kernel with the norms taken from the stored block.
-// Returns a cudaError_t (0 = launched). Pointers as for vdb_sorted_scan,
-// without arena_sq, scale and anchors; dtype 0 (int8) or 1 (bf16).
+// Launch the pair scan (K4) on `stream`: K3's tensor-core list-row kernel
+// with the norms taken from the stored block. Returns a cudaError_t (0 =
+// launched). Pointers as for vdb_sorted_scan, without arena_sq, scale and
+// anchors; dtype 0 (int8), 1 (bf16) or 2 (f32).
 int vdb_pair_scan(const void* q, const void* planes, const void* arena,
                   const void* counts, const void* row_list,
                   const void* pair_table, void* out, int n_rows, int batch,
                   int m, int dim, int nlist, int cap, int cap_s, int nprobe,
                   int metric, int dtype, void* stream) {
-  if (n_rows <= 0 || batch <= 0 || m <= 0 || dim <= 0 ||
-      (dtype != kInt8 && dtype != kBf16) ||
+  if (n_rows <= 0 || batch <= 0 || m <= 0 ||
       m > vdb_sorted_scan_max_m(dim, dtype) || cap_s <= 0 || cap_s > cap ||
       nlist <= 0 || nprobe <= 0 || metric < kL2 || metric > kCosine ||
       planes == nullptr) {
@@ -371,36 +295,6 @@ int vdb_pair_scan(const void* q, const void* planes, const void* arena,
       q, planes, arena, nullptr, nullptr, nullptr, counts, row_list,
       pair_table, out, n_rows, batch, m, dim, nlist, cap, cap_s, nprobe,
       metric, dtype, stream));
-}
-
-// Launch the pair scan (K4) of an fp32 arena on `stream`: one CTA per pair.
-// Returns a cudaError_t (0 = launched). Pointers: q [B, dim] f32; arena
-// [nlist, cap, dim] f32; counts [nlist] i32 (local); probe [B * nprobe] i32
-// (-1 = no probe); order [n_pairs] i32, the pair each CTA takes (a
-// permutation of 0 .. n_pairs - 1); out [n_pairs, cap_s] f32, every row
-// written.
-int vdb_pair_scan_f32(const void* q, const void* arena, const void* counts,
-                      const void* probe, const void* order, void* out,
-                      int n_pairs, int nprobe, int dim, int nlist, int cap,
-                      int cap_s, int metric, void* stream) {
-  if (n_pairs <= 0 || nprobe <= 0 || dim <= 0 ||
-      sizeof(float) * padded_dim(dim) > static_cast<size_t>(kSmemLimit) ||
-      cap_s <= 0 || cap_s > cap || nlist <= 0 || metric < kL2 ||
-      metric > kCosine) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = sizeof(float) * padded_dim(dim);
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pair_scan_kernel<<<n_pairs, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(arena),
-      static_cast<const int*>(counts), static_cast<const int*>(probe),
-      static_cast<const int*>(order), static_cast<float*>(out), nprobe, dim,
-      nlist, cap, cap_s, metric);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // The tensor-core dot engine of the flat list-row scans K1 (grouped_scan.cu)
-// and K3 (full_row_scan.cu, vdb_sorted_scan) on int8, bf16 and fp32 arenas,
-// and of K4 (vdb_pair_scan) on int8 and bf16 arenas, for Hopper (sm_90a).
+// and K3 (full_row_scan.cu, vdb_sorted_scan), and of K4 (vdb_pair_scan),
+// on int8, bf16 and fp32 arenas, for Hopper (sm_90a).
 //
 // Replaces the fp32 CUDA-core dot loop that K1 and K3 shared, which took
 // the place of the TPU kernels' MXU dots in
@@ -530,9 +530,17 @@ __device__ __forceinline__ void plane_product(float (&part)[2][4],
 // into its three planes as the A fragments are built, and each chunk's six
 // products go into a fresh accumulator, 12 mma calls, the smallest first:
 // (query, arena) planes mm, lh, hl (2^-16 of the dot), mh, hm (2^-8), hh.
+// With NORMS and `norms` (K4, L2) each of the lane's four slot rows also
+// gets its |x|^2 from the fp32 values it loads (not from their hi plane):
+// eight FMAs a chunk into a fresh fp32 partial, the partials added in fp64
+// over the chunks and over the quad's four lanes, rounded to fp32 once
+// (a lane-serial fp32 chain over D 768 lies seven to nine times as far
+// from float64: tests/test_torch_f32_planes.py).
+template <bool NORMS>
 __device__ __forceinline__ void tile_mma_f32(float (&acc)[2][8][4],
                                              const Smem& sm, int& item,
-                                             int nchunks, int mtl, int ntl) {
+                                             int nchunks, int mtl, int ntl,
+                                             float (*xsq)[2], bool norms) {
   constexpr int kSlot = slot_stride(4);
   constexpr int kPS = plane_stride(4);
   const int warp = threadIdx.x >> 5;
@@ -546,6 +554,8 @@ __device__ __forceinline__ void tile_mma_f32(float (&acc)[2][8][4],
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+  norms = NORMS && norms;
+  double xd[2][2] = {};  // |x|^2 of this lane's elements of its four rows
 
   for (int c = 0; c < nchunks; ++c, ++item) {
     const int stage = item % sm.lay.stages;
@@ -563,6 +573,7 @@ __device__ __forceinline__ void tile_mma_f32(float (&acc)[2][8][4],
             reinterpret_cast<const float4*>(xs + r0 * kSlot + 32 * c4);
         const float4* p1 =
             reinterpret_cast<const float4*>(xs + (r0 + 8) * kSlot + 32 * c4);
+        float n0 = 0.f, n1 = 0.f;  // this chunk's partial |x|^2, rows g, g + 8
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const float4 x0 = p0[j];
@@ -575,6 +586,20 @@ __device__ __forceinline__ void tile_mma_f32(float (&acc)[2][8][4],
                       a[2][mt][j][2]);
           split_f32x2(x1.z, x1.w, a[0][mt][j][3], a[1][mt][j][3],
                       a[2][mt][j][3]);
+          if (NORMS && norms) {
+            n0 = fmaf(x0.x, x0.x, n0);
+            n0 = fmaf(x0.y, x0.y, n0);
+            n0 = fmaf(x0.z, x0.z, n0);
+            n0 = fmaf(x0.w, x0.w, n0);
+            n1 = fmaf(x1.x, x1.x, n1);
+            n1 = fmaf(x1.y, x1.y, n1);
+            n1 = fmaf(x1.z, x1.z, n1);
+            n1 = fmaf(x1.w, x1.w, n1);
+          }
+        }
+        if (NORMS && norms) {
+          xd[mt][0] += static_cast<double>(n0);
+          xd[mt][1] += static_cast<double>(n1);
         }
       }
     }
@@ -609,6 +634,17 @@ __device__ __forceinline__ void tile_mma_f32(float (&acc)[2][8][4],
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[stage]);
   }
+  if constexpr (NORMS) {  // the four lanes of a quad share their rows
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        double v = xd[mt][h];
+        v += __shfl_xor_sync(kFull, v, 1);
+        v += __shfl_xor_sync(kFull, v, 2);
+        xsq[mt][h] = static_cast<float>(v);  // 0 when not `norms`
+      }
+  }
 }
 
 // One tile's dots: acc[mt][n] is the m16 x n8 block of slots
@@ -617,21 +653,20 @@ __device__ __forceinline__ void tile_mma_f32(float (&acc)[2][8][4],
 // fp32 arena (tile_mma_f32), the chunks' partial dots in fp32 on the CUDA
 // cores). `item` counts ring stages consumed; `nchunks` is n_chunks(D,
 // sizeof(T)). `mtl` live m16 tiles of this warp, `ntl` live n8 tiles of
-// the row. With NORMS (K4, int8 / bf16) the lane's four slot rows
+// the row. With NORMS (K4, every arena dtype) the lane's four slot rows
 // (32 w + 16 mt + g + 8 h, the rows tile_distances gives this lane) get
-// xsq[mt][h]: when `norms` (L2),
-// |x|^2 formed on the CUDA cores from the A fragments each chunk loads
-// anyway (int8 exactly in int32 with dp4a, bf16 as fp32 FMAs of exact
-// products, summed over the chunks and then over the four lanes that share a
-// row), else 0.
+// xsq[mt][h]: when `norms` (L2), |x|^2 formed on the CUDA cores from the
+// values each chunk loads anyway (int8 exactly in int32 with dp4a, bf16 as
+// fp32 FMAs of exact products, fp32 as fp32 partials a chunk added in
+// fp64), summed over the chunks and then over the four lanes that share a
+// row; else 0.
 template <typename T, bool NORMS = false>
 __device__ __forceinline__ void tile_mma(float (&acc)[2][8][4], const Smem& sm,
                                          int& item, int nchunks, int mtl,
                                          int ntl, float (*xsq)[2] = nullptr,
                                          bool norms = false) {
   if constexpr (sizeof(T) == 4) {
-    static_assert(!NORMS, "fp32 arenas form no block norms");
-    tile_mma_f32(acc, sm, item, nchunks, mtl, ntl);
+    tile_mma_f32<NORMS>(acc, sm, item, nchunks, mtl, ntl, xsq, norms);
   } else {
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;

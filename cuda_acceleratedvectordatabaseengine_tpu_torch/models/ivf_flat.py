@@ -232,6 +232,41 @@ def _bulk_pack_device(x, assignments, nlist: int, cap: int, dtype,
     return arena, arena_sq, counts.int(), slots, scale, lo
 
 
+class ListHeat:
+    """Per-list heat behind ``get_hot_lists``, one definition for both
+    index families: each search adds 1 to each list that each query
+    probed (probe -1 excluded), counted on the index's device
+    (``index_add_`` into an int64 tensor), so a search adds no host copy;
+    :meth:`to_numpy` fetches the counts. The JAX package counts a probed
+    list once per batch (IVF-Flat) or the lists of the returned positions
+    (IVF-PQ)."""
+
+    def __init__(self, nlist: int, device: torch.device):
+        self._counts = torch.zeros(nlist, dtype=torch.int64, device=device)
+        self._lock = threading.Lock()
+
+    def add_probes(self, probe_ids: torch.Tensor) -> None:
+        """Count one search's ``probe_ids [B, nprobe]`` (on the device)."""
+        flat = probe_ids.reshape(-1)
+        with self._lock:
+            self._counts.index_add_(0, flat.clamp_min(0).long(),
+                                    (flat >= 0).long())
+
+    def mark(self, list_ids) -> None:
+        """Count each named list once (a warm-up's ``list_ids``)."""
+        ids = torch.from_numpy(np.unique(np.asarray(list_ids, np.int64)))
+        with self._lock:
+            self._counts[ids.to(self._counts.device)] += 1
+
+    def reset(self, list_id: int) -> None:
+        with self._lock:
+            self._counts[int(list_id)] = 0
+
+    def to_numpy(self) -> np.ndarray:
+        """A copy of the counts (never a view of a CPU tensor)."""
+        return self._counts.cpu().numpy().copy()
+
+
 def _ivf_search_device(
     queries, centroids, arena, arena_sq, counts, nprobe, k, metric,
     scan_impl="gather", arena_scale=None, arena_anchors=None, m_budget=None,
@@ -318,8 +353,8 @@ class IVFFlatIndex:
         self.trained = False
         # Measured-coverage nprobe; SearchParams(nprobe=0) resolves to it.
         self.calibrated_nprobe: int | None = None
-        # Hotness stats behind warmup/evict decisions.
-        self.list_access_count = np.zeros(config.nlist, np.int64)
+        # Hotness stats behind warmup/evict decisions (ListHeat).
+        self._heat = ListHeat(config.nlist, self.device)
         # Serializes mutations (each plans slots from the current counts)
         # against each other and against the enqueue of a search.
         self._mutate_lock = threading.Lock()
@@ -611,6 +646,7 @@ class IVFFlatIndex:
                 self.config.m_budget, arena.scan_capacity_hint(),
                 rerank_k, arena.arena_lo,
             )
+            self._heat.add_probes(probes_dev)
 
         def finalize():
             with record_function("ivf_flat.finalize"):
@@ -618,8 +654,6 @@ class IVFFlatIndex:
                 pos = pos_dev.cpu().numpy()
                 ids = arena.positions_to_ids(pos)
                 d[pos < 0] = FLT_MAX
-                probed = np.unique(probes_dev.cpu().numpy())
-                self.list_access_count[probed[probed >= 0]] += 1
                 if k_dev != k:
                     return dedup_topk(d, ids, k)
                 return d, ids
@@ -687,12 +721,18 @@ class IVFFlatIndex:
             for bs in batch_sizes:
                 self.search(np.repeat(dummy, bs, axis=0), params)
         if list_ids is not None:
-            self.list_access_count[np.asarray(list_ids, np.int64)] += 1
+            self._heat.mark(list_ids)
 
     def evict_list(self, list_id: int) -> None:
         """The arena is device-resident with nothing to evict; reset the
         list's hotness, the accounting effect of an eviction."""
-        self.list_access_count[list_id] = 0
+        self._heat.reset(list_id)
+
+    @property
+    def list_access_count(self) -> np.ndarray:
+        """Per-list heat (:class:`ListHeat`): searches' queries that probed
+        each list, fetched from the device."""
+        return self._heat.to_numpy()
 
     def get_hot_lists(self, n: int) -> np.ndarray:
         """Most-accessed lists."""

@@ -51,6 +51,7 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
     FLT_MAX,
+    ListHeat,
     SearchParams,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
@@ -220,11 +221,13 @@ def _ivf_pq_search_device(
     queries, centroids, codebooks, code_arena_t, code_sq, counts, raw_arena,
     raw_sq, raw_scale, raw_anchors, nprobe, k, metric, rerank_k,
     scan_impl="gather", opq_R=None, k_inner=0, scan_capacity=None,
+    heat=None,
 ):
     """The device half of a search: ``(dists [B, k], pos [B, k])``.
     ``rerank_k`` 0 means no rerank; ``k_inner`` > 0 selects the kernel's
-    per-list shortlist mode. Each stage runs in a named ``torch.profiler``
-    range (``ivf_pq.coarse_probe``, ``grouped_pq_scan.*`` or
+    per-list shortlist mode; ``heat`` (a ``ListHeat``) counts the probes.
+    Each stage runs in a named ``torch.profiler`` range
+    (``ivf_pq.coarse_probe``, ``grouped_pq_scan.*`` or
     ``ivf_pq.gather_adc``, ``ivf_pq.rerank``)."""
     b, dim = queries.shape
     nlist, _, cap = code_arena_t.shape
@@ -241,6 +244,8 @@ def _ivf_pq_search_device(
         coarse = pairwise_distance(q, centroids, coarse_metric)
         _, probe_ids = topk_smallest(coarse, nprobe)
         probe_ids = probe_ids.int()
+    if heat is not None:
+        heat.add_probes(probe_ids)
 
     keep = max(k, rerank_k)
     if scan_impl == "grouped":
@@ -326,7 +331,7 @@ class IVFPQIndex:
         self._ids = np.full((config.nlist, cap), INVALID_ID, np.uint64)
         self.trained = False
         self.calibrated_nprobe: int | None = None
-        self.list_access_count = np.zeros(config.nlist, np.int64)
+        self._heat = ListHeat(config.nlist, self.device)
         # (counts tensor, occupied-prefix hint): one max() per counts version
         self._scan_cap_cache = (None, None)
         # Serializes mutations against each other and against the
@@ -695,7 +700,7 @@ class IVFPQIndex:
         # lock (a removal moves rows in place; see the module docstring).
         with self._mutate_lock:
             raw = self.raw
-            ids_table, capacity = self.ids, self.capacity
+            ids_table = self.ids
             d, pos = _ivf_pq_search_device(
                 q_dev, self.centroids, self.codebooks, self.code_arena_t,
                 self.code_sq, self.counts,
@@ -706,15 +711,14 @@ class IVFPQIndex:
                 nprobe, k_dev, self.metric, rerank_k, scan_impl,
                 opq_R=self.opq_R,
                 k_inner=(self.host_rerank_k_inner if host_rr else 0),
-                scan_capacity=self._scan_capacity_hint(),
+                scan_capacity=self._scan_capacity_hint(), heat=self._heat,
             )
-        return d, pos, ids_table, capacity, host_rr, queries, params
+        return d, pos, ids_table, host_rr, queries, params
 
-    def _search_finalize(self, d, pos, ids_table, capacity, host_rr,
-                         queries, params):
-        """Wait for the device result, map positions to ids, count the
-        lists of the returned positions (the JAX package's list heat), and
-        with a host store attached run the exact rerank on the host."""
+    def _search_finalize(self, d, pos, ids_table, host_rr, queries,
+                         params):
+        """Wait for the device result, map positions to ids, and with a
+        host store attached run the exact rerank on the host."""
         with record_function("ivf_pq.finalize"):
             d = d.cpu().numpy().copy()
             pos = pos.cpu().numpy()
@@ -722,8 +726,6 @@ class IVFPQIndex:
             out_ids = flat_ids[np.clip(pos, 0, flat_ids.size - 1)]
             out_ids[pos < 0] = INVALID_ID
             d[pos < 0] = FLT_MAX
-            probed = np.unique(pos[pos >= 0] // capacity)
-            self.list_access_count[probed] += 1
         if not host_rr:
             return d, out_ids
         with record_function("ivf_pq.host_rerank"):
@@ -788,7 +790,7 @@ class IVFPQIndex:
                                 SearchParams(nprobe=int(np_),
                                              use_exact_rerank=rr))
         if list_ids is not None:
-            self.list_access_count[np.asarray(list_ids, np.int64)] += 1
+            self._heat.mark(list_ids)
 
     def _guard_host_rerank_mutation(self) -> None:
         """Rows the host store lacks would be dropped by the exact rerank
@@ -830,7 +832,13 @@ class IVFPQIndex:
 
     def evict_list(self, list_id: int) -> None:
         """Nothing to evict (device-resident); reset the list's heat."""
-        self.list_access_count[list_id] = 0
+        self._heat.reset(list_id)
+
+    @property
+    def list_access_count(self) -> np.ndarray:
+        """Per-list heat (``ListHeat``, as IVF-Flat counts it): searches'
+        queries that probed each list, fetched from the device."""
+        return self._heat.to_numpy()
 
     def get_hot_lists(self, n: int) -> np.ndarray:
         """Most-accessed lists."""

@@ -38,7 +38,6 @@ SIGNATURES = {
     "vdb_sorted_scan": ("p" * 10 + "i" * 10 + "p", "i"),
     "vdb_sorted_scan_max_m": ("ii", "i"),
     "vdb_pair_scan": ("p" * 7 + "i" * 10 + "p", "i"),
-    "vdb_pair_scan_f32": ("p" * 6 + "i" * 7 + "p", "i"),
 }
 
 

@@ -12,29 +12,26 @@ arena is scanned as raw code values.
 
 The TPU grid had one step per pair, each reading its list's block again.
 On Hopper that re-reading is what bounds a pair-per-CTA kernel (L2
-bandwidth: handed the pairs out of list order it took twice as long), so
-on int8 and bf16 arenas the pairs are sorted by list and packed into
-list-rows of up to M same-list pairs, K3's packing
-(``ops/sorted_scan._pair_table``), and one CTA reads the list once for all
-pairs of its row. The kernel is K3's tensor-core kernel
-(``csrc/full_row_scan.cu`` on ``csrc/tc_scan.cuh``: three exact bf16 query
-planes, ``cp.async`` ring, ``mma.sync``) in its block-norm variant, which
-forms each slot's ``|x|²`` once per tile from the chunks it stages anyway
-(int8 exactly in int32, bf16 as fp32 sums of exact products). IP and cosine
-form no norms. What bounds it then: the bytes (the probed lists once, the
-rows out), as for K3. fp32 arenas keep the pair-per-CTA CUDA-core kernel
-(one warp per slot, pairs in list order): at the fp32 main shape it took
-half the time of a CUDA-core list-row kernel with block norms. K3's
-tensor-core kernel takes fp32 arenas, but not in its block-norm variant
-(how the norms of split fp32 values sum against the tolerance is still
-open). The kernel is chosen by the arena's dtype, in
-:func:`_pair_rows_cuda`.
+bandwidth: handed the pairs out of list order it took twice as long; on
+fp32 arenas the CUDA-core pair-per-CTA kernel of the first versions took
+9.8× its bound), so the pairs are sorted by list and packed into list-rows
+of up to M same-list pairs, K3's packing (``ops/sorted_scan._pair_table``),
+and one CTA reads the list once for all pairs of its row, on every arena
+dtype. The kernel is K3's tensor-core kernel (``csrc/full_row_scan.cu`` on
+``csrc/tc_scan.cuh``: three exact bf16 query planes, and on fp32 arenas
+three planes of each value split in registers, six products; ``cp.async``
+ring, ``mma.sync``) in its block-norm variant, which forms each slot's
+``|x|²`` once per tile from the values it stages anyway: int8 exactly in
+int32, bf16 as fp32 sums of exact products, fp32 from the fp32 values
+(not their hi plane) as an fp32 partial a 32-wide chunk, the partials
+added in fp64. IP and cosine form no norms. What bounds it then: the
+bytes (the probed lists once, the rows out), as for K3.
 
 Two implementations of the row step sit side by side:
 
-- :func:`_pair_rows_cuda` launches the hand-written kernel
-  (:func:`_pair_list_rows_cuda` on packed list-rows, or
-  :func:`_pair_rows_f32_cuda`), adding one to :data:`LAUNCHES` per launch;
+- :func:`_pair_rows_cuda` packs the pairs and launches the hand-written
+  kernel (:func:`_pair_list_rows_cuda`), adding one to :data:`LAUNCHES`
+  per launch;
 - :func:`_pair_rows_reference` is the plain PyTorch version, pair by pair
   (:func:`_pair_list_rows_reference` is the plain version of the packed
   step alone).
@@ -127,13 +124,22 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"pair-scan kernel: {msg}")
 
 
-def _check_common(q, arena, counts, others, n_pairs, nprobe, metric, cap_s):
-    """Checks shared by the two kernel wrappers; returns ``(nlist, cap,
-    dim)``."""
+def _pair_list_rows_cuda(q, arena, counts, row_list, pair_table, nprobe,
+                         n_pairs, metric, cap_s):
+    """Launch the hand-written list-row kernel on packed list-rows (same
+    contract as :func:`_pair_list_rows_reference`) on the current CUDA
+    stream, passing the query's three bf16 planes. Checks device, dtype,
+    shape and contiguity and raises on anything the kernel does not take;
+    raises if the launch is refused."""
+    global LAUNCHES
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops._build import (
+        load_library,
+    )
+
     dev = arena.device
     _check(dev.type == "cuda", f"arena is on {dev}, not a CUDA device")
     for name, t in {"q": q, "arena": arena, "counts": counts,
-                    **others}.items():
+                    "row_list": row_list, "pair_table": pair_table}.items():
         _check(t.device == dev, f"{name} is on {t.device}, arena on {dev}")
         _check(t.is_contiguous(), f"{name} is not contiguous")
         _check(name in ("q", "arena") or t.dtype == torch.int32,
@@ -148,26 +154,6 @@ def _check_common(q, arena, counts, others, n_pairs, nprobe, metric, cap_s):
     _check(tuple(counts.shape) == (nlist,), "counts must be [nlist] int32")
     _check(1 <= cap_s <= cap, f"cap_s={cap_s} outside 1..{cap}")
     _check(metric in _METRIC_IDS, f"unknown metric {metric}")
-    return nlist, cap, dim
-
-
-def _pair_list_rows_cuda(q, arena, counts, row_list, pair_table, nprobe,
-                         n_pairs, metric, cap_s):
-    """Launch the hand-written list-row kernel of int8 / bf16 arenas on
-    packed list-rows (same contract as :func:`_pair_list_rows_reference`)
-    on the current CUDA stream, passing the query's three bf16 planes.
-    Checks device, dtype, shape and contiguity and raises on anything the
-    kernel does not take; raises if the launch is refused."""
-    global LAUNCHES
-    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops._build import (
-        load_library,
-    )
-
-    nlist, cap, dim = _check_common(
-        q, arena, counts, {"row_list": row_list, "pair_table": pair_table},
-        n_pairs, nprobe, metric, cap_s)
-    _check(arena.dtype != torch.float32,
-           "the list-row kernel takes int8 / bf16 arenas")
     n_rows, m = pair_table.shape
     _check(tuple(row_list.shape) == (n_rows,), "row_list must be [n_rows]")
     m_max = kernel_max_m(dim, arena.dtype)
@@ -190,52 +176,15 @@ def _pair_list_rows_cuda(q, arena, counts, row_list, pair_table, nprobe,
     return out
 
 
-def _pair_rows_f32_cuda(q, arena, counts, probe, metric, cap_s):
-    """Launch the hand-written pair-per-CTA kernel of fp32 arenas (same
-    contract as :func:`_pair_rows_reference`) on the current CUDA stream.
-    Checks and raises as :func:`_pair_list_rows_cuda`."""
-    global LAUNCHES
-    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops._build import (
-        load_library,
-    )
-
-    batch, nprobe = probe.shape
-    nlist, cap, dim = _check_common(q, arena, counts, {"probe": probe},
-                                    probe.numel(), nprobe, metric, cap_s)
-    _check(arena.dtype == torch.float32,
-           "the pair-per-CTA kernel takes fp32 arenas")
-    flat = probe.reshape(-1)
-    n_pairs = flat.numel()
-    # list order: CTAs that run together read the same list (from L2)
-    order = torch.argsort(torch.where(flat >= 0, flat, nlist),
-                          stable=True).int()
-    out = torch.empty((n_pairs, cap_s), dtype=torch.float32,
-                      device=arena.device)
-    with torch.cuda.device(arena.device):
-        stream = torch.cuda.current_stream(arena.device).cuda_stream
-        err = load_library().vdb_pair_scan_f32(
-            q.data_ptr(), arena.data_ptr(), counts.data_ptr(),
-            flat.data_ptr(), order.data_ptr(), out.data_ptr(), n_pairs,
-            nprobe, dim, nlist, cap, cap_s, _METRIC_IDS[metric], stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pair-scan kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return out
-
-
 def _pair_rows_cuda(q, arena, counts, probe, metric, cap_s):
     """The kernel path of the row step (same contract as
-    :func:`_pair_rows_reference`), chosen by the arena's dtype: int8 and
-    bf16 arenas sort the pairs by list, pack them into list-rows of the
-    width ``auto_m_budget`` gives (clamped to what the kernel's shared
-    memory holds) and launch the tensor-core list-row kernel; fp32 arenas
-    launch the pair-per-CTA kernel."""
+    :func:`_pair_rows_reference`) on every arena dtype: sort the pairs by
+    list, pack them into list-rows of the width ``auto_m_budget`` gives
+    (clamped to what the kernel's shared memory holds) and launch the
+    tensor-core list-row kernel."""
     _check(arena.dim() == 3 and arena.dtype in _DTYPE_IDS,
            f"arena must be [nlist, cap, D] int8/bf16/f32, got "
            f"{tuple(arena.shape)} {arena.dtype}")
-    if arena.dtype == torch.float32:
-        return _pair_rows_f32_cuda(q, arena, counts, probe, metric, cap_s)
     nlist, _, dim = arena.shape
     n_pairs = probe.numel()
     m = min(auto_m_budget(n_pairs, nlist), kernel_max_m(dim, arena.dtype))

@@ -136,6 +136,20 @@ def _merge(mesh: Mesh, parts, k: int):
         return topk_smallest(d_all, k, idx=p_all)
 
 
+def _merge_reranked(mesh: Mesh, parts, keep: int, k: int):
+    """The merge of reranked shards (``parts`` of ``(scan distances,
+    logical positions, exact distances)``, each ``[B, keep]``): the
+    global top ``keep`` by scan distance, the single device's shortlist,
+    then its top ``k`` by exact distance, as ``_exact_rerank`` cuts it."""
+    with record_function("sharded.merge"):
+        d_all = all_gather(mesh, [d for d, _, _ in parts])
+        p_all = all_gather(mesh, [p for _, p, _ in parts])
+        e_all = all_gather(mesh, [e for _, _, e in parts])
+        _, col = topk_smallest(d_all, keep)
+        return topk_smallest(e_all.gather(1, col), k,
+                             idx=p_all.gather(1, col))
+
+
 def _storage_key(t: torch.Tensor):
     return t.device, t.untyped_storage().data_ptr()
 
@@ -149,10 +163,18 @@ def _positions_to_ids(pos: np.ndarray, ids_table: np.ndarray) -> np.ndarray:
 
 def _sharded_search(mesh, q, centroids, arena_s, arena_sq_s, counts_s,
                     scale_s, anchors_s, nprobe, k, metric, global_cap,
-                    scan_impl="auto", m_budget=None, scan_capacity=None):
+                    scan_impl="auto", m_budget=None, scan_capacity=None,
+                    lo_s=None, rerank_k=0):
     """Coarse probe on the leader, one striped scan per shard, merge:
-    ``(dists [B, k], logical positions [B, k])`` on the leader."""
+    ``(dists [B, k], logical positions [B, k])`` on the leader. With
+    ``rerank_k`` and the lo plane's stripes ``lo_s``, each shard keeps its
+    top ``max(k, rerank_k)``, recomputes their distances in fp32 from its
+    ``stored + lo`` rows, and the merge cuts the global shortlist by scan
+    distance before it takes the top k by exact distance
+    (:func:`_merge_reranked`): the single-device rerank's answer."""
     n = mesh.size
+    rerank = rerank_k > 0 and lo_s is not None
+    keep = max(k, rerank_k) if rerank else k
     with record_function("sharded.coarse_probe"):
         qf = q.float()
         if metric == Metric.COSINE:
@@ -163,24 +185,35 @@ def _sharded_search(mesh, q, centroids, arena_s, arena_sq_s, counts_s,
     parts = []
     for s, dev in enumerate(mesh.devices):
         with record_function("sharded.scan"):
+            q_s = qf.to(dev)
+            scale = None if scale_s is None else scale_s[s]
+            anchors = None if anchors_s is None else anchors_s[s]
             d, pos = scan_flat(
-                scan_impl, qf.to(dev), arena_s[s], arena_sq_s[s],
-                counts_s[s], probe.to(dev), k, metric,
-                arena_scale=None if scale_s is None else scale_s[s],
-                arena_anchors=None if anchors_s is None else anchors_s[s],
+                scan_impl, q_s, arena_s[s], arena_sq_s[s],
+                counts_s[s], probe.to(dev), keep, metric,
+                arena_scale=scale, arena_anchors=anchors,
                 m_budget=m_budget, scan_capacity=scan_capacity,
                 slot_stride=n, slot_offset=s, global_capacity=global_cap,
             )
-        parts.append((d[:, :k], pos[:, :k]))
+            part = (d[:, :keep], pos[:, :keep])
+            if rerank:
+                part += (_shard_rerank(q_s, part[1], arena_s[s], scale,
+                                       anchors, s, n, global_cap, metric,
+                                       lo_l=lo_s[s]),)
+        parts.append(part)
+    if rerank:
+        return _merge_reranked(mesh, parts, keep, k)
     return _merge(mesh, parts, k)
 
 
-def _pack_stripe(mesh, arena_s, sq_s, scale_s, anchors_s, x, lists, slots):
+def _pack_stripe(mesh, arena_s, sq_s, scale_s, anchors_s, x, lists, slots,
+                 lo_s=None):
     """Write one chunk into the slot-striped arenas: each shard takes the
     rows whose logical slot lands on its stripe (``slot % N == s``) at
     local slot ``slot // N``, quantized by the single-device append path
     (``models/arena._append_device``: per-row scale ``max|x − anchor| /
-    127``, codes ``round(res / scale)`` half to even)."""
+    127``, codes ``round(res / scale)`` half to even; with ``lo_s`` the
+    bf16 residual ``x − stored(x)`` into the lo plane's stripes)."""
     n = mesh.size
     for s, dev in enumerate(mesh.devices):
         mine = np.flatnonzero(slots % n == s)
@@ -193,6 +226,7 @@ def _pack_stripe(mesh, arena_s, sq_s, scale_s, anchors_s, x, lists, slots):
             torch.from_numpy(lists[mine]).to(dev),
             torch.from_numpy(slots[mine] // n).to(dev),
             x[rows].to(dev),
+            arena_lo=None if lo_s is None else lo_s[s],
         )
 
 
@@ -380,9 +414,15 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
     its arena as slot stripes on the mesh. :meth:`build_on_mesh` instead
     trains AND packs on the mesh with no single-device base at all.
 
-    ``SearchParams.use_exact_rerank`` is ignored, as in the JAX package
-    (whose sharded view never stripes the lo plane): a rerank request
-    returns the scan's answer.
+    With a lo plane (``store_residuals``) the view stripes it with the
+    arena, and ``SearchParams.use_exact_rerank`` reranks as the
+    single-device index does: each shard recomputes its top ``min(max(4k,
+    k), 256)`` candidates in fp32 from ``stored + lo``, and the merge cuts
+    the global shortlist by scan distance before it takes the top k by
+    exact distance, so the answer is the single device's (the JAX
+    package's view never stripes the lo plane and ignores the request). A
+    view whose arena keeps no lo plane answers without rerank, as the
+    single-device index does.
     """
 
     def __init__(self, base: IVFFlatIndex, mesh: Mesh,
@@ -430,12 +470,15 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
         arenas (:func:`_pack_stripe`). ``x`` is ``[n, D]``, numpy or a
         tensor on any device.
 
-        Two quirks are kept for parity with the JAX package: the training
-        sample is padded with up to N − 1 zero rows, which take part in
-        Lloyd; and each stripe is sized ``ceil((ceil(max_count / N) + 1)
-        / 8) · 8`` slots, whose last slot was the JAX pack's TRASH slot
-        (nothing is written there; it keeps ``global_cap``, and so every
-        position, equal)."""
+        The training sample is padded to a multiple of N with up to N − 1
+        zero rows of weight 0: they take no part in Lloyd, and a real zero
+        vector of the sample joins its cluster (the JAX package trains on
+        the padding and drops every all-zero row). A config with
+        ``store_residuals`` (int8 / bf16) also fills the lo plane's
+        stripes. Kept for parity with the JAX package: each stripe is sized
+        ``ceil((ceil(max_count / N) + 1) / 8) · 8`` slots, whose last slot
+        was the JAX pack's TRASH slot (nothing is written there; it keeps
+        ``global_cap``, and so every position, equal)."""
         check_scan_name(scan_impl)
         n_shards = mesh.size
         metric = config.metric
@@ -470,11 +513,13 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
             if metric == Metric.COSINE:
                 sample = l2_normalize(sample)
             pad = (-sample.shape[0]) % n_shards
+            weight = torch.ones(sample.shape[0] + pad, device=leader)
             if pad:
                 sample = torch.cat([sample, sample.new_zeros((pad, dim))])
+                weight[-pad:] = 0.0
             centroids = sharded_kmeans_fit(
                 mesh, generator, sample, config.nlist,
-                iters=train_iters or config.train_iters,
+                iters=train_iters or config.train_iters, weight=weight,
             )
         if not isinstance(centroids, torch.Tensor):
             centroids = torch.from_numpy(np.array(centroids, np.float32))
@@ -509,6 +554,10 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
         # int8 always encodes residuals to the centroids here, as the JAX
         # package's mesh build does
         anchors_s = replicate(mesh, centroids) if quantize else None
+        lo_s = ([torch.zeros((nlist, cap_l, dim), dtype=torch.bfloat16,
+                             device=d) for d in mesh.devices]
+                if config.store_residuals and dtype != torch.float32
+                else None)
         running = np.zeros(nlist, np.int64)
         ids_table = np.full((nlist, global_cap), INVALID_ID, np.uint64)
         for i0 in range(0, n, chunk_rows):
@@ -517,21 +566,23 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
             slots = compute_append_slots(running, a_c)
             running += np.bincount(a_c, minlength=nlist)
             _pack_stripe(mesh, arena_s, sq_s, scale_s, anchors_s,
-                         rows(i0, i1), a_c, slots)
+                         rows(i0, i1), a_c, slots, lo_s)
             ids_table[a_c, slots] = np.asarray(ids[i0:i1]).astype(np.uint64)
         return cls._from_stripes(
             mesh, config, scan_impl, arena_s, sq_s, scale_s, anchors_s,
             torch.from_numpy(counts_h.astype(np.int32)), centroids,
             ids_table, global_cap,
-            int(counts_h.max()) if counts_h.size else 0)
+            int(counts_h.max()) if counts_h.size else 0, lo_s)
 
     def _publish(self, arena_s, sq_s, scale_s, anchors_s, counts,
-                 centroids, ids_table, global_cap, counts_max) -> None:
+                 centroids, ids_table, global_cap, counts_max,
+                 lo_s=None) -> None:
         counts_s = replicate(self.mesh, counts)
         centroids = centroids.to(self.mesh.leader)
         with self._publish_lock:
             self.arena_s = arena_s
             self.arena_sq_s = sq_s
+            self.arena_lo_s = lo_s
             self.arena_scale = scale_s
             self.arena_anchors = anchors_s
             self.has_scale = scale_s is not None
@@ -544,10 +595,11 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
             self._published = True
 
     def refresh(self) -> None:
-        """Re-stripe the base arena over the mesh. The copies are enqueued
-        under the base's mutation lock (one consistent arena state); a
-        one-shard mesh on the base's device publishes the base tensors
-        themselves (zero copy) with a copy of the small counts and ids."""
+        """Re-stripe the base arena (and its lo plane) over the mesh. The
+        copies are enqueued under the base's mutation lock (one consistent
+        arena state); a one-shard mesh on the base's device publishes the
+        base tensors themselves (zero copy) with a copy of the small counts
+        and ids."""
         base = self.base
         n = self.n_shards
         # stage under the base's lock, publish after it (a search takes
@@ -567,6 +619,8 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
                  if arena.anchors is not None else None),
                 arena.counts.clone(), base.centroids, arena.ids.copy(), cap,
                 arena.counts_max,
+                (stripe_slots(self.mesh, arena.arena_lo, 1)
+                 if arena.arena_lo is not None else None),
             )
         self._publish(*staged)
 
@@ -582,6 +636,9 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
         nprobe = self._nprobe(params)
         q = _prep_queries(queries, self.mesh.leader, self.config.dimension)
         with self._publish_lock, self._base_lock():
+            rerank_k = 0
+            if params.use_exact_rerank and self.arena_lo_s is not None:
+                rerank_k = min(max(4 * params.k, params.k), 256)
             d_dev, pos_dev = _sharded_search(
                 self.mesh, q, self.centroids, self.arena_s, self.arena_sq_s,
                 self.counts, self.arena_scale, self.arena_anchors, nprobe,
@@ -589,6 +646,7 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
                 self.config.m_budget,
                 _stripe_scan_capacity(self._counts_max, self.global_cap,
                                       self.n_shards),
+                self.arena_lo_s, rerank_k,
             )
             ids_table = self._ids_table
         return d_dev, pos_dev, ids_table
@@ -596,12 +654,13 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
     def _base_tensors(self) -> tuple:
         arena = self.base.arena
         return (self.base.centroids, arena.arena, arena.arena_sq,
-                arena.arena_scale, arena.anchors)
+                arena.arena_scale, arena.anchors, arena.arena_lo)
 
     def _device_arrays(self) -> dict:
         return {
             "arena": self.arena_s,
             "arena_sq": self.arena_sq_s,
+            "arena_lo": self.arena_lo_s,
             "scale": self.arena_scale,
             "centroids": self.centroids,
             "anchors": self.arena_anchors,
@@ -609,11 +668,12 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
 
 
 def _shard_rerank(q0, pos, raw_l, raw_scale_l, raw_anchors_l, s, n,
-                  global_cap, metric):
+                  global_cap, metric, lo_l=None):
     """Exact fp32 distances of one shard's candidates: logical positions
     map back to the shard's local rows (every candidate's slot is ≡ s mod
-    N), rebuilt from the raw stripe (scale, anchor) in the original
-    frame."""
+    N), rebuilt from the raw stripe (scale, anchor; IVF-Flat adds the lo
+    plane's stripe ``lo_l``, as ``models/ivf_flat._exact_rerank`` adds the
+    lo plane) in the original frame."""
     nlist, cap_l, dim = raw_l.shape
     safe = pos.clamp_min(0).long()
     lists = safe // global_cap
@@ -624,6 +684,8 @@ def _shard_rerank(q0, pos, raw_l, raw_scale_l, raw_anchors_l, s, n,
         cand = cand * raw_scale_l.reshape(-1)[flat][:, :, None]
     if raw_anchors_l is not None:
         cand = cand + raw_anchors_l[lists]
+    if lo_l is not None:
+        cand = cand + lo_l.reshape(nlist * cap_l, dim)[flat].float()
     dots = torch.bmm(cand, q0[:, :, None])[:, :, 0]
     if metric == Metric.INNER_PRODUCT:
         exact = -dots
@@ -797,19 +859,20 @@ def _row_shards(mesh: Mesh, x) -> list[torch.Tensor]:
             for s, dev in enumerate(mesh.devices)]
 
 
-def _lloyd_partial(x_l, centroids, cs, nc):
+def _lloyd_partial(x_l, w_l, centroids, cs, nc):
     """One shard's share of a Lloyd iteration: ``ops.kmeans._lloyd_chunk``
-    over its rows in chunks of ``cs`` (the last chunk zero-padded and
-    weighted out, as the JAX scan pads it), the partials summed and the
-    candidate pools concatenated."""
+    over its rows in chunks of ``cs`` with their 0 / 1 weights ``w_l``
+    (None: every row counts; the last chunk zero-padded and weighted out,
+    as the JAX scan pads it), the partials summed and the candidate pools
+    concatenated."""
     n_local, dim = x_l.shape
     sums = counts = d_tot = 0
     pools = ([], [], [], [])
     for c0 in range(0, n_local, cs):
         xc = x_l[c0:c0 + cs].float()
-        w = torch.ones(cs, device=xc.device)
+        w = torch.zeros(cs, device=xc.device)
+        w[:xc.shape[0]] = 1.0 if w_l is None else w_l[c0:c0 + cs]
         if xc.shape[0] < cs:
-            w[xc.shape[0]:] = 0.0
             xc = torch.cat([xc, xc.new_zeros((cs - xc.shape[0], dim))])
         c_sums, c_counts, c_d, *cands, _ = _lloyd_chunk(xc, centroids, nc, w)
         sums, counts, d_tot = sums + c_sums, counts + c_counts, d_tot + c_d
@@ -827,13 +890,18 @@ def sharded_kmeans_fit(
     chunk_size: int = 16384,
     n_cand: int = 32,
     seed_per_chip: int = 8192,
+    weight=None,
 ) -> torch.Tensor:
     """Data-parallel k-means over the mesh: the twin of
     ``ops.kmeans.kmeans_fit`` (the same Lloyd-as-matmuls update and the
     same twin / orphan / overfull reseeding, ``_reseed_step``).
 
     ``x_sharded`` is ``[N, D]`` split into equal row blocks, or one tensor
-    per shard; padded rows must be exactly zero. Per iteration each shard
+    per shard; ``weight`` (the same split, or None: every row counts) is a
+    0 / 1 row weight that marks padding rows with 0: they join no
+    cluster, add no distortion and are never drawn as a seed or as a
+    high-distortion reseed candidate, whatever their values. Per
+    iteration each shard
     reduces its partial sums, counts, distortion and candidate pool on its
     device; the partials are summed and the pools gathered on the leader
     (the JAX ``psum`` / ``all_gather``), where the reseed update runs once.
@@ -841,19 +909,24 @@ def sharded_kmeans_fit(
     random draw comes from ``generator`` (on the leader). Returns fp32
     centroids ``[k, D]`` on the leader."""
     shards = _row_shards(mesh, x_sharded)
+    weights = (_row_shards(mesh, weight) if weight is not None
+               else [None] * mesh.size)
     n_local, dim = shards[0].shape
-    n = n_local * mesh.size
+    n = (n_local * mesh.size if weight is None
+         else int(sum(float(w.sum()) for w in weights)))
     cs = min(chunk_size, max(n_local, 1))
     nc = min(n_cand, cs)
     take = min(seed_per_chip, n_local)
     stride = max(n_local // max(take, 1), 1)
     seed_pool = all_gather(
-        mesh, [x_l[::stride][:take].float() for x_l in shards], dim=0)
+        mesh, [(x_l if w_l is None else x_l[w_l > 0])[::stride][:take]
+               .float() for x_l, w_l in zip(shards, weights)], dim=0)
     centroids = kmeans_pp_init(seed_pool, k, generator)
     for it in range(iters):
         partials = [
-            _lloyd_partial(x_l, c_l, cs, nc)
-            for x_l, c_l in zip(shards, replicate(mesh, centroids))
+            _lloyd_partial(x_l, w_l, c_l, cs, nc)
+            for x_l, w_l, c_l in zip(shards, weights,
+                                     replicate(mesh, centroids))
         ]
         sums, counts, d_tot = (psum(mesh, [p[i] for p in partials])
                                for i in range(3))
@@ -869,21 +942,27 @@ def sharded_kmeans_fit(
 
 
 def sharded_kmeans_lloyd_step(mesh: Mesh, x_sharded, centroids,
-                              k: int) -> torch.Tensor:
+                              k: int, weight=None) -> torch.Tensor:
     """One data-parallel Lloyd iteration: local assign and partial
-    centroid sums per shard, summed on the leader, then the update. Rows
-    of ``x_sharded`` that are all zero count as padding (they join no
-    cluster), as in the JAX package."""
+    centroid sums per shard, summed on the leader, then the update.
+    ``weight`` (split as ``x_sharded``; None: every row counts) is a 0 / 1
+    row weight: a row of weight 0 is padding and joins no cluster. Rows
+    are never taken for padding by their values, so a real all-zero row
+    joins its cluster (the JAX package drops every all-zero row)."""
     if not isinstance(centroids, torch.Tensor):
         centroids = torch.from_numpy(np.array(centroids, np.float32))
     c = centroids.to(device=mesh.leader, dtype=torch.float32)
+    weights = (_row_shards(mesh, weight) if weight is not None
+               else [None] * mesh.size)
     parts = []
-    for x_l, c_l in zip(_row_shards(mesh, x_sharded), replicate(mesh, c)):
+    for x_l, w_l, c_l in zip(_row_shards(mesh, x_sharded), weights,
+                             replicate(mesh, c)):
         xf = x_l.float()
         a = pairwise_distance(xf, c_l, Metric.L2).argmin(-1)
-        valid = (x_l != 0).any(-1)
-        onehot = ((a[:, None] == torch.arange(k, device=xf.device)[None, :])
-                  & valid[:, None]).float()
+        onehot = (a[:, None] == torch.arange(k, device=xf.device)[None, :]
+                  ).float()
+        if w_l is not None:
+            onehot = onehot * w_l.float()[:, None]
         parts.append((onehot.T @ xf, onehot.sum(0)))
     sums = psum(mesh, [p[0] for p in parts])
     cnts = psum(mesh, [p[1] for p in parts])

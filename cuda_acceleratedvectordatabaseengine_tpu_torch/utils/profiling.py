@@ -15,6 +15,7 @@ Two layers:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import http.server
 import json
@@ -30,6 +31,7 @@ import torch
 MAX_TRACE_MS = 10_000   # longest capture one request may ask for
 CAPTURE_ATTEMPTS = 3    # windows per capture while the card's records miss
 KERNEL_CAT = "kernel"   # the trace category of the card's kernels
+COPY_CAT = "gpu_memcpy"  # ... and of its copies
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")  # host API calls ...
 LAUNCH_MARK = "LaunchKernel"                   # ... of these, the launches
 
@@ -53,34 +55,128 @@ def _all_threads_config():
         return None
 
 
-def _profile_window(ms: float) -> dict:
+def _synchronize_ms(on_card: bool) -> float | None:
+    """Wait for every kernel queued on the current card; the host ms the
+    wait took (the card's backlog), None without a card."""
+    if not on_card:
+        return None
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _profile_window(ms: float, all_threads: bool = True) -> tuple[dict,
+                                                                   dict]:
     """Profile the whole process for ``ms`` milliseconds; the Chrome trace
-    as a dict."""
+    as a dict, and a note of the window (:func:`_window_note`).
+    ``all_threads`` False records the calling thread's CPU ops only (the
+    card's records and every thread's runtime calls still): the windows
+    of :func:`capture_trace` record every thread.
+
+    Where the card is profiled, the card is synchronized before the
+    profiler starts and again before it stops: the profiler keeps only the
+    card's records that fall inside its window, so a window closed while
+    the card still runs the kernels launched in it drops their records (on
+    an H100, 96% of the launches of a window's last fifth behind a 0.9 s
+    backlog, none with the waits), and a backlog left from before the
+    window would straddle its start. The host ms of each wait go into the
+    note (``backlog_ms``)."""
+    on_card = torch.profiler.ProfilerActivity.CUDA in _activities()
+    backlog = [_synchronize_ms(on_card)]
+    t_start = time.time_ns()
     with torch.profiler.profile(
         activities=_activities(),
-        experimental_config=_all_threads_config(),
+        experimental_config=_all_threads_config() if all_threads else None,
     ) as prof:
         time.sleep(ms / 1000.0)
+        backlog.append(_synchronize_ms(on_card))
+    t_stop = time.time_ns()
     fd, path = tempfile.mkstemp(suffix=".json", prefix="vdb-trace-")
     os.close(fd)
     try:
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return json.load(f)
+            trace = json.load(f)
     finally:
         os.unlink(path)
+    note = _window_note(trace)
+    note.update(all_threads=all_threads, backlog_ms=backlog,
+                host_ms=(t_stop - t_start) / 1e6)
+    return trace, note
 
 
-def _card_records(trace: dict) -> tuple[int, int]:
-    """(kernel records, kernel launches) in a window's trace: the card's
-    kernels, and the host's runtime / driver calls that launched one."""
-    kernels = launches = 0
+def _span(events) -> list | None:
+    """[first start, last end] of trace events, in the trace's µs (None
+    when none has a time)."""
+    timed = [e for e in events if "ts" in e]
+    if not timed:
+        return None
+    return [min(float(e["ts"]) for e in timed),
+            max(float(e["ts"]) + float(e.get("dur", 0)) for e in timed)]
+
+
+def _correlation(event: dict):
+    return (event.get("args") or {}).get("correlation")
+
+
+def _kept_by_fifth(launched: dict, recorded: dict) -> list | None:
+    """Share of the launches (correlation → time) in each fifth of their
+    time span whose kernel is among ``recorded``; None without launches."""
+    if not launched:
+        return None
+    t0, t1 = min(launched.values()), max(launched.values())
+    width = (t1 - t0) / 5 or 1.0
+    total, kept = [0] * 5, [0] * 5
+    for c, t in launched.items():
+        i = min(int((t - t0) / width), 4)
+        total[i] += 1
+        kept[i] += c in recorded
+    return [round(k / n, 3) if n else None for k, n in zip(kept, total)]
+
+
+def _window_note(trace: dict) -> dict:
+    """What a window holds of the card's side: kernel records, kernel
+    launches (the host's runtime / driver calls that launched one) and
+    copies, the time span of each and of the host's ops (so a window whose
+    kernels fall outside its span shows it), its three commonest kernel
+    names with their counts, and the profiler's own warnings or errors
+    where its trace carries any. Launches and kernel records pair up by
+    their correlation id: ``launch_to_kernel_us`` is the least and the
+    median time from a launch to its kernel's start (below 0 the card's
+    clock and the host's disagree), and ``kept_by_fifth`` the share of
+    the launches in each fifth of their span whose kernel was recorded
+    (where in the window records went missing)."""
+    kernels, launches, copies, host = [], [], [], []
     for e in trace["traceEvents"]:
-        if e.get("cat") == KERNEL_CAT:
-            kernels += 1
-        elif e.get("cat") in LAUNCH_CATS and LAUNCH_MARK in str(e.get("name")):
-            launches += 1
-    return kernels, launches
+        cat = e.get("cat")
+        if cat == KERNEL_CAT:
+            kernels.append(e)
+        elif cat == COPY_CAT:
+            copies.append(e)
+        elif cat in LAUNCH_CATS and LAUNCH_MARK in str(e.get("name")):
+            launches.append(e)
+        elif cat == "cpu_op":
+            host.append(e)
+    names = collections.Counter(str(e.get("name"))[:60] for e in kernels)
+    launched = {_correlation(e): float(e["ts"]) for e in launches
+                if "ts" in e and _correlation(e) is not None}
+    recorded = {_correlation(e): float(e["ts"]) for e in kernels
+                if "ts" in e and _correlation(e) is not None}
+    lags = sorted(t - launched[c] for c, t in recorded.items()
+                  if c in launched)
+    note = {"kernel_records": len(kernels), "kernel_launches": len(launches),
+            "copy_records": len(copies),
+            "span_us": {"host_ops": _span(host), "launches": _span(launches),
+                        "kernels": _span(kernels), "copies": _span(copies)},
+            "top_kernels": [list(nc) for nc in names.most_common(3)],
+            "launch_to_kernel_us": ([lags[0], lags[len(lags) // 2]]
+                                    if lags else None),
+            "kept_by_fifth": _kept_by_fifth(launched, recorded)}
+    said = {k: str(v)[:1000] for k, v in trace.items()
+            if any(w in k.lower() for w in ("warn", "error"))}
+    if said:
+        note["profiler_said"] = said
+    return note
 
 
 def capture_trace(ms: float) -> dict:
@@ -92,23 +188,28 @@ def capture_trace(ms: float) -> dict:
     captured again, up to :data:`CAPTURE_ATTEMPTS` windows in all. A window
     lost them when it holds no kernel record, or fewer than half as many
     kernel records as kernel launches: ``torch.profiler`` now and then
-    returns a window's host ops and launches with none or almost none of
-    the card's kernels (on an H100, once with no kernel record and once
-    with 2 kernel records beside 179 copies, while a served index launched
-    kernels throughout the window). ``trace["vdbCapture"]`` gives the
-    window, the number of windows taken and the kernel records and launches
-    of the one returned, so a client sees a capture that lost the card's
-    side."""
+    returns a window's host ops, launches and copies with none or almost
+    none of the card's kernels (on an H100 late in a long process under
+    serving load: once with no kernel record, once with 2 beside 179
+    copies, once three windows in a row with none for 4,377 launches). The
+    waits of :func:`_profile_window` do not prevent it, and a lost state
+    can outlast several windows; its cause is not known.
+    ``trace["vdbCapture"]`` gives the window, the number of windows taken,
+    the kernel records and launches of the one returned, and ``windows``,
+    the note of every window taken (:func:`_profile_window`), so a client
+    sees a capture that lost the card's side and what each window held."""
     ms = min(max(float(ms), 1.0), MAX_TRACE_MS)
     on_card = torch.profiler.ProfilerActivity.CUDA in _activities()
+    windows = []
     for attempt in range(1, CAPTURE_ATTEMPTS + 1):
-        trace = _profile_window(ms)
-        kernels, launches = _card_records(trace)
+        trace, note = _profile_window(ms)
+        windows.append(note)
+        kernels, launches = note["kernel_records"], note["kernel_launches"]
         if not on_card or (kernels and 2 * kernels >= launches):
             break
     trace["vdbCapture"] = {"ms": ms, "attempts": attempt,
                            "kernel_records": kernels,
-                           "kernel_launches": launches}
+                           "kernel_launches": launches, "windows": windows}
     return trace
 
 

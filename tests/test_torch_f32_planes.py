@@ -266,14 +266,16 @@ def _near_rows(rng, aligned_lo=False, nlist=16, cap=64, dim=768):
     return q, x
 
 
-def _share(q, x, qx):
+def _share(q, x, qx, sq32=None):
     """Worst share of the scans' tolerance by which L2 distances from the
-    fp32 dots ``qx`` lie from float64."""
+    fp32 dots ``qx`` (and the fp32 slot norms ``sq32``, by default numpy's
+    fp32 sums) lie from float64."""
     q64, x64 = q.astype(np.float64), x.astype(np.float64)
     qsq = (q64 * q64).sum(1)[:, None]
     d64 = qsq - 2.0 * np.einsum("bd,bsd->bs", q64, x64) + (x64 * x64).sum(-1)
     qsq32 = (q * q).sum(1, dtype=np.float32)[:, None]
-    sq32 = (x * x).sum(-1, dtype=np.float32)
+    if sq32 is None:
+        sq32 = (x * x).sum(-1, dtype=np.float32)
     d = (qsq32 - np.float32(2) * qx.astype(np.float32) + sq32).astype(
         np.float64)
     return (np.abs(d - d64) / (RTOL * np.abs(d64) + ATOL_QSQ * qsq)).max()
@@ -296,3 +298,62 @@ def test_six_plane_dot_is_fp32_accurate(rng, aligned_lo):
         assert three > 1.0
     else:
         assert three > six
+
+
+def _block_norms(x, fp64_chunks=True):
+    """|x|² of each fp32 slot row [..., D] as K4's list-row kernel forms it
+    (``csrc/tc_scan.cuh`` ``tile_mma_f32``): lane c of a fragment quad owns
+    elements 8 c .. 8 c + 7 of each 32-wide chunk and sums their squares
+    with fp32 FMAs. ``fp64_chunks`` (the kernel): a fresh fp32 partial a
+    chunk, the partials added in fp64 over the chunks and over the quad's
+    four lanes, rounded to fp32 once. Otherwise one fp32 chain a lane over
+    all of D and the quad's fp32 shuffle adds (lane 0 keeps
+    (l0 + l1) + (l2 + l3))."""
+    dim = x.shape[-1]
+    assert dim % CHUNK == 0
+    v = x.reshape(*x.shape[:-1], dim // CHUNK, 4, 8).astype(np.float64)
+    lanes = np.zeros((*x.shape[:-1], 4), np.float64)
+    chain = np.zeros((*x.shape[:-1], 4), np.float32)
+    for c in range(dim // CHUNK):
+        part = chain if not fp64_chunks else np.zeros_like(chain)
+        for e in range(8):   # one FMA rounds once: x² is exact in float64
+            part = (part.astype(np.float64) + v[..., c, :, e] ** 2).astype(
+                np.float32)
+        if fp64_chunks:
+            lanes += part
+        else:
+            chain = part
+    if fp64_chunks:
+        return ((lanes[..., 0] + lanes[..., 1])
+                + (lanes[..., 2] + lanes[..., 3])).astype(np.float32)
+    return ((chain[..., 0] + chain[..., 1])
+            + (chain[..., 2] + chain[..., 3])).astype(np.float32)
+
+
+def _norm_share(q, x, sq32):
+    """Worst share of the scans' tolerance (its ‖q‖² term) by which the
+    slot norms ``sq32`` alone lie from float64."""
+    q64, x64 = q.astype(np.float64), x.astype(np.float64)
+    qsq = (q64 * q64).sum(1)[:, None]
+    return (np.abs(sq32 - (x64 * x64).sum(-1)) / (ATOL_QSQ * qsq)).max()
+
+
+@pytest.mark.parametrize("aligned_lo", [False, True])
+def test_block_norms_of_fp32_values_are_fp32_accurate(rng, aligned_lo):
+    """K4 on an fp32 arena forms each slot's |x|² from the fp32 values in
+    the tile it stages (not from their hi plane). At D 768 with |x|² near
+    ‖q‖² ≈ 820, the kernel's order (fp32 partials a chunk, added in fp64)
+    keeps the norms within 0.02 of the scans' tolerance, several times
+    closer than one fp32 chain a lane over D (192 FMAs), and the L2
+    distances from the modelled six-product dots and these norms stay
+    under 0.1 of it."""
+    q, x = _near_rows(rng, aligned_lo)
+    kernel = _block_norms(x)
+    chain = _block_norms(x, fp64_chunks=False)
+    np.testing.assert_allclose(kernel, (x.astype(np.float64) ** 2).sum(-1),
+                               rtol=1e-6)
+    assert _norm_share(q, x, kernel) < 0.02
+    assert _norm_share(q, x, kernel) * 3 < _norm_share(q, x, chain)
+    hi = x.astype(ml_dtypes.bfloat16).astype(np.float64)
+    assert _norm_share(q, x, (hi * hi).sum(-1)) > 1.0   # the hi plane's
+    assert _share(q, x, _plane_qx(q, x), kernel) < 0.1

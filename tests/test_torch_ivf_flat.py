@@ -476,3 +476,36 @@ def test_ragged_scan_name_routes_to_k3_like_jax_ragged(rng, dtype):
     p = dict(nprobe=4, k=10)
     assert_topk_match(*tidx.search(q, SearchParams(**p)),
                       *jidx.search(q, JParams(**p)), rtol=1e-5, atol=atol)
+
+
+def test_list_heat_counts_each_query_over_its_probe_set(rng, monkeypatch):
+    """List heat, one definition for both families: each search adds 1 to
+    each list that each query probed; two queries probing one list add 2,
+    and a -1 probe adds nothing (the JAX package counts a probed list once
+    per batch). It is counted on the device: the search's host side
+    fetches no probes."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.models import (
+        ivf_flat as flat_mod,
+    )
+
+    x = _clustered(rng, 600)
+    idx = IVFFlatIndex(IVFFlatConfig(dimension=DIM, nlist=NLIST,
+                                     dtype="float32", train_iters=6),
+                       device="cpu")
+    idx.train(x)
+    idx.append_balanced(torch.from_numpy(x), capacity=256)
+    real = flat_mod._ivf_search_device
+    probes = torch.tensor([[3, 5], [3, -1]], dtype=torch.int32)
+
+    def fixed(*a, **kw):
+        d, pos, _ = real(*a, **kw)
+        return d, pos, probes
+
+    monkeypatch.setattr(flat_mod, "_ivf_search_device", fixed)
+    before = idx.list_access_count
+    idx.search(x[:2], SearchParams(nprobe=2, k=5))
+    added = idx.list_access_count - before
+    expect = np.zeros(NLIST, np.int64)
+    expect[[3, 5]] = [2, 1]
+    np.testing.assert_array_equal(added, expect)
+    assert isinstance(idx._heat._counts, torch.Tensor)

@@ -301,3 +301,33 @@ def test_state_memory_and_not_ported_surface(tmp_path):
         IVFPQConfig(dimension=DIM, m=M, scan_impl="pallas_sorted")
     with pytest.raises(ValueError):
         IVFPQConfig(dimension=30, m=8)
+
+
+def test_list_heat_counts_each_query_over_its_probe_set(monkeypatch):
+    """IVF-PQ counts list heat as IVF-Flat does: per query over its probe
+    set (two queries probing one list add 2, a -1 probe adds nothing),
+    not the lists of the returned positions as the JAX package does."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.models import (
+        ivf_pq as pq_mod,
+    )
+
+    _, q = _data()
+    idx = _carry(_jax_index(), IVFPQConfig(**_cfg_kw("L2", False,
+                                                      "bfloat16")))
+    probes = torch.tensor([[2, 6], [2, -1]], dtype=torch.int32)
+    real = pq_mod.topk_smallest
+    seen = []
+
+    def probe_topk(d, k, *a, **kw):
+        if not seen and d.shape[-1] == NLIST and k == 2:  # the coarse probe
+            seen.append(k)
+            return d[:, :2], probes
+        return real(d, k, *a, **kw)
+
+    monkeypatch.setattr(pq_mod, "topk_smallest", probe_topk)
+    before = idx.list_access_count
+    idx.search(q[:2], SearchParams(nprobe=2, k=3))
+    assert seen
+    expect = np.zeros(NLIST, np.int64)
+    expect[[2, 6]] = [2, 1]
+    np.testing.assert_array_equal(idx.list_access_count - before, expect)

@@ -188,3 +188,33 @@ def test_list_row_packing_hot_list_and_prefix(rng):
     ref = _np(j_pairs(*jargs, 8, JMetric.L2, interpret=True,
                       scan_capacity=scap))
     assert_topk_match(*got, *ref, rtol=1e-5, atol=_atol(s, "L2"))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_kernel_path_packs_every_dtype_into_list_rows(rng, dtype,
+                                                     monkeypatch):
+    """The CUDA row step sorts and packs the pairs of every arena dtype,
+    fp32 included, into list-rows for the one list-row kernel (its launcher
+    patched with the packed plain version here, on the CPU), whose rows
+    equal the pair-order plain version's."""
+    calls = []
+
+    def launch(q, arena, counts, row_list, table, nprobe, n_pairs, metric,
+               cap_s):
+        calls.append((arena.dtype, tuple(table.shape)))
+        return _pair_list_rows_reference(q, arena, counts, row_list, table,
+                                         nprobe, n_pairs, metric, cap_s)
+
+    monkeypatch.setattr(pair_scan, "_pair_list_rows_cuda", launch)
+    monkeypatch.setattr(pair_scan, "kernel_max_m", lambda dim, dt: 64)
+    s = _make(rng, dtype, "L2")
+    q, arena, _, counts, probe = _torch_args(s)[0]
+    cap = arena.shape[1]
+    got = pair_scan._pair_rows_cuda(q, arena, counts, probe, Metric.L2, cap)
+    ref = _pair_rows_reference(q, arena, counts, probe, Metric.L2, cap)
+    assert len(calls) == 1 and calls[0][0] == arena.dtype
+    assert calls[0][1][1] <= 64
+    fk = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), fk)
+    atol = float(np.max(_atol_raw(s, "L2")))
+    assert float((got[fk] - ref[fk]).abs().max()) <= atol

@@ -277,24 +277,63 @@ def test_memory_stats_count_each_storage_once(n):
     assert st["total_bytes"] == st["base_bytes"] + st["striped_bytes"]
 
 
-def test_exact_rerank_is_ignored_by_the_sharded_flat_view():
-    """A reference fault kept for parity: the sharded flat view never
-    stripes the lo plane and ignores ``use_exact_rerank``, in both
-    packages, while the single-device index reranks (its distances move
-    to the rebuilt rows)."""
-    jidx, _ = _flat_pair("L2", "int8", store_residuals=True)
-    tidx = _port_flat("L2", "int8", store_residuals=True)
+@pytest.mark.parametrize("metric,n", [("L2", 1), ("L2", 2), ("Cosine", 2)])
+def test_sharded_flat_view_reranks_as_the_single_device(metric, n):
+    """The port's sharded flat view stripes the lo plane and answers a
+    ``use_exact_rerank`` search as the single-device index does (ids up to
+    ties, the scans' tolerance), at 1 and 2 shards; the lo stripes count
+    once in ``memory_stats``. The JAX package's view keeps the reference
+    fault: it never stripes the lo plane and ignores the request, while
+    its single-device index reranks."""
+    jidx, _ = _flat_pair(metric, "int8", store_residuals=True)
+    tidx = _port_flat(metric, "int8", store_residuals=True)
     _, q = _data()
     plain = dict(nprobe=8, k=10)
     rr = dict(nprobe=8, k=10, use_exact_rerank=True)
-    for view, P_ in ((ShardedIVFFlatIndex(tidx, _mesh(2)), SearchParams),
-                     (JSharded(jidx, j_make_mesh(2)), JParams)):
-        a, b = view.search(q, P_(**plain)), view.search(q, P_(**rr))
-        np.testing.assert_array_equal(a[0], b[0])
-        np.testing.assert_array_equal(a[1], b[1])
-    for index, P_ in ((tidx, SearchParams), (jidx, JParams)):
-        assert np.abs(index.search(q, P_(**plain))[0]
-                      - index.search(q, P_(**rr))[0]).max() > 1e-4
+    view = ShardedIVFFlatIndex(tidx, _mesh(n))
+    got = view.search(q, SearchParams(**rr))
+    assert_topk_match(*got, *tidx.search(q, SearchParams(**rr)),
+                      **_tol(q, metric))
+    assert np.abs(got[0] - view.search(q, SearchParams(**plain))[0]).max() \
+        > 1e-4
+    arena = tidx.arena
+    stripes = sum(t.numel() * t.element_size()
+                  for t in (arena.arena, arena.arena_sq, arena.arena_scale,
+                            arena.arena_lo))
+    assert view.memory_stats()["striped_bytes"] == (0 if n == 1
+                                                     else stripes)
+    jview = JSharded(jidx, j_make_mesh(2))
+    a, b = jview.search(q, JParams(**plain)), jview.search(q, JParams(**rr))
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    assert np.abs(jidx.search(q, JParams(**plain))[0]
+                  - jidx.search(q, JParams(**rr))[0]).max() > 1e-4
+
+
+def test_build_on_mesh_stripes_the_lo_plane_for_rerank():
+    """A mesh-built view of a ``store_residuals`` config fills the lo
+    plane's stripes: its reranked distances are those to the original
+    rows in float64, within the scans' tolerance, where the scan's own
+    distances (to the int8 rows) are not."""
+    x, q = _data()
+    cfg = IVFFlatConfig(dimension=DIM, nlist=8, dtype="int8",
+                        store_residuals=True, train_sample_per_list=64,
+                        train_iters=6)
+    view = ShardedIVFFlatIndex.build_on_mesh(
+        _mesh(4), cfg, torch.from_numpy(x), chunk_rows=512,
+        generator=torch.Generator().manual_seed(3))
+    assert view.arena_lo_s is not None and len(view.arena_lo_s) == 4
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    atol = _tol(q, "L2")["atol"][:, None]
+
+    def off(params):
+        d, ids = view.search(q, params)
+        exact = ((q64[:, None] - x64[ids.astype(np.int64)]) ** 2).sum(-1)
+        return np.abs(d - exact) / (1e-5 * exact + atol)
+
+    assert off(SearchParams(nprobe=8, k=10, use_exact_rerank=True)).max() \
+        <= 1.0
+    assert off(SearchParams(nprobe=8, k=10)).max() > 1.0
 
 
 @pytest.mark.parametrize("n", [1, 4])
@@ -432,18 +471,80 @@ def test_build_on_mesh_trains_packs_and_finds_every_row():
 @pytest.mark.parametrize("n", [2, 8])
 def test_sharded_lloyd_step_matches_jax(n):
     """One data-parallel Lloyd step equals the JAX step (atol 1e-4),
-    with zero padding rows that join no cluster."""
+    with padding rows that join no cluster: zero rows in the JAX package,
+    rows of weight 0 in the port."""
     rng = np.random.default_rng(5)
     x = rng.standard_normal((512, DIM)).astype(np.float32)
     x[-8:] = 0.0                                   # padding rows
+    weight = np.ones(512, np.float32)
+    weight[-8:] = 0.0
     c0 = x[:8].copy()
     jm = j_make_mesh(n)
     ref = np.asarray(j_lloyd_step(
         jm, jax.device_put(jnp.asarray(x), NamedSharding(jm, P("shard",
                                                                 None))),
         jnp.asarray(c0), 8))
-    got = sharded_kmeans_lloyd_step(_mesh(n), torch.from_numpy(x), c0, 8)
+    got = sharded_kmeans_lloyd_step(_mesh(n), torch.from_numpy(x), c0, 8,
+                                    weight=torch.from_numpy(weight))
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+
+
+def test_sharded_lloyd_step_counts_real_zero_rows():
+    """Without a weight every row counts, a real all-zero row too: it
+    pulls its cluster's centroid toward the origin (the JAX step drops
+    it); weighted out, it does not."""
+    rng = np.random.default_rng(6)
+    x = (1.0 + rng.random((64, DIM))).astype(np.float32)
+    x[::8] = 0.0                                   # real zero vectors
+    c0 = np.stack([np.zeros(DIM), np.full(DIM, 1.5)]).astype(np.float32)
+    got = sharded_kmeans_lloyd_step(_mesh(4), torch.from_numpy(x), c0, 2)
+    np.testing.assert_array_equal(got[0].numpy(), np.zeros(DIM))
+    np.testing.assert_allclose(got[1].numpy(),
+                               np.delete(x, np.s_[::8], 0).mean(0),
+                               rtol=1e-5)
+    w = torch.ones(64)
+    w[::8] = 0.0
+    dropped = sharded_kmeans_lloyd_step(_mesh(4), torch.from_numpy(x), c0,
+                                        2, weight=w)
+    np.testing.assert_array_equal(dropped[0].numpy(), c0[0])   # empty
+
+
+def test_build_on_mesh_trains_zero_vectors_and_masks_padding(monkeypatch):
+    """The mesh build hands its trainer a 0 / 1 weight for the padding
+    rows (the sample padded from 1801 to 1808 rows over 8 shards), and a
+    cluster of real zero vectors gets its centroid at the origin, where
+    the zero query finds them at distance 0."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
+        sharded as sharded_mod,
+    )
+
+    rng = np.random.default_rng(4)
+    centers = 3.0 * rng.standard_normal((7, DIM))
+    x = centers[rng.integers(0, 7, 1500)] + 0.2 * rng.standard_normal(
+        (1500, DIM))
+    x = np.concatenate([x, np.zeros((301, DIM))]).astype(np.float32)
+    ids = rng.permutation(x.shape[0])
+    x = x[np.argsort(ids)]                       # zero rows spread out
+    zero_ids = np.flatnonzero(~x.any(1))
+    seen = {}
+    real_fit = sharded_mod.sharded_kmeans_fit
+
+    def fit(mesh, gen, sample, k, **kw):
+        seen["rows"], seen["weight"] = sample.shape[0], kw["weight"].clone()
+        return real_fit(mesh, gen, sample, k, **kw)
+
+    monkeypatch.setattr(sharded_mod, "sharded_kmeans_fit", fit)
+    cfg = IVFFlatConfig(dimension=DIM, nlist=8, dtype="float32",
+                        train_sample_per_list=512, train_iters=8)
+    view = ShardedIVFFlatIndex.build_on_mesh(
+        _mesh(8), cfg, x, generator=torch.Generator().manual_seed(0))
+    w = seen["weight"].numpy()
+    assert seen["rows"] == 1808 and w.sum() == 1801
+    assert (w[-7:] == 0).all()
+    assert np.linalg.norm(view.centroids.numpy(), axis=1).min() < 1e-6
+    d, found = view.search(np.zeros((1, DIM), np.float32),
+                           SearchParams(nprobe=1, k=10))
+    assert (d == 0).all() and np.isin(found, zero_ids).all()
 
 
 def test_sharded_kmeans_fit_inertia_near_jax():

@@ -92,9 +92,16 @@ def test_trace_server_serves_captures():
             trace = json.loads(r.read())
         # the other thread's range: every thread is recorded
         assert "vdb.busy_thread" in _names(trace)
-        assert trace["vdbCapture"] == {"ms": 50.0, "attempts": 1,
-                                       "kernel_records": 0,
-                                       "kernel_launches": 0}
+        cap = trace["vdbCapture"]
+        assert {k: cap[k] for k in ("ms", "attempts", "kernel_records",
+                                    "kernel_launches")} == {
+            "ms": 50.0, "attempts": 1, "kernel_records": 0,
+            "kernel_launches": 0}
+        (note,) = cap["windows"]
+        assert note["all_threads"] and note["backlog_ms"] == [None, None]
+        assert note["copy_records"] == 0 and note["host_ms"] >= 50.0
+        assert note["span_us"]["host_ops"] is not None
+        assert note["span_us"]["kernels"] is None
         for path, code in (("/nope", 404), ("/trace?ms=abc", 400)):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 urllib.request.urlopen(base + path, timeout=30)
@@ -144,16 +151,78 @@ def test_capture_retakes_a_window_without_the_cards_records(
 
     def fake_window(ms):
         taken.append(ms)
-        return windows[len(taken) - 1]
+        window = windows[len(taken) - 1]
+        return window, profiling._window_note(window)
 
     monkeypatch.setattr(profiling, "_profile_window", fake_window)
     trace = profiling.capture_trace(99999)
     assert taken == [profiling.MAX_TRACE_MS] * attempts
     assert trace is windows[attempts - 1]
+    notes = [profiling._window_note(w) for w in windows[:attempts]]
     assert trace["vdbCapture"] == {"ms": profiling.MAX_TRACE_MS,
                                    "attempts": attempts,
                                    "kernel_records": kernels,
-                                   "kernel_launches": launches}
+                                   "kernel_launches": launches,
+                                   "windows": notes}
+    assert notes[-1]["kernel_records"] == kernels
+    assert notes[-1]["kernel_launches"] == launches
+
+
+def test_window_synchronizes_the_card_before_it_opens_and_closes(
+        monkeypatch):
+    """Where the card is profiled, the window waits for the card's
+    backlog before the profiler starts and again before it stops (the
+    profiler keeps only the card's records inside its window), and its
+    note gives both waits, the records of each kind and their time spans;
+    ``all_threads`` False records the calling thread only."""
+    monkeypatch.setattr(profiling, "_activities", lambda: [
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    synced = []
+
+    def synchronize(*a):
+        synced.append(torch.autograd.profiler._is_profiler_enabled)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", synchronize)
+    for all_threads in (True, False):
+        synced.clear()
+        with pytest.warns(UserWarning):   # no CUDA here: CPU ops only
+            trace, note = profiling._profile_window(20, all_threads)
+        assert synced == [False, True]
+        assert note["all_threads"] is all_threads
+        assert len(note["backlog_ms"]) == 2
+        assert all(b >= 0 for b in note["backlog_ms"])
+        assert note["host_ms"] >= 20.0
+        assert note["kernel_records"] == note["copy_records"] == 0
+        assert set(note["span_us"]) == {"host_ops", "launches", "kernels",
+                                        "copies"}
+    note = profiling._window_note({"traceEvents": [
+        {"name": "k", "cat": "kernel", "ts": 10.0, "dur": 5.0,
+         "args": {"correlation": 7}},
+        {"name": "cudaLaunchKernel", "cat": "cuda_runtime", "ts": 2.0,
+         "dur": 1.0, "args": {"correlation": 7}},
+        {"name": "Memcpy DtoH", "cat": "gpu_memcpy", "ts": 20.0,
+         "dur": 2.0},
+        {"name": "aten::mm", "cat": "cpu_op", "ts": 1.0, "dur": 30.0}],
+        "traceName": "t", "WARNING": ["CUPTI could not enable kernels"]})
+    assert note == {
+        "kernel_records": 1, "kernel_launches": 1, "copy_records": 1,
+        "span_us": {"host_ops": [1.0, 31.0], "launches": [2.0, 3.0],
+                    "kernels": [10.0, 15.0], "copies": [20.0, 22.0]},
+        "top_kernels": [["k", 1]], "launch_to_kernel_us": [8.0, 8.0],
+        "kept_by_fifth": [1.0, None, None, None, None],
+        "profiler_said": {"WARNING": "['CUPTI could not enable kernels']"}}
+    # five launches over 100 µs, the kernels of the first two recorded (one
+    # stamped before its launch: the two clocks disagree)
+    events = [{"name": "cudaLaunchKernel", "cat": "cuda_runtime",
+               "ts": 25.0 * i, "args": {"correlation": i}} for i in range(5)]
+    events += [{"name": "k", "cat": "kernel", "ts": t, "dur": 1.0,
+                "args": {"correlation": c}} for c, t in ((0, 3.0),
+                                                         (1, 20.0))]
+    note = profiling._window_note({"traceEvents": events})
+    assert note["kernel_records"] == 2 and note["kernel_launches"] == 5
+    assert note["launch_to_kernel_us"] == [-5.0, 3.0]
+    assert note["kept_by_fifth"] == [1.0, 1.0, 0.0, 0.0, 0.0]
 
 
 def _free_ports(n: int) -> list[int]:
