@@ -38,7 +38,13 @@ fails (non-zero exit, no result line) when any phase fails:
 5. K1 against its plain version on the built index, at the calibrated
    nprobe and at nprobe 32 (the shapes the main path serves);
 6. one IVF-Flat search per nprobe under ``torch.profiler``: device and
-   host time of each named stage, device idle share, the heaviest kernels;
+   host time of each named stage, device idle share, the heaviest kernels.
+   Here and wherever a search is traced (phases 9, 11, 11c, 12, 14, 16,
+   18) or the removal of 13 (a), the session is
+   ``utils/profiling.profiler_session`` (CUPTI attached anew) and the
+   trace is read only when it kept at least ``RECORDS_SHARE`` (0.99) of
+   its kernel launches as kernel records (``records_complete``); the run
+   fails otherwise;
 7. the IVF-PQ path at full width (1M x 768, nlist 4096, m 96, bf16 raw
    rows, anisotropic corpus generated on the card): ``train_from_device``,
    ``reserve``, ``add_from_device`` in 125K slices, ``calibrate_nprobe``,
@@ -134,11 +140,14 @@ fails (non-zero exit, no result line) when any phase fails:
    queries (once traced, once not), 64-query requests, topk 100 (K3),
    streams (gate: success rate 1.0); (f) one ``/trace?ms=500`` capture
    from the profiler trace server during (d)'s first run (gate: it names
-   K1's kernel; every window's note printed: records of each kind, their
-   spans, the waits for the card), then, ungated, one window that records
-   the capturing thread only; (h), after every other phase, a directed test of
-   the profiler's window against a backlog on the card
-   (``capture_probe``, ungated); (b) ``tools.benchmark``
+   K1's kernel; every window's note printed, the first one's summary
+   first: records of each kind, launches kept by thread, their spans, the
+   waits for the card), then, ungated, one window that records the
+   capturing thread only; (h), after every other phase, 12 windows of the
+   profiler beside a thread that launches matmuls and K1 through every
+   one of them, each closed behind a 0.9 s backlog on the card
+   (``capture_probe``; gate: every window that waits for the card keeps
+   ``RECORDS_SHARE`` of its launches as records); (b) ``tools.benchmark``
    (1M x 768, nlist 1024): the CSV row; (c) ``tools.recall_test`` on
    200K x 768 (its float64 oracle copies the corpus: 6 GB at 1M), flat and
    PQ m 96 (gates at nprobe 32: 0.95 flat; PQ reranked above ADC-only and
@@ -1348,12 +1357,17 @@ PQ_SEARCH_STAGES = ("ivf_pq.upload", "ivf_pq.coarse_probe",
 def trace_search(idx, queries, params, batch_ms, top=6,
                  stage_names=SEARCH_STAGES,
                  kernel_stages=K1_KERNEL_STAGES) -> dict:
-    """One ``search`` of ``idx`` (after a warm-up) under
-    ``torch.profiler``: device and host ms of each named stage, the sum of
-    all device activity (busy), the idle share against ``batch_ms`` (the
-    untraced median batch time) and against the traced batch, which the
-    profiler slows on the host, and the heaviest device kernels. Device
-    figures are "not measured" when the trace holds no device time.
+    """One ``search`` of ``idx`` (after a warm-up) in a
+    ``utils/profiling.profiler_session`` (CUPTI attached anew, the card
+    synchronized at both ends): device and host ms of each named stage,
+    the sum of all device activity (busy), the idle share against
+    ``batch_ms`` (the untraced median batch time) and against the traced
+    batch, which the profiler slows on the host, and the heaviest device
+    kernels. ``records`` is the window's kernel launches, the launches
+    whose kernel was recorded and CUPTI's dropped records: the trace is
+    read only when it kept at least ``profiling.RECORDS_SHARE`` of its
+    launches (``profiling.records_complete``); it raises otherwise, and
+    when the search launched nothing.
 
     Each device event counts once, in the stage whose device-side range
     (the span of the device work its aten ops launched) holds it. The
@@ -1362,14 +1376,26 @@ def trace_search(idx, queries, params, batch_ms, top=6,
     (``kernel_stages``: name fragment → stage)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
+        profiling,
+    )
 
     idx.search(queries, params)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.profiler_session() as (prof, info):
         with record_function("chip_smoke.search"):
             idx.search(queries, params)
+    note = profiling._window_note(profiling.chrome_trace(prof))
+    records = {"kernel_launches": note["kernel_launches"],
+               "launches_kept": note["launches_kept"],
+               "kernel_records": note["kernel_records"],
+               "dropped_records": info["dropped_records"],
+               "clock_offset_us": note["clock_offset_us"]}
+    if not note["kernel_launches"] or not profiling.records_complete(
+            note, profiling.RECORDS_SHARE):
+        raise AssertionError(f"the traced search kept {records} of the "
+                             f"card's kernel records: {note}")
     events = prof.events()
     on_host = [e for e in events if e.device_type == DeviceType.CPU]
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -1399,18 +1425,13 @@ def trace_search(idx, queries, params, batch_ms, top=6,
         else:
             stages[stage]["device_ms"] += ms
     busy = sum(kernels.values())
-    if busy <= 0:
-        for s in stages.values():
-            s["device_ms"] = "not measured"
-        return {"traced_batch_ms": wall, "batch_ms": batch_ms,
-                "device_busy_ms": "not measured",
-                "idle_share": "not measured", "stages": stages}
     return {
         "traced_batch_ms": wall, "batch_ms": batch_ms,
         "device_busy_ms": busy,
         "idle_share": 1.0 - busy / batch_ms,
         "idle_share_traced": 1.0 - busy / wall,
         "unattributed_device_ms": unattributed,
+        "records": records,
         "stages": stages,
         "top_kernels": [[n[:90], v] for n, v in sorted(
             kernels.items(), key=lambda kv: -kv[1])[:top]],
@@ -2060,7 +2081,9 @@ def phase_flat_lifecycle(args, dev, idx, queries, q_np, cal_nprobe,
     rows): ``ntotal`` drops by exactly that, no removed id comes back at
     the calibrated nprobe or at 32, recall@10 against an exact oracle over
     the survivors ≥ 0.95, equal results through ``scan_impl="ragged"``
-    (K3); the host plan and the device moves timed apart. (b) One thread
+    (K3); the host plan and the device moves timed apart (the moves in a
+    ``profiler_session`` that must keep ``RECORDS_SHARE`` of its launches
+    as records). (b) One thread
     serves 1024-query batches while this one removes five more batches of
     10K ids: every returned (id, distance) matches the distance to that
     id's stored row (the regenerated corpus row through the stored
@@ -2072,12 +2095,14 @@ def phase_flat_lifecycle(args, dev, idx, queries, q_np, cal_nprobe,
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
     from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
         INVALID_ID,
         plan_removals,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
+        profiling,
     )
 
     n, dim, k = args.n, args.dim, 10
@@ -2093,13 +2118,16 @@ def phase_flat_lifecycle(args, dev, idx, queries, q_np, cal_nprobe,
     plan_removals(idx.arena.counts.cpu().numpy().astype(np.int64), lists,
                   slots)
     out["remove_plan_host_ms"] = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.profiler_session() as (prof, _):
         t0 = time.perf_counter()
         got = idx.remove_ids(removed)
         torch.cuda.synchronize()
         out["remove_wall_ms_profiled"] = (time.perf_counter() - t0) * 1e3
+    note = profiling._window_note(profiling.chrome_trace(prof))
+    out["remove_records"] = [note["launches_kept"], note["kernel_launches"]]
+    if not profiling.records_complete(note, profiling.RECORDS_SHARE):
+        raise AssertionError(f"the traced removal kept "
+                             f"{out['remove_records']} of its launches")
     out["remove_device_ms"] = sum(
         e.time_range.elapsed_us() for e in prof.events()
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation
@@ -3301,28 +3329,44 @@ def trace_during_load(trace_port, engine, name, result) -> threading.Thread:
     return t
 
 
+PROBE_WINDOWS = 12      # windows of (h): one without the waits, 11 with
+
+
 def capture_probe(dev, window_ms: float = 300.0,
                   backlog_ms: float = 900.0) -> dict:
-    """(h), a directed test of how the profiler keeps the card's records:
-    a thread launches a small matmul every millisecond (as the serving
-    threads do), and halfway through each window a timer thread queues
-    about ``backlog_ms`` of large matmuls, so the window closes with the
-    card that far behind. Four windows in turn: one that closes without
-    waiting for the card (the windows before this PR); then three of
-    ``utils/profiling._profile_window`` (it waits for the card at both
-    ends): every thread's ops, the calling thread's only, every thread's
-    again. Each window's note (``_window_note``: kernel records, launches,
-    copies, their spans, the commonest kernel names) and the backlog left
-    when the first closed. If the profiler kept only the records inside
-    its window, the first window would hold far fewer kernel records than
-    launches; a window that loses them with the waits in place, and the
-    one after it, show whether the loss outlives a window."""
+    """(h), a gate on the profiler's windows late in a long process: a
+    thread started here launches a small matmul every millisecond and, every
+    tenth, a search of a small int8 IVF-Flat index (K1 through ctypes, its
+    query upload a synchronous copy), as serving threads do, and lives
+    through every window; halfway through each window a timer thread
+    queues about ``backlog_ms`` of large matmuls, so the window closes with
+    the card that far behind. ``PROBE_WINDOWS`` windows in turn: one that
+    closes without waiting for the card (recorded, not gated: the window
+    of the port before the waits; CUPTI is attached anew before it), then
+    windows of ``utils/profiling._profile_window``, every thread's ops and
+    the calling thread's only in turn. Each waited window must keep
+    ``profiling.RECORDS_SHARE`` of its kernel launches as kernel records
+    (``profiling.records_complete``), and so must the launcher thread's
+    launches alone (``by_thread``).
+    Each window's note (``_window_note``: records, launches, launches kept
+    by thread, copies, spans, the clock offset, CUPTI's dropped records)
+    and the backlog left when the first closed are printed."""
+    import numpy as np
     import torch
 
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
     from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
         profiling,
     )
 
+    rows = np.random.default_rng(17).standard_normal(
+        (20_000, 128)).astype(np.float32)
+    idx = vdb.IVFFlatIndex(vdb.IVFFlatConfig(dimension=128, nlist=64,
+                                             dtype="int8"), device=dev)
+    idx.train(rows)
+    idx.add(rows)
+    queries, params = rows[:32], vdb.SearchParams(nprobe=8, k=10)
+    idx.search(queries, params)
     big = torch.randn(8192, 8192, device=dev)
     small = torch.randn(256, 256, device=dev)
     torch.cuda.synchronize()
@@ -3334,6 +3378,7 @@ def capture_probe(dev, window_ms: float = 300.0,
     n_big = max(1, int(backlog_ms / per_big_ms))
     stop = threading.Event()
     errors = []
+    launcher_tid = []
 
     def on_card(fn):
         # each thread makes the card's context its own first; an error
@@ -3347,8 +3392,13 @@ def capture_probe(dev, window_ms: float = 300.0,
         return run
 
     def launcher():
+        launcher_tid.append(threading.get_native_id())
+        i = 0
         while not stop.is_set():
             small @ small
+            if i % 10 == 0:
+                idx.search_async(queries, params)
+            i += 1
             time.sleep(0.001)
 
     def burst():
@@ -3356,6 +3406,7 @@ def capture_probe(dev, window_ms: float = 300.0,
             big @ big
 
     def window_without_waits():
+        profiling._fresh_cupti()
         with torch.profiler.profile(
                 activities=profiling._activities(),
                 experimental_config=profiling._all_threads_config()) as prof:
@@ -3363,39 +3414,54 @@ def capture_probe(dev, window_ms: float = 300.0,
         t_close = time.perf_counter()
         torch.cuda.synchronize()
         left = (time.perf_counter() - t_close) * 1e3
-        with tempfile.TemporaryDirectory() as tmp:
-            path = Path(tmp) / "probe.json"
-            prof.export_chrome_trace(str(path))
-            note = profiling._window_note(json.loads(path.read_text()))
+        note = profiling._window_note(profiling.chrome_trace(prof))
         return note | {"backlog_left_at_close_ms": left}
 
     def waits(all_threads):
         return lambda: profiling._profile_window(window_ms, all_threads)[1]
 
-    out = {"per_big_matmul_ms": per_big_ms, "burst_matmuls": n_big}
+    takes = [("window_without_waits", window_without_waits)] + [
+        (f"window_{i}_{'all' if i % 2 else 'caller'}_threads", waits(i % 2))
+        for i in range(1, PROBE_WINDOWS)]
+    out = {"per_big_matmul_ms": per_big_ms, "burst_matmuls": n_big,
+           "windows": {}}
     thread = threading.Thread(target=on_card(launcher), daemon=True)
     thread.start()
     try:
-        for name, take in (("window_without_waits", window_without_waits),
-                           ("window_with_waits", waits(True)),
-                           ("window_caller_thread", waits(False)),
-                           ("window_with_waits_again", waits(True))):
+        for name, take in takes:
             timer = threading.Timer(window_ms / 2e3, on_card(burst))
             timer.start()
-            out[name] = take()
+            out["windows"][name] = take()
             timer.join()
             torch.cuda.synchronize()
     finally:
         stop.set()
         thread.join(timeout=10)
     torch.cuda.synchronize()
-    del big, small
+    del big, small, idx
     torch.cuda.empty_cache()
+    windows = out["windows"]
+    out["launcher_tid"] = launcher_tid[0] if launcher_tid else None
+    out["kept_of_launches"] = {n: [w["launches_kept"], w["kernel_launches"]]
+                               for n, w in windows.items()}
+    out["launcher_kept"] = {n: w["by_thread"].get(str(out["launcher_tid"]),
+                                                  [0, 0])
+                            for n, w in windows.items()}
     log("phase17h_capture_probe", json.dumps(out))
-    if errors or not all(out[w]["kernel_launches"] for w in out
-                         if w.startswith("window")):
+    if errors or not all(w["kernel_launches"] for w in windows.values()):
         raise AssertionError(f"the capture probe's threads launched "
                              f"nothing: {errors}")
+    share = profiling.RECORDS_SHARE
+    lost = {n: [out["kept_of_launches"][n], out["launcher_kept"][n]]
+            for n, w in windows.items() if n != "window_without_waits"
+            and not (profiling.records_complete(w, share)
+                     and out["launcher_kept"][n][1]
+                     and out["launcher_kept"][n][0]
+                     >= share * out["launcher_kept"][n][1])}
+    if lost:
+        raise AssertionError(f"(h): windows that kept fewer than {share} "
+                             f"of their launches, or of the launcher "
+                             f"thread's, as kernel records: {lost}")
     return out
 
 
@@ -3631,7 +3697,11 @@ def phase_tools(args, dev, q_np, shared) -> dict:
         log("phase17_load_test", json.dumps(out["load_test"]))
         k1_names = [n for n in trace.get("kernel_names", ())
                     if K1_KERNEL_STAGES[0][0] in n]
-        out["trace"] = {key: trace.get(key) for key in (
+        first = ((trace.get("capture") or {}).get("windows") or [{}])[0]
+        out["trace"] = {"first_window": {key: first.get(key) for key in (
+            "kernel_launches", "launches_kept", "kernel_records",
+            "by_thread", "clock_offset_us", "dropped_records",
+            "fresh_cupti")}} | {key: trace.get(key) for key in (
             "capture_s", "events", "categories", "capture", "caller_capture",
             "error")} | {
             "ms": TRACE_MS, "k1_kernel_names": k1_names,

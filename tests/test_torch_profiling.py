@@ -2,6 +2,7 @@
 a traced block written as a Chrome trace, the on-demand trace server, and
 ``server.main --profile-port`` serving it (CPU)."""
 
+import contextlib
 import json
 import os
 import signal
@@ -188,14 +189,17 @@ def test_window_synchronizes_the_card_before_it_opens_and_closes(
         synced.clear()
         with pytest.warns(UserWarning):   # no CUDA here: CPU ops only
             trace, note = profiling._profile_window(20, all_threads)
-        assert synced == [False, True]
+        # the last wait found the card idle: no further wait
+        assert synced == [False, True, True]
         assert note["all_threads"] is all_threads
-        assert len(note["backlog_ms"]) == 2
+        assert len(note["backlog_ms"]) == 3
         assert all(b >= 0 for b in note["backlog_ms"])
         assert note["host_ms"] >= 20.0
         assert note["kernel_records"] == note["copy_records"] == 0
         assert set(note["span_us"]) == {"host_ops", "launches", "kernels",
                                         "copies"}
+        # no CUPTI loaded here: nothing to attach anew, no counter to read
+        assert note["fresh_cupti"] is None and note["dropped_records"] is None
     note = profiling._window_note({"traceEvents": [
         {"name": "k", "cat": "kernel", "ts": 10.0, "dur": 5.0,
          "args": {"correlation": 7}},
@@ -209,7 +213,9 @@ def test_window_synchronizes_the_card_before_it_opens_and_closes(
         "kernel_records": 1, "kernel_launches": 1, "copy_records": 1,
         "span_us": {"host_ops": [1.0, 31.0], "launches": [2.0, 3.0],
                     "kernels": [10.0, 15.0], "copies": [20.0, 22.0]},
+        "launches_kept": 1, "by_thread": {"None": [1, 1]},
         "top_kernels": [["k", 1]], "launch_to_kernel_us": [8.0, 8.0],
+        "clock_offset_us": 0.0,
         "kept_by_fifth": [1.0, None, None, None, None],
         "profiler_said": {"WARNING": "['CUPTI could not enable kernels']"}}
     # five launches over 100 µs, the kernels of the first two recorded (one
@@ -222,7 +228,197 @@ def test_window_synchronizes_the_card_before_it_opens_and_closes(
     note = profiling._window_note({"traceEvents": events})
     assert note["kernel_records"] == 2 and note["kernel_launches"] == 5
     assert note["launch_to_kernel_us"] == [-5.0, 3.0]
+    assert note["clock_offset_us"] == -5.0 and note["launches_kept"] == 2
     assert note["kept_by_fifth"] == [1.0, 1.0, 0.0, 0.0, 0.0]
+
+
+def _launches(tid: int, correlations, recorded) -> list[dict]:
+    """Runtime launches of thread ``tid`` with these correlation ids, and a
+    kernel record for each id in ``recorded``."""
+    events = [{"name": "cudaLaunchKernel", "cat": "cuda_runtime",
+               "ts": float(c), "tid": tid, "args": {"correlation": c}}
+              for c in correlations]
+    return events + [{"name": "k", "cat": "kernel", "ts": c + 4.0,
+                      "dur": 1.0, "tid": 7, "args": {"correlation": c}}
+                     for c in correlations if c in recorded]
+
+
+@pytest.mark.parametrize("kept, launched, share, complete", [
+    (100, 100, 0.99, True),
+    (99, 100, 0.99, True),      # the gate's margin
+    (98, 100, 0.99, False),
+    (0, 100, 0.99, False),      # the lost windows: no record of any launch
+    (0, 0, 0.99, True),         # nothing launched, nothing to lose
+    (50, 100, 0.5, True),
+])
+def test_records_complete_counts_launches_paired_with_records(
+        kept, launched, share, complete):
+    trace = {"traceEvents": _launches(11, range(launched), set(range(kept)))}
+    note = profiling._window_note(trace)
+    assert note["launches_kept"] == kept and note["kernel_launches"] == launched
+    assert profiling.records_complete(note, share) is complete
+
+
+def test_records_complete_pairs_by_correlation_not_by_count():
+    """As many kernel records as launches, but records of other launches
+    (from before the window) do not make the window complete."""
+    events = _launches(11, range(10), set(range(5)))
+    events += [{"name": "k", "cat": "kernel", "ts": 1.0,
+                "args": {"correlation": 100 + i}} for i in range(5)]
+    note = profiling._window_note({"traceEvents": events})
+    assert note["kernel_records"] == note["kernel_launches"] == 10
+    assert note["launches_kept"] == 5
+    assert not profiling.records_complete(note, 0.99)
+
+
+def test_window_note_counts_records_by_launching_thread():
+    """The note splits launches and their records by the launching thread:
+    a long-lived thread whose launches lost their records shows beside a
+    thread whose launches kept them."""
+    events = (_launches(11, range(0, 6), set())
+              + _launches(22, range(6, 10), set(range(6, 10))))
+    note = profiling._window_note({"traceEvents": events})
+    assert note["by_thread"] == {"11": [0, 6], "22": [4, 4]}
+    assert note["launches_kept"] == 4 and note["clock_offset_us"] == 0.0
+    assert note["launch_to_kernel_us"] == [4.0, 4.0]
+
+
+class _FakeCupti:
+    """CUPTI's entry points that ``utils/profiling`` calls, recording the
+    calls and writing ``dropped`` through the out-arguments."""
+
+    def __init__(self, dropped=(0, 0)):
+        self.calls, self.dropped = [], list(dropped)
+
+    def cuptiActivityFlushAll(self, flag):  # noqa: N802 — CUPTI's names
+        self.calls.append(("flush", flag))
+        return 0
+
+    def cuptiFinalize(self):  # noqa: N802
+        self.calls.append(("finalize",))
+        return 0
+
+    def cuptiGetStreamId(self, ctx, stream, sid):  # noqa: N802
+        sid._obj.value = 7
+        return 0
+
+    def cuptiActivityGetNumDroppedRecords(self, ctx, sid, n):  # noqa: N802
+        self.calls.append(("dropped", ctx, getattr(sid, "value", sid)))
+        n._obj.value = self.dropped.pop(0)
+        return 0
+
+
+def test_fresh_cupti_flushes_then_finalizes(monkeypatch):
+    """The cure detaches CUPTI: a forced flush of its buffers, then
+    ``cuptiFinalize``; where no CUPTI is loaded (this CPU build) it does
+    nothing."""
+    assert profiling._cupti_library() is None
+    assert profiling._fresh_cupti() is None
+    fake = _FakeCupti()
+    monkeypatch.setattr(profiling, "_cupti_library", lambda: fake)
+    done = profiling._fresh_cupti()
+    assert fake.calls == [("flush", 1), ("finalize",)]
+    assert done["flush_rc"] == done["finalize_rc"] == 0 and done["ms"] >= 0
+
+
+@pytest.mark.parametrize("context, dropped, total", [
+    (0, (3,), 3),                 # no context: the global queue only
+    (0x1234, (3, 4), 7),          # ... and the current stream's
+])
+def test_dropped_records_adds_the_global_and_the_stream_counts(
+        monkeypatch, context, dropped, total):
+    assert profiling._dropped_records() is None   # no CUPTI here
+    fake = _FakeCupti(dropped)
+
+    class Driver:
+        def cuCtxGetCurrent(self, ctx):  # noqa: N802 — CUDA's name
+            ctx._obj.value = context
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(profiling, "_cupti_library", lambda: fake)
+    monkeypatch.setattr(profiling.ctypes, "CDLL", lambda name: Driver())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    assert profiling._dropped_records() == total
+    assert [c[0] for c in fake.calls] == ["dropped"] * len(dropped)
+
+
+@pytest.mark.parametrize("on_card", [True, False])
+def test_profiler_session_attaches_cupti_anew_for_each_session(
+        monkeypatch, on_card):
+    """On the card each session synchronizes, attaches CUPTI anew, starts
+    the profiler, waits ``CLOCK_PAD_MS``, runs the block, synchronizes,
+    waits again, stops, and reads CUPTI's dropped-record count; on the CPU
+    the session is the plain profiler (no wait, no CUPTI call)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    monkeypatch.setattr(profiling, "_activities", lambda: acts)
+    steps = []
+
+    def enabled():
+        return torch.autograd.profiler._is_profiler_enabled
+
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: steps.append(("sync", enabled())))
+    monkeypatch.setattr(profiling, "_fresh_cupti",
+                        lambda: steps.append(("fresh", enabled())) or {})
+    monkeypatch.setattr(profiling, "_dropped_records",
+                        lambda: steps.append(("dropped", enabled())) or 0)
+    monkeypatch.setattr(profiling.time, "sleep",
+                        lambda s: steps.append(("sleep", s)))
+    ctx = (pytest.warns(UserWarning) if on_card
+           else contextlib.nullcontext())   # no CUDA here
+    with ctx:
+        for _ in range(2):
+            with profiling.profiler_session() as (prof, info):
+                steps.append(("block", enabled()))
+                torch.ones(4).sum()
+    pad = profiling.CLOCK_PAD_MS / 1e3
+    if on_card:
+        one = [("sync", False), ("fresh", False), ("sleep", pad),
+               ("block", True), ("sync", True), ("sleep", pad),
+               ("sync", True), ("dropped", False)]
+        assert len(info["backlog_ms"]) == 3
+        assert info == {"backlog_ms": info["backlog_ms"],
+                        "fresh_cupti": {}, "dropped_records": 0}
+    else:
+        one = [("block", True)]
+        assert info == {"backlog_ms": [None, None], "fresh_cupti": None,
+                        "dropped_records": None}
+    assert steps == one * 2
+    assert any(e.get("name") == "aten::sum"
+               for e in profiling.chrome_trace(prof)["traceEvents"])
+
+
+@pytest.mark.parametrize("waits, taken", [
+    # the card idle at the first wait after the pad: one more wait
+    ([0.2, 3.0, 0.05], 3),
+    # another thread queued a long burst after the first wait: waited out
+    ([0.1, 53.0, 600.0, 0.04], 4),
+    # a card that never goes idle: at most DRAIN_WAITS waits after the pad
+    ([0.1] + [5.0] * 10, 2 + profiling.DRAIN_WAITS),
+])
+def test_session_waits_until_the_card_is_idle_before_it_stops(
+        monkeypatch, waits, taken):
+    """Before the profiler stops, the session waits for the card, waits
+    ``CLOCK_PAD_MS``, then waits again until a wait finds the card idle
+    (under ``IDLE_MS``): work another thread queued after the first wait
+    ends inside the window."""
+    monkeypatch.setattr(profiling, "_activities", lambda: [
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    queue = iter(waits)
+    monkeypatch.setattr(profiling, "_synchronize_ms",
+                        lambda on_card: next(queue))
+    monkeypatch.setattr(profiling, "_fresh_cupti", lambda: None)
+    monkeypatch.setattr(profiling, "_dropped_records", lambda: 0)
+    with pytest.warns(UserWarning):   # no CUDA here: CPU ops only
+        with profiling.profiler_session() as (_, info):
+            pass
+    assert info["backlog_ms"] == waits[:taken]
 
 
 def _free_ports(n: int) -> list[int]:
