@@ -190,9 +190,22 @@ fails (non-zero exit, no result line) when any phase fails:
    library search of the live index; 10K served ids removed, none
    returned; ``shard_serving: on`` from YAML builds a 1-shard mesh. The
    kernel report's launches add phase 18's.
+19. the headline harness ``tools.bench`` (the port of the JAX system's
+   ``bench.py``) through its ``main`` body (``run`` on ``parse_args``),
+   after 18 (e), with every launch counter at 0 before it: four runs at
+   1M x 768 (nlist 1024, batch 4096, 10 batches, int8, auto nprobe), (a)
+   balanced through the bulk build, (c) ``--clusters-per-list 2``, (d)
+   zipf with multi-assignment (chunked), and last (b) ``--skew zipf``,
+   whose index 19b keeps; each run's JSON line, K1 launched in each,
+   recall@10 >= 0.95 on (a) and (c), ``recall_eps_05`` >= 0.99 on (b) and
+   (d), no duplicate id and replication <= 1.25 on (d), each mesh1 recall
+   equal to its run's; the phase's wall seconds. 19b, after the launch
+   counts are read: K1 against its plain version on (b)'s zipf index at
+   its auto nprobe and batch 4096, and one traced search of that index.
+   The kernel report's K1 launches add phase 19's.
 
 They run in the order 0, 1, 2, 2b, 2c, 18b, 3, 7-9, 18c, 15a, 10, 15b,
-4-6, 11, 11b, 18a, 11c, 12, 18d, 13, 14, 18g, 18e, 16, 17, 18f.
+4-6, 11, 11b, 18a, 11c, 12, 18d, 13, 14, 18g, 18e, 19, 19b, 16, 17, 18f.
 
 The second-to-last line is the kernel report JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -216,6 +229,14 @@ import threading
 import time
 import weakref
 from pathlib import Path
+
+# the corpus generator, the exact oracle and recall@k of the port's
+# headline harness (one copy, shared with every phase here)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.tools.bench import (
+    corpus_chunk,
+    oracle_update,
+    recall_at,
+)
 
 REPO = Path(__file__).resolve().parent
 K1_SOURCE = "cuda_acceleratedvectordatabaseengine_tpu_torch/csrc/grouped_scan.cu"
@@ -1272,40 +1293,6 @@ def phase_quickstart(dev) -> None:
 # phase 4: the main path at a deployment size
 # --------------------------------------------------------------------------- #
 
-def corpus_chunk(centers, start, m, seed, noise=0.25):
-    """Rows ``[start, start + m)`` of the mixture corpus: row g belongs to
-    ball ``g % nlist`` (balanced lists), stored bf16, as the JAX package's
-    benchmark generates it. Deterministic per (seed, start)."""
-    import torch
-
-    gen = torch.Generator(device=centers.device).manual_seed(
-        seed * 1_000_003 + start)
-    g = torch.arange(start, start + m, device=centers.device)
-    pts = centers[g % centers.shape[0]] + noise * torch.randn(
-        (m, centers.shape[1]), generator=gen, device=centers.device)
-    return pts.to(torch.bfloat16)
-
-
-def oracle_update(best_d, best_i, q, xc, base, k, block=1 << 18, keep=None):
-    """Exact fp32 top-k of ``q`` over the rows of ``xc`` merged into the
-    running ``(best_d, best_i)`` (global row ids); rows where the bool
-    ``keep`` is False (removed) are left out."""
-    import torch
-
-    q_sq = (q * q).sum(1, keepdim=True)
-    for s0 in range(0, xc.shape[0], block):
-        xf = xc[s0:s0 + block].float()
-        d = (q_sq - 2.0 * q @ xf.T + (xf * xf).sum(1)[None, :]).clamp_min(0)
-        if keep is not None:
-            d = d.masked_fill(~keep[s0:s0 + block][None, :], float("inf"))
-        v, i = torch.topk(d, k, dim=1, largest=False)
-        cat_d = torch.cat([best_d, v], 1)
-        cat_i = torch.cat([best_i, i + base + s0], 1)
-        best_d, sel = torch.topk(cat_d, k, dim=1, largest=False)
-        best_i = torch.gather(cat_i, 1, sel)
-    return best_d, best_i
-
-
 def search_timed(idx, queries, params, reps):
     """Host-to-host searches of one batch (numpy in, numpy out), after one
     warm-up: (per-batch ms list, last result)."""
@@ -1316,14 +1303,6 @@ def search_timed(idx, queries, params, reps):
         res = idx.search(queries, params)
         ms.append((time.perf_counter() - t0) * 1e3)
     return ms, res
-
-
-def recall_at(ids, truth, k=10) -> float:
-    """Mean share of each query's exact top-k ids found in ``ids``."""
-    import numpy as np
-
-    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k
-                          for a, b in zip(ids.astype(np.int64), truth)]))
 
 
 # Named profiler ranges of one IVFFlatIndex.search (the package opens them).
@@ -1442,7 +1421,8 @@ def check_index_scan(idx, q_dev, nprobe, k) -> dict:
     """The search's device half as ``search`` runs it on this index (coarse
     probe, then the grouped scan through the kernel) against the plain
     version of the grouped scan on the same probes and the index's own
-    arena; raises on disagreement. Also both scans' device times."""
+    arena; raises on disagreement. Also both scans' device times and the
+    bound of the scan's work on these probes (``flat_scan_bound``)."""
     from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
         _ivf_search_device,
     )
@@ -1486,6 +1466,10 @@ def check_index_scan(idx, q_dev, nprobe, k) -> dict:
                            10),
         "scan_plain_ms": cuda_ms(
             lambda: gs.scan_probed_lists_grouped_reference(*args, **kw), 3),
+        "bound": flat_scan_bound(
+            dict(case, probe=probes, counts=a.counts), k,
+            gs._effective_cap(a.capacity, kw["scan_capacity"]), "grouped",
+            idx.metric),
     }
 
 
@@ -4221,6 +4205,114 @@ def phase_mesh_build(args, dev, q_np, truth, centers) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: the headline harness (tools/bench) at 1M
+# --------------------------------------------------------------------------- #
+
+BENCH_ARGV = ["--n", "1000000", "--nlist", "1024", "--batch", "4096",
+              "--n-batches", "10"]
+BENCH_MULTI_ASSIGN = ["--skew", "zipf", "--multi-assign-eps", "0.15",
+                      "--multi-assign-budget", "0.25",
+                      "--capacity-factor", "1.6"]
+# (b) runs last: its index stays resident for 19b, and no other run's peak
+# device memory may count it
+BENCH_RUNS = (("a_balanced", []), ("c_cpl2", ["--clusters-per-list", "2"]),
+              ("d_zipf_multi_assign", BENCH_MULTI_ASSIGN),
+              ("b_zipf", ["--skew", "zipf"]))
+
+
+def phase_bench(dev, keep) -> dict:
+    """Phase 19, after 18 (e), when the earlier indexes are freed:
+    ``tools.bench``'s ``main`` body (``run`` on ``parse_args``, its JSON
+    line printed) in this process, four times at 1M × 768 (nlist 1024,
+    batch 4096, 10 batches, int8, auto nprobe), in the order (a), (c),
+    (d), (b): (a) balanced, which takes the bulk build; (c)
+    ``--clusters-per-list 2``; (d) zipf with multi-assignment (eps 0.15,
+    budget 0.25, capacity factor 1.6; the chunked build); (b) ``--skew
+    zipf``, last, as its index outlives the phase. Gates: each run's JSON line parses and
+    the run launched K1; (a) took the bulk build; (a) and (c) recall@10 ≥
+    0.95; (b) and (d) ``recall_eps_05`` ≥ 0.99; (d) no duplicate id in a
+    returned row and replication factor ≤ 1.25; every mesh1 recall equals
+    its run's unsharded recall ((d) runs none, as the harness skips it
+    under multi-assignment). ``keep`` receives (b)'s index, queries and
+    auto nprobe, for the K1-vs-plain check after the launch counts are
+    read."""
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
+        grouped_scan,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.tools import bench
+
+    out, t_phase = {}, time.perf_counter()
+    for name, flags in BENCH_RUNS:
+        run_keep = {}
+
+        def bench_main(argv):
+            print(json.dumps(bench.run(bench.parse_args(argv), dev,
+                                       keep=run_keep)), flush=True)
+            return 0
+
+        before = grouped_scan.LAUNCHES
+        text, wall = run_tool(bench_main, BENCH_ARGV + flags)
+        res = json_objects(text)[-1]
+        d = res["detail"]
+        out[name] = {"wall_s": wall,
+                     "k1_launches": grouped_scan.LAUNCHES - before,
+                     "qps": res["value"], **d}
+        log(f"phase19_{name}", json.dumps(out[name]))
+        if out[name]["k1_launches"] <= 0:
+            raise AssertionError(f"19 {name}: K1 never launched")
+        if name in ("a_balanced", "c_cpl2") and d["recall_at_10"] < 0.95:
+            raise AssertionError(f"19 {name}: recall@10 {d['recall_at_10']}"
+                                 f" < 0.95")
+        if name == "a_balanced" and d["build"] != "bulk":
+            raise AssertionError(f"19 {name}: took the {d['build']} build")
+        if name in ("b_zipf", "d_zipf_multi_assign") and (
+                d["recall_eps_05"] < 0.99):
+            raise AssertionError(f"19 {name}: recall_eps_05 "
+                                 f"{d['recall_eps_05']} < 0.99")
+        if name == "d_zipf_multi_assign":
+            if d["rows_with_duplicate_ids"] or d["replication_factor"] > 1.25:
+                raise AssertionError(
+                    f"19 {name}: {d['rows_with_duplicate_ids']} rows with a "
+                    f"duplicate id, replication {d['replication_factor']}")
+            if d["mesh1"] is not None:
+                raise AssertionError(f"19 {name}: ran mesh1")
+        elif d["mesh1"]["recall_at_10"] != d["recall_at_10"]:
+            raise AssertionError(f"19 {name}: mesh1 recall "
+                                 f"{d['mesh1']['recall_at_10']} != "
+                                 f"{d['recall_at_10']}")
+        if name == "b_zipf":
+            keep.update(run_keep)
+        del run_keep
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("phase19_wall_s", out["wall_s"])
+    return out
+
+
+def phase_bench_index_checks(keep, k=10, k_dev=10) -> dict:
+    """Phase 19b, after phase 19's launch counts are read: K1 against its
+    plain version at depth ``k_dev`` on (b)'s zipf index at its auto
+    nprobe and batch 4096 (a shape no other phase gives K1), then one
+    traced host-to-host top-``k`` search of that index at that nprobe
+    (where the batch's time goes). ``keep``: what ``tools.bench.run``
+    keeps of a run (index, device queries, nprobe)."""
+    import numpy as np
+
+    import cuda_acceleratedvectordatabaseengine_tpu_torch as vdb
+
+    idx, queries, nprobe = keep["index"], keep["queries"], keep["nprobe"]
+    out = check_index_scan(idx, queries, nprobe, k_dev)
+    q_np = queries.cpu().numpy()
+    params = vdb.SearchParams(nprobe=nprobe, k=k)
+    ms, _ = search_timed(idx, q_np, params, 5)
+    out["trace"] = trace_search(idx, q_np, params, float(np.median(ms)))
+    log("phase19b_k1_zipf", json.dumps(out))
+    return out
+
+
 def phase_sharded_rerank(dev, keep, q_np, truth) -> dict:
     """Phase 18 (g), right after 14 on its ``store_residuals`` index
     (``keep``: the index and its single-device reranked answer at nprobe
@@ -4595,6 +4687,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     drive("18e_mesh_build", phase_mesh_build, args, dev, q_np, truth,
           centers, need=("k1",))
+    bench_keep = {}    # phase 19 (b)'s zipf index, for its K1 check
+    drive("19_bench", phase_bench, dev, bench_keep, need=("k1",))
+    bench_check = phase_bench_index_checks(bench_keep)             # 19b
+    bench_keep.clear()
+    torch.cuda.empty_cache()
+    mark("19b_k1_zipf_index")
     shared = {}        # phase 16's source file and engine, for phase 17
     try:
         drive("16_serving", phase_serving, args, dev, q_np, truth, centers,
@@ -4629,12 +4727,14 @@ def main(argv=None) -> int:
 
     # phase 11c's launches (the fp32 index), driven with every counter at 0
     p11c = lifecycle["11c_flat_f32"]["launches"]
+    # phase 19's launches (the headline harness), driven likewise
+    p19 = lifecycle["19_bench"]["launches"]
 
     report = {"kernels": [{
         "name": "grouped_scan", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": (launches + p11c["k1"] + tools_launches["k1"]
-                     + p18["k1"]),
+                     + p18["k1"] + p19["k1"]),
         "max_abs_err": max([k1["max_abs_err"],
                             k1["bf16_raw"]["max_abs_err"],
                             k1["f32"]["max_abs_err"],
@@ -4642,7 +4742,8 @@ def main(argv=None) -> int:
                             striped["k1_main_int8_x4"],
                             striped["k1_main_f32_x2"],
                             checks["index_scan_auto"]["max_abs_err"],
-                            checks["index_scan_p32"]["max_abs_err"]]
+                            checks["index_scan_p32"]["max_abs_err"],
+                            bench_check["max_abs_err"]]
                            + [c["max_abs_err"]
                               for c in full_row_checks["grouped"]
                               + f32_checks["grouped"]]),
@@ -4698,7 +4799,7 @@ def main(argv=None) -> int:
             "pq_main_path": pq_path, "pq_index_checks": pq_checks,
             "opq": opq, "lifecycle": lifecycle,
             "striped_kernels": striped, "launches_phase18": p18,
-            "capture_probe": probe,
+            "capture_probe": probe, "bench_k1_zipf_index": bench_check,
             "f64_worst_share_of_tol": F64_WORST,
             "phase_seconds": phase_s, **report},
             indent=1))

@@ -44,6 +44,27 @@ def sample_stored_rows(arena, sample: int, seed: int = 0) -> np.ndarray:
     return rows.cpu().numpy()
 
 
+def true_lists(ids_table: np.ndarray, ids: np.ndarray):
+    """The list holding each id of ``ids`` through the ``[nlist, capacity]``
+    id table: ``(matched, lists)``, ``matched`` False where the id is not
+    resident, and ``lists`` of shape ``ids.shape + (2,)``: the lists of its
+    first and its second resident copy (a multi-assigned row has two,
+    adjacent in the sorted table; without one, the first's list again)."""
+    cap = ids_table.shape[1]
+    flat = np.asarray(ids_table).reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    sflat = flat[order]
+    want = ids.astype(np.uint64)
+    last = max(sflat.size - 1, 0)
+    locs = np.clip(np.searchsorted(sflat, want), 0, last)
+    matched = sflat[locs] == want
+    locs2 = np.minimum(locs + 1, last)
+    second = matched & (locs2 != locs) & (sflat[locs2] == want)
+    locs2 = np.where(second, locs2, locs)
+    lists = (order[np.stack([locs, locs2], -1)] // cap).astype(np.int64)
+    return matched, lists
+
+
 def probe_coverage_calibrate(
     *,
     centroids: torch.Tensor,
@@ -59,9 +80,10 @@ def probe_coverage_calibrate(
     """Measure the coverage curve and pick the smallest candidate meeting
     ``target_coverage``.
 
-    ``ids_table`` is the ``[nlist, capacity]`` id layout; ``exact_search_fn
-    (queries, k)`` returns the full-probe top-``k`` ``(dists, ids)`` on the
-    index's stored representation. ``query_transform`` (optional) maps the
+    ``ids_table`` is the ``[nlist, capacity]`` id layout (a true id with
+    two resident copies counts as covered where either copy's list is
+    probed); ``exact_search_fn(queries, k)`` returns the full-probe
+    top-``k`` ``(dists, ids)`` on the index's stored representation. ``query_transform`` (optional) maps the
     queries, as a tensor on the centroids' device, into the frame the
     centroids live in (an OPQ rotation) before the coarse ranking; the
     exact search gets the untransformed queries. When coverage plateaus
@@ -69,24 +91,17 @@ def probe_coverage_calibrate(
     absolute of the best) is chosen and ``coverage_limited`` is set, rather
     than silently escalating to a full scan.
     """
-    nlist, cap = ids_table.shape
+    nlist = ids_table.shape[0]
     queries = np.ascontiguousarray(queries, np.float32)
 
     _, ids_true = exact_search_fn(queries, k)
     ids_true = np.asarray(ids_true)
 
-    # true list of each ground-truth id via the id table
-    flat = np.asarray(ids_table).reshape(-1)
-    order = np.argsort(flat, kind="stable")
-    sflat = flat[order]
-    locs = np.clip(
-        np.searchsorted(sflat, ids_true.astype(np.uint64)),
-        0, max(sflat.size - 1, 0),
-    )
-    matched = sflat[locs] == ids_true.astype(np.uint64)
-    true_list = (order[locs] // cap).astype(np.int64)
+    # list of each ground-truth id (either copy) via the id table
+    matched, lists = true_lists(ids_table, ids_true)
 
-    # coarse rank of each true list per query
+    # coarse rank of each true list per query; a replicated id is covered
+    # at the earlier of its two copies' ranks
     q = torch.from_numpy(queries).to(centroids.device)
     if query_transform is not None:
         q = query_transform(q)
@@ -95,10 +110,16 @@ def probe_coverage_calibrate(
     coarse_metric = (
         Metric.INNER_PRODUCT if metric == Metric.INNER_PRODUCT else Metric.L2
     )
-    coarse = pairwise_distance(q, centroids, coarse_metric).cpu().numpy()
-    ranks = np.argsort(np.argsort(coarse, axis=1), axis=1)
-    rank_of_true = np.take_along_axis(
-        ranks, np.clip(true_list, 0, nlist - 1), axis=1
+    coarse = pairwise_distance(q, centroids, coarse_metric)
+    order = torch.argsort(coarse, dim=1, stable=True)
+    ranks = torch.empty_like(order).scatter_(
+        1, order, torch.arange(nlist, device=order.device).expand_as(
+            order).contiguous())
+    want = torch.from_numpy(
+        np.clip(lists, 0, nlist - 1).reshape(lists.shape[0], -1)
+    ).to(ranks.device)
+    rank_of_true = (
+        ranks.gather(1, want).reshape(lists.shape).amin(-1).cpu().numpy()
     )
     valid = matched & (ids_true != INVALID_ID)
     n_valid = max(int(valid.sum()), 1)

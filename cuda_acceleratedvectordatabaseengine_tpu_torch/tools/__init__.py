@@ -14,6 +14,9 @@ and each on the card unless ``--device`` names another device:
                        sweep, IVF-Flat and IVF-PQ (± rerank)
   - ``load_test``    → concurrent gRPC load-test client (speaks only gRPC;
                        needs no device)
+  - ``bench``        → the headline harness (the port of the root
+                       ``bench.py``): QPS at recall@10 of a generated
+                       corpus, one JSON line
 """
 
 

@@ -447,3 +447,36 @@ def test_native_without_compiler_raises(tmp_path, monkeypatch, rng):
         assert not (tmp_path / "native").exists()
     finally:
         native.load_library.cache_clear()
+
+
+def test_bench_harness_runs_without_jax():
+    """``tools/bench`` imports and runs its ``--quick`` cut on the CPU with
+    JAX, the JAX package and the JAX system's root ``bench.py`` made
+    unimportable, and prints its one JSON line."""
+    code = textwrap.dedent("""
+        import contextlib
+        import io
+        import json
+        import sys
+        for name in ("jax", "jaxlib", "bench",
+                     "cuda_acceleratedvectordatabaseengine_tpu"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.tools import bench
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert bench.main(["--quick", "--device", "cpu"]) == 0
+        result = json.loads(out.getvalue())
+        assert result["detail"]["recall_at_10"] >= 0.95, result
+        bad = [m for m in sys.modules if (m == "jax" or m.startswith("jax.")
+               or m.startswith("cuda_acceleratedvectordatabaseengine_tpu."))
+               and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
