@@ -203,9 +203,24 @@ fails (non-zero exit, no result line) when any phase fails:
    counts are read: K1 against its plain version on (b)'s zipf index at
    its auto nprobe and batch 4096, and one traced search of that index.
    The kernel report's K1 launches add phase 19's.
+20. the tiers' harnesses through their ``main``, after 19b, with every
+   launch counter at 0 before it: ``tools.streaming_bench`` (the port of
+   ``scripts/dev_streaming_bench.py``) at 2M x 768 over 2048 lists (hot
+   clusters 8, half the lists in the cache, 5 batches), then
+   ``tools.pq_capacity`` (``dev_pq_capacity.py``: m 96, rerank 0 and 512,
+   preloaded) on the same int8 store in a temporary directory, removed
+   after; then ``tools.pq_sweep`` (``dev_pq_sweep.py``) at 1M x 768
+   (nlist 4096, m 96) on ``512:128`` and ``512:128:k128``. Gates: each
+   JSON line parses; the stream launched K1, its probe union fits the
+   slots and its warm hit rate is 1.0; the capacity and sweep runs
+   launched K2; recall@10 >= 0.95 for the stream and every reranked
+   point; a sample of chunk 0's stored rows dequantizes to within half a
+   step of the regenerated rows. The kernel report's K1 and K2 launches
+   add phase 20's.
 
 They run in the order 0, 1, 2, 2b, 2c, 18b, 3, 7-9, 18c, 15a, 10, 15b,
-4-6, 11, 11b, 18a, 11c, 12, 18d, 13, 14, 18g, 18e, 19, 19b, 16, 17, 18f.
+4-6, 11, 11b, 18a, 11c, 12, 18d, 13, 14, 18g, 18e, 19, 19b, 20, 16, 17,
+18f.
 
 The second-to-last line is the kernel report JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -4313,6 +4328,131 @@ def phase_bench_index_checks(keep, k=10, k_dev=10) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: the tiers' harnesses (tools/streaming_bench, pq_capacity,
+# pq_sweep), cut in rows and lists
+# --------------------------------------------------------------------------- #
+
+# 2M x 768 over 2048 lists: the hot workload's probe union fits half the
+# lists in the cache, and the cold batch evicts
+TIER_NLIST, TIER_DIM = 2048, 768
+TIER_GEOMETRY = ["--n", "2000000", "--nlist", str(TIER_NLIST),
+                 "--dim", str(TIER_DIM), "--n-batches", "5"]
+TIER_STREAM_ARGV = TIER_GEOMETRY + ["--hot-clusters", "8",
+                                    "--cache-frac", "0.5"]
+TIER_PQCAP_ARGV = TIER_GEOMETRY + ["--rerank", "0,512", "--preload"]
+TIER_SWEEP_ARGV = ["--n", "1000000", "--n-batches", "5", "--max-batch",
+                   "512", "--config", "512:128", "--config", "512:128:k128"]
+TIER_SAMPLE_ROWS = 4096       # stored chunk-0 rows checked against the corpus
+
+
+def phase_tier_tools(dev) -> dict:
+    """Phase 20, after 19b: ``tools.streaming_bench`` and then
+    ``tools.pq_capacity`` through their ``main`` in this process, on one
+    int8 store of 2M x 768 over 2048 lists in a temporary directory
+    (removed at the end), then ``tools.pq_sweep`` at 1M x 768 (nlist 4096,
+    m 96) with one reranked config and its ``kN`` twin. Gates: every JSON
+    line parses; the streaming run launched K1 and served the warm
+    workload at hit rate 1.0 (its probe union fits the slots); the
+    capacity and sweep runs launched K2 (counters read before and after
+    each); recall@10 >= 0.95 for the stream, the reranked capacity point
+    and the reranked sweep configs; ``TIER_SAMPLE_ROWS`` stored rows of
+    chunk 0 dequantize to within half their scale of the regenerated
+    rows."""
+    import numpy as np
+    import torch
+
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
+        grouped_pq_scan,
+        grouped_scan,
+    )
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.tools import (
+        pq_capacity,
+        pq_sweep,
+        streaming_bench,
+    )
+
+    out, t_phase = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vdb_tier_") as sd:
+        store = ["--store-dir", sd]
+        before = grouped_scan.LAUNCHES
+        text, wall = run_tool(streaming_bench.main, TIER_STREAM_ARGV + store)
+        stream = json_objects(text)[-1]
+        out["stream"] = {"wall_s": wall,
+                         "k1_launches": grouped_scan.LAUNCHES - before,
+                         **stream}
+        log("phase20_stream", json.dumps(out["stream"]))
+        if out["stream"]["k1_launches"] <= 0:
+            raise AssertionError("20 stream: K1 never launched")
+        if stream["workload_probe_union_lists"] > stream["cache_slots"]:
+            raise AssertionError(f"20 stream: union "
+                                 f"{stream['workload_probe_union_lists']} "
+                                 f"> {stream['cache_slots']} slots")
+        if stream["hit_rate_warm"] != 1.0:
+            raise AssertionError(f"20 stream: warm hit rate "
+                                 f"{stream['hit_rate_warm']} != 1.0")
+        if stream["recall_at_10"] < 0.95:
+            raise AssertionError(f"20 stream: recall@10 "
+                                 f"{stream['recall_at_10']} < 0.95")
+        # a sample of chunk 0's stored rows against the regenerated rows
+        st, centroids = streaming_bench.load_store(sd, TIER_NLIST, TIER_DIM)
+        lists = np.repeat(np.arange(TIER_NLIST),
+                          [v.shape[0] for v in st.vectors])
+        ids = np.concatenate(st.ids).astype(np.int64)
+        pick = np.flatnonzero(ids < streaming_bench.CHUNK_ROWS)
+        pick = np.random.default_rng(0).choice(pick, TIER_SAMPLE_ROWS,
+                                               replace=False)
+        codes = np.concatenate([v for v in st.vectors])[pick]
+        scale = np.concatenate(st.scale)[pick]
+        x0 = streaming_bench.corpus(TIER_NLIST, TIER_DIM, dev)(
+            0, streaming_bench.CHUNK_ROWS)
+        rows = x0[torch.from_numpy(ids[pick]).to(dev)].float().cpu().numpy()
+        deq = centroids[lists[pick]] + codes.astype(np.float32) * scale[
+            :, None]
+        err = np.abs(deq - rows)
+        worst = float((err / scale[:, None]).max())
+        out["stream"]["sample_worst_err_over_scale"] = worst
+        log("phase20_store_sample", json.dumps({
+            "rows": TIER_SAMPLE_ROWS, "worst_err_over_scale": worst}))
+        # half a quantization step, and fp32 rounding of the coordinates
+        if (err > scale[:, None] * (0.5 + 1e-4) + 1e-6).any():
+            raise AssertionError(f"20 store: a stored row lies {worst} of "
+                                 f"its scale from the regenerated row")
+        del st, x0, codes
+        before = grouped_pq_scan.LAUNCHES
+        text, wall = run_tool(pq_capacity.main, TIER_PQCAP_ARGV + store)
+        pqcap = json_objects(text)[-1]
+        out["pqcap"] = {"wall_s": wall,
+                        "k2_launches": grouped_pq_scan.LAUNCHES - before,
+                        **pqcap}
+        log("phase20_pqcap", json.dumps(out["pqcap"]))
+        if out["pqcap"]["k2_launches"] <= 0:
+            raise AssertionError("20 pqcap: K2 never launched")
+        for pt in pqcap["points"]:
+            if pt["rerank_k"] and pt["recall_at_10"] < 0.95:
+                raise AssertionError(f"20 pqcap {pt['name']}: recall@10 "
+                                     f"{pt['recall_at_10']} < 0.95")
+    torch.cuda.empty_cache()
+    before = grouped_pq_scan.LAUNCHES
+    text, wall = run_tool(pq_sweep.main, TIER_SWEEP_ARGV)
+    lines = json_objects(text)
+    out["pq_sweep"] = {"wall_s": wall,
+                       "k2_launches": grouped_pq_scan.LAUNCHES - before,
+                       "configs": lines}
+    log("phase20_pq_sweep", json.dumps(out["pq_sweep"]))
+    if len(lines) != 2 or any(ln["k2_launches"] <= 0 for ln in lines):
+        raise AssertionError(f"20 pq_sweep: K2 not launched in every "
+                             f"config: {lines}")
+    for ln in lines:
+        if ln["recall"] < 0.95:
+            raise AssertionError(f"20 pq_sweep {ln['config']}: recall@10 "
+                                 f"{ln['recall']} < 0.95")
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("phase20_wall_s", out["wall_s"])
+    return out
+
+
 def phase_sharded_rerank(dev, keep, q_np, truth) -> dict:
     """Phase 18 (g), right after 14 on its ``store_residuals`` index
     (``keep``: the index and its single-device reranked answer at nprobe
@@ -4693,6 +4833,7 @@ def main(argv=None) -> int:
     bench_keep.clear()
     torch.cuda.empty_cache()
     mark("19b_k1_zipf_index")
+    drive("20_tier_tools", phase_tier_tools, dev, need=("k1", "k2"))
     shared = {}        # phase 16's source file and engine, for phase 17
     try:
         drive("16_serving", phase_serving, args, dev, q_np, truth, centers,
@@ -4729,12 +4870,14 @@ def main(argv=None) -> int:
     p11c = lifecycle["11c_flat_f32"]["launches"]
     # phase 19's launches (the headline harness), driven likewise
     p19 = lifecycle["19_bench"]["launches"]
+    # phase 20's launches (the tiers' harnesses), driven likewise
+    p20 = lifecycle["20_tier_tools"]["launches"]
 
     report = {"kernels": [{
         "name": "grouped_scan", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": (launches + p11c["k1"] + tools_launches["k1"]
-                     + p18["k1"] + p19["k1"]),
+                     + p18["k1"] + p19["k1"] + p20["k1"]),
         "max_abs_err": max([k1["max_abs_err"],
                             k1["bf16_raw"]["max_abs_err"],
                             k1["f32"]["max_abs_err"],
@@ -4751,7 +4894,8 @@ def main(argv=None) -> int:
     }, {
         "name": "grouped_pq_scan", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES,
-        "launches": pq_launches + tools_launches["k2"] + p18["k2"],
+        "launches": (pq_launches + tools_launches["k2"] + p18["k2"]
+                     + p20["k2"]),
         "max_abs_err": max([r["max_abs_err"] for r in k2.values()]
                            + [striped["k2_main_topk_x4"],
                               striped["k2_main_emit_full_x4"]]
@@ -4762,7 +4906,7 @@ def main(argv=None) -> int:
         "name": "sorted_scan", "route": "cuda", "source": K34_SOURCE,
         "replaces": K3_REPLACES,
         "launches": (launches11["k3"] + p11c["k3"] + tools_launches["k3"]
-                     + p18["k3"]),
+                     + p18["k3"] + p20["k3"]),
         "max_abs_err": max([k34["small_max_abs_err"]["sorted"],
                             k34["k3"]["max_abs_err"],
                             k34["k3_bf16"]["max_abs_err"],

@@ -226,9 +226,17 @@ def _ivf_pq_search_device(
     """The device half of a search: ``(dists [B, k], pos [B, k])``.
     ``rerank_k`` 0 means no rerank; ``k_inner`` > 0 selects the kernel's
     per-list shortlist mode; ``heat`` (a ``ListHeat``) counts the probes.
-    Each stage runs in a named ``torch.profiler`` range
-    (``ivf_pq.coarse_probe``, ``grouped_pq_scan.*`` or
-    ``ivf_pq.gather_adc``, ``ivf_pq.rerank``)."""
+    ``scan_impl`` takes every name of ``_SCAN_IMPLS`` (the JAX package's
+    ``"pallas"`` is K2, ``"auto"`` K2 on CUDA and the gather ADC
+    elsewhere) and raises on any other. Each stage runs in a named
+    ``torch.profiler`` range (``ivf_pq.coarse_probe``,
+    ``grouped_pq_scan.*`` or ``ivf_pq.gather_adc``, ``ivf_pq.rerank``)."""
+    if scan_impl not in _SCAN_IMPLS:
+        raise ValueError(f"scan_impl {scan_impl!r} is not available in this "
+                         f"package; expected one of {sorted(_SCAN_IMPLS)}")
+    scan_impl = _SCAN_IMPLS[scan_impl]
+    if scan_impl == "auto":
+        scan_impl = "grouped" if queries.is_cuda else "gather"
     b, dim = queries.shape
     nlist, _, cap = code_arena_t.shape
     with record_function("ivf_pq.coarse_probe"):
@@ -691,9 +699,6 @@ class IVFPQIndex:
         if host_rr:
             k_dev = min(max(self.host_rerank_k, params.k),
                         self.capacity * nprobe)
-        scan_impl = _SCAN_IMPLS[self.config.scan_impl]
-        if scan_impl == "auto":
-            scan_impl = "grouped" if self.device.type == "cuda" else "gather"
         with record_function("ivf_pq.upload"):
             q_dev = self._to_device(queries)
         # One consistent snapshot, and the device work enqueued under the
@@ -708,7 +713,7 @@ class IVFPQIndex:
                 raw.arena_sq if raw is not None else None,
                 raw.arena_scale if raw is not None else None,
                 raw.anchors if raw is not None else None,
-                nprobe, k_dev, self.metric, rerank_k, scan_impl,
+                nprobe, k_dev, self.metric, rerank_k, self.config.scan_impl,
                 opq_R=self.opq_R,
                 k_inner=(self.host_rerank_k_inner if host_rr else 0),
                 scan_capacity=self._scan_capacity_hint(), heat=self._heat,

@@ -81,7 +81,10 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
     ShardedIVFFlatIndex,
     make_mesh,
 )
-from cuda_acceleratedvectordatabaseengine_tpu_torch.tools import synchronize
+from cuda_acceleratedvectordatabaseengine_tpu_torch.tools import (
+    synchronize,
+    timed_loop,
+)
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
     resolve_device,
 )
@@ -480,20 +483,9 @@ def run(args, dev, rows=None, queries=None, keep=None) -> dict:
                               for b in range(truth.shape[0])]))
 
     stage("throughput loop")
-    synchronize(dev)
-    if cuda:
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-    t0 = time.perf_counter()
-    results = [device_search(queries) for _ in range(args.n_batches)]
-    if cuda:
-        ev1.record()
-    synchronize(dev)
-    dt = time.perf_counter() - t0
+    dt, device_ms = timed_loop(lambda: device_search(queries),
+                               args.n_batches, dev)
     qps = args.n_batches * args.batch / dt
-    device_ms = ev0.elapsed_time(ev1) / args.n_batches if cuda else None
-    del results
 
     lats = []
     for _ in range(LATENCY_BATCHES):

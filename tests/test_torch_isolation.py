@@ -480,3 +480,58 @@ def test_bench_harness_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_tier_tools_run_without_jax(tmp_path):
+    """``tools/streaming_bench``, ``tools/pq_capacity`` and
+    ``tools/pq_sweep`` import and run a tiny cut on the CPU with JAX, the
+    JAX package and the root ``bench.py`` made unimportable: the streaming
+    harness writes a store, the capacity harness reranks from it, and each
+    prints its JSON lines."""
+    code = textwrap.dedent(f"""
+        import contextlib
+        import io
+        import json
+        import sys
+        for name in ("jax", "jaxlib", "bench",
+                     "cuda_acceleratedvectordatabaseengine_tpu"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.tools import (
+            pq_capacity, pq_sweep, streaming_bench)
+        geometry = ["--n", "6000", "--dim", "16", "--nlist", "16",
+                    "--nprobe", "4", "--batch", "16", "--n-batches", "1",
+                    "--device", "cpu"]
+        store = ["--store-dir", {str(tmp_path)!r}]
+        lines = []
+        for main, argv in (
+                (streaming_bench.main, geometry + store + [
+                    "--hot-clusters", "2", "--cache-frac", "0.5"]),
+                (pq_capacity.main, geometry + store + [
+                    "--m", "4", "--rerank", "0,16"]),
+                (pq_sweep.main, ["--n", "6000", "--dim", "16", "--nlist",
+                                 "16", "--m", "4", "--max-batch", "16",
+                                 "--nprobe", "4",
+                                 "--n-batches", "1", "--config", "16:8",
+                                 "--device", "cpu"])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert main(argv) == 0
+            lines.append([json.loads(s) for s in
+                          out.getvalue().strip().splitlines()])
+        assert lines[0][-1]["recall_at_10"] >= 0.9, lines[0]
+        adc, reranked = lines[1][-1]["points"]
+        assert reranked["recall_at_10"] > adc["recall_at_10"], lines[1]
+        assert lines[2][-1]["recall"] >= 0.5, lines[2]
+        bad = [m for m in sys.modules if (m == "jax" or m.startswith("jax.")
+               or m.startswith("cuda_acceleratedvectordatabaseengine_tpu."))
+               and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")

@@ -35,6 +35,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.calibrate import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.convert import (
     ivf_pq_from_arrays,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_pq import (
+    _ivf_pq_search_device,
+)
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import (
     grouped_pq_scan,
 )
@@ -331,3 +334,52 @@ def test_list_heat_counts_each_query_over_its_probe_set(monkeypatch):
     expect = np.zeros(NLIST, np.int64)
     expect[[2, 6]] = [2, 1]
     np.testing.assert_array_equal(idx.list_access_count - before, expect)
+
+
+@pytest.mark.parametrize("name,route", [
+    ("pallas", "grouped_adc"), ("grouped", "grouped_adc"),
+    ("xla", "_gather_adc"), ("gather", "_gather_adc"),
+    ("auto", "_gather_adc")])
+def test_device_search_resolves_every_scan_name(name, route, monkeypatch):
+    """``_ivf_pq_search_device`` takes the config path's names: the JAX
+    package's ``"pallas"`` reaches the grouped ADC (K2 on CUDA) as
+    ``"grouped"`` does, ``"xla"`` and ``"gather"`` the gather ADC, and
+    ``"auto"`` the gather ADC on CPU tensors; both give the same
+    answers."""
+    from cuda_acceleratedvectordatabaseengine_tpu_torch.models import (
+        ivf_pq as pq_mod,
+    )
+
+    calls = []
+    for fn in ("grouped_adc", "_gather_adc"):
+        monkeypatch.setattr(pq_mod, fn, functools.partial(
+            lambda real, fn, *a, **kw: calls.append(fn) or real(*a, **kw),
+            getattr(pq_mod, fn), fn))
+    idx = _carry(_jax_index(), IVFPQConfig(**_cfg_kw("L2", False,
+                                                      "bfloat16")))
+    _, q = _data()
+    raw = idx.raw
+
+    def search(impl):
+        return pq_mod._ivf_pq_search_device(
+            torch.from_numpy(q[:6]), idx.centroids, idx.codebooks,
+            idx.code_arena_t, idx.code_sq, idx.counts, raw.arena,
+            raw.arena_sq, raw.arena_scale, raw.anchors, 4, 5, Metric.L2, 0,
+            scan_impl=impl)
+
+    d, pos = search(name)
+    assert calls == [route]
+    ref_d, ref_pos = search("gather")
+    assert_topk_match(d.numpy(), pos.numpy(), ref_d.numpy(), ref_pos.numpy(),
+                      rtol=1e-5, atol=1e-4)
+
+
+def test_device_search_refuses_an_unknown_scan_name():
+    idx = _carry(_jax_index(), IVFPQConfig(**_cfg_kw("L2", False,
+                                                      "bfloat16")))
+    _, q = _data()
+    with pytest.raises(ValueError, match="bogus"):
+        _ivf_pq_search_device(
+            torch.from_numpy(q[:2]), idx.centroids, idx.codebooks,
+            idx.code_arena_t, idx.code_sq, idx.counts, None, None, None, None,
+            4, 5, Metric.L2, 0, scan_impl="bogus")
