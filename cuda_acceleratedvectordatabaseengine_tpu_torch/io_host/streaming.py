@@ -35,7 +35,6 @@ import threading
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.io_host.cache import (
     HbmListCache,
@@ -68,6 +67,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
     resolve_device,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
+    trace,
 )
 
 class HostListStore:
@@ -418,7 +420,7 @@ class StreamingIVFFlatIndex:
         b = queries.shape[0]
         nprobe = min(params.nprobe, self.config.nlist)
 
-        with record_function("streaming.coarse_probe"):
+        with trace("streaming.coarse_probe"):
             q = torch.from_numpy(queries).to(self.device)
             if self.metric == Metric.COSINE:
                 q = l2_normalize(q)
@@ -449,7 +451,7 @@ class StreamingIVFFlatIndex:
         all_d, all_l, all_o = [], [], []
 
         def convert(d_dev, pos_dev, rev):
-            with record_function("streaming.merge"):
+            with trace("streaming.merge"):
                 d = d_dev.cpu().numpy()
                 pos = pos_dev.cpu().numpy()
                 valid = pos >= 0
@@ -468,7 +470,7 @@ class StreamingIVFFlatIndex:
         for wi, cols in enumerate(waves):
             wave_probe = probe_h[:, cols]
             with self._cache_gate:
-                with record_function("streaming.stage"):
+                with trace("streaming.stage"):
                     mapping = self.cache.ensure_resident(
                         wave_probe.reshape(-1), self.store.fetch,
                         soft_protect=(wave_sets[wi + 1]
@@ -493,7 +495,7 @@ class StreamingIVFFlatIndex:
         for w in pending:
             convert(*w)
 
-        with record_function("streaming.merge"):
+        with trace("streaming.merge"):
             d = np.concatenate(all_d, axis=1)
             lists = np.concatenate(all_l, axis=1)
             offs = np.concatenate(all_o, axis=1)

@@ -28,7 +28,6 @@ import threading
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
     INVALID_ID,
@@ -59,6 +58,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
     resolve_device,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
+    trace,
 )
 
 FLT_MAX = np.float32(np.finfo(np.float32).max)
@@ -283,7 +285,7 @@ def _ivf_search_device(
     (``ivf_flat.coarse_probe``, ``grouped_scan.*``, ``sorted_scan.*``,
     ``pair_scan.*``, ``ivf_flat.rerank``) so a trace attributes device
     time to it."""
-    with record_function("ivf_flat.coarse_probe"):
+    with trace("ivf_flat.coarse_probe"):
         q = queries.float()
         if metric == Metric.COSINE:
             q = l2_normalize(q)
@@ -297,7 +299,7 @@ def _ivf_search_device(
         m_budget=m_budget, scan_capacity=scan_capacity,
     )
     if rerank_k > 0 and arena_lo is not None:
-        with record_function("ivf_flat.rerank"):
+        with trace("ivf_flat.rerank"):
             d, pos = _exact_rerank(q, pos[:, :keep], arena, arena_lo,
                                    arena_scale, arena_anchors, k, metric)
         return d, pos, probe_ids
@@ -610,7 +612,9 @@ class IVFFlatIndex:
         self, queries: np.ndarray, params: SearchParams | None = None
     ):
         """Enqueue the device search now and return a thunk that waits for
-        it and post-processes the result on the host."""
+        it and post-processes the result on the host. Once it ran, the
+        thunk's ``waits`` holds the ms it waited for the card, by stage
+        (``fetch_wait``; 0.0 on the CPU), for its caller to record."""
         params = params or SearchParams()
         if not self.trained:
             raise RuntimeError("index must be trained before search()")
@@ -630,7 +634,7 @@ class IVFFlatIndex:
         # dedup can still hand back k unique ids.
         k = params.k
         k_dev = 2 * k if self.config.multi_assign_eps > 0 else k
-        with record_function("ivf_flat.upload"):
+        with trace("ivf_flat.upload"):
             q_dev = self._to_device(queries)
         # Snapshot AND enqueue under the mutation lock (see the class
         # docstring); the wait and the id map in finalize run outside it.
@@ -647,17 +651,32 @@ class IVFFlatIndex:
                 rerank_k, arena.arena_lo,
             )
             self._heat.add_probes(probes_dev)
+            done = None
+            if d_dev.is_cuda:   # after the search's last launch
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(d_dev.device))
+        waits = {"fetch_wait": 0.0}
 
         def finalize():
-            with record_function("ivf_flat.finalize"):
-                d = d_dev.cpu().numpy().copy()
-                pos = pos_dev.cpu().numpy()
-                ids = arena.positions_to_ids(pos)
-                d[pos < 0] = FLT_MAX
-                if k_dev != k:
-                    return dedup_topk(d, ids, k)
-                return d, ids
+            with trace("ivf_flat.finalize"):
+                # the wait for this search's device work, apart from the
+                # copies after it, which queue behind whatever the stream
+                # took on since
+                if done is not None:
+                    with trace("ivf_flat.fetch_wait", stage="fetch_wait",
+                               record=waits.__setitem__):
+                        done.synchronize()
+                with trace("ivf_flat.copy"):
+                    d = d_dev.cpu().numpy().copy()
+                    pos = pos_dev.cpu().numpy()
+                with trace("ivf_flat.id_map"):
+                    ids = arena.positions_to_ids(pos)
+                    d[pos < 0] = FLT_MAX
+                    if k_dev != k:
+                        return dedup_topk(d, ids, k)
+                    return d, ids
 
+        finalize.waits = waits
         return finalize
 
     def search_batch(

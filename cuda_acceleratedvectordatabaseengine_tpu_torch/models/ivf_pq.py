@@ -38,7 +38,6 @@ import threading
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
     INVALID_ID,
@@ -82,6 +81,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
     resolve_device,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
+    trace,
 )
 
 # scan_impl names this package runs; "xla" and "pallas" are the JAX
@@ -210,7 +212,7 @@ def grouped_adc(q, code_arena_t, code_sq, counts, centroids, codebooks,
     ]
     if len(parts) == 1:
         return parts[0]
-    with record_function("grouped_pq_scan.epilogue"):
+    with trace("grouped_pq_scan.epilogue"):
         return topk_smallest(
             torch.cat([p[0] for p in parts], 1), keep,
             idx=torch.cat([p[1] for p in parts], 1),
@@ -239,7 +241,7 @@ def _ivf_pq_search_device(
         scan_impl = "grouped" if queries.is_cuda else "gather"
     b, dim = queries.shape
     nlist, _, cap = code_arena_t.shape
-    with record_function("ivf_pq.coarse_probe"):
+    with trace("ivf_pq.coarse_probe"):
         q0 = queries.float()               # the ORIGINAL frame (rerank's)
         if metric == Metric.COSINE:
             q0 = l2_normalize(q0)
@@ -262,13 +264,13 @@ def _ivf_pq_search_device(
             probe_ids, keep, metric, k_inner=k_inner,
             scan_capacity=scan_capacity)
     else:
-        with record_function("ivf_pq.gather_adc"):
+        with trace("ivf_pq.gather_adc"):
             best_d, best_p = _gather_adc(q, centroids, codebooks,
                                          code_arena_t, counts, probe_ids,
                                          keep, metric)
 
     if rerank_k > 0 and raw_arena is not None:
-        with record_function("ivf_pq.rerank"):
+        with trace("ivf_pq.rerank"):
             # Exact fp32 distances of the shortlist against the raw rows,
             # which live in the ORIGINAL frame: paired with the unrotated q0.
             if raw_arena.shape[1] != cap:
@@ -699,7 +701,7 @@ class IVFPQIndex:
         if host_rr:
             k_dev = min(max(self.host_rerank_k, params.k),
                         self.capacity * nprobe)
-        with record_function("ivf_pq.upload"):
+        with trace("ivf_pq.upload"):
             q_dev = self._to_device(queries)
         # One consistent snapshot, and the device work enqueued under the
         # lock (a removal moves rows in place; see the module docstring).
@@ -724,7 +726,7 @@ class IVFPQIndex:
                          params):
         """Wait for the device result, map positions to ids, and with a
         host store attached run the exact rerank on the host."""
-        with record_function("ivf_pq.finalize"):
+        with trace("ivf_pq.finalize"):
             d = d.cpu().numpy().copy()
             pos = pos.cpu().numpy()
             flat_ids = ids_table.reshape(-1)
@@ -733,7 +735,7 @@ class IVFPQIndex:
             d[pos < 0] = FLT_MAX
         if not host_rr:
             return d, out_ids
-        with record_function("ivf_pq.host_rerank"):
+        with trace("ivf_pq.host_rerank"):
             q_rr = queries
             if self.metric == Metric.COSINE:
                 nrm = np.linalg.norm(q_rr, axis=1, keepdims=True)

@@ -44,7 +44,6 @@ The row step and the epilogue run in the ``torch.profiler`` ranges
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import Metric
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_scan import (
@@ -54,6 +53,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_scan import (
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
     topk_smallest,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
+    trace,
 )
 
 # Launches of the scan kernel made by _pq_pair_rows_cuda since the process
@@ -330,13 +332,13 @@ def _scan_codes_grouped(rows_fn, queries, codes_t, code_sq, counts,
     global_cap = global_capacity if global_capacity is not None else cap
     kernel_counts = _local_counts(counts, cap, slot_stride, slot_offset)
     probe = probe_ids.int().contiguous()
-    with record_function("grouped_pq_scan.rows"):
+    with trace("grouped_pq_scan.rows"):
         out_d, out_s = rows_fn(
             queries.float().contiguous(), codes_t, code_sq, kernel_counts,
             centroids.float().contiguous(), codebooks.float().contiguous(),
             probe, ki, metric, cap_s, emit_full=emit_full,
         )
-    with record_function("grouped_pq_scan.epilogue"):
+    with trace("grouped_pq_scan.epilogue"):
         return _pair_epilogue(out_d, out_s, probe, k, nlist, global_cap,
                               slot_stride, slot_offset)
 

@@ -34,11 +34,13 @@ from __future__ import annotations
 import typing
 
 import torch
-from torch.profiler import record_function
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import Metric
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
     topk_smallest,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
+    trace,
 )
 
 # Kernel launches made by _grouped_rows_cuda since the process started (or
@@ -356,10 +358,10 @@ def _scan_grouped(rows_fn, queries, arena, arena_sq, counts, probe_ids, k,
     m = m_budget or auto_m_budget(n_pairs, nlist)
     if m_limit is not None:
         m = min(m, m_limit)
-    with record_function("grouped_scan.pack"):
+    with trace("grouped_scan.pack"):
         pack = _pack_pairs_into_rows(probe_ids, nlist, m,
                                      _n_rows_bound(n_pairs, nlist, m))
-    with record_function("grouped_scan.rows"):
+    with trace("grouped_scan.rows"):
         out_d, out_s = rows_fn(
             queries.float().contiguous(), arena, arena_sq, kernel_counts,
             pack.row_list, pack.qrow_table, k, metric, cap_s,
@@ -368,7 +370,7 @@ def _scan_grouped(rows_fn, queries, arena, arena_sq, counts, probe_ids, k,
                 if arena_anchors is not None else None
             ),
         )
-    with record_function("grouped_scan.epilogue"):
+    with trace("grouped_scan.epilogue"):
         return _grouped_epilogue(out_d, out_s, pack, batch, nprobe, k, nlist,
                                  global_cap, slot_stride, slot_offset)
 

@@ -34,7 +34,6 @@ in the ``torch.profiler`` range ``sorted_scan.rows``, the top-k in
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import Metric
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_scan import (
@@ -50,6 +49,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_scan import (
     query_planes,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import merge_topk
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
+    trace,
+)
 
 # Kernel launches made by _sorted_rows_cuda since the process started (or
 # since a caller last reset it): lets a run show it went through the kernel.
@@ -96,9 +98,9 @@ def scan_full_rows(rows_fn, probe_ids, k, cap_s, global_cap, slot_stride,
     best = None
     for p0 in range(0, nprobe, step):
         probe = probe_ids[:, p0:p0 + step].contiguous()
-        with record_function(f"{range_name}.rows"):
+        with trace(f"{range_name}.rows"):
             rows = rows_fn(probe)
-        with record_function(f"{range_name}.topk"):
+        with trace(f"{range_name}.topk"):
             part = full_row_topk(rows, probe, k, cap_s, global_cap,
                                  slot_stride, slot_offset)
             best = part if best is None else merge_topk(*best, *part, k)

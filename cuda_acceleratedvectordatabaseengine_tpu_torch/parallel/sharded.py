@@ -39,7 +39,6 @@ import threading
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
     INVALID_ID,
@@ -82,6 +81,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel.mesh import (
     psum,
     replicate,
     stripe_slots,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
+    trace,
 )
 
 
@@ -130,7 +132,7 @@ def _merge(mesh: Mesh, parts, k: int):
     """The JAX package's ``all_gather`` + replicated top-k: the shards'
     ``[B, ≥k]`` candidates (logical positions) concatenated on the leader
     and cut to the global top-k."""
-    with record_function("sharded.merge"):
+    with trace("sharded.merge"):
         d_all = all_gather(mesh, [d for d, _ in parts])
         p_all = all_gather(mesh, [p for _, p in parts])
         return topk_smallest(d_all, k, idx=p_all)
@@ -141,7 +143,7 @@ def _merge_reranked(mesh: Mesh, parts, keep: int, k: int):
     logical positions, exact distances)``, each ``[B, keep]``): the
     global top ``keep`` by scan distance, the single device's shortlist,
     then its top ``k`` by exact distance, as ``_exact_rerank`` cuts it."""
-    with record_function("sharded.merge"):
+    with trace("sharded.merge"):
         d_all = all_gather(mesh, [d for d, _, _ in parts])
         p_all = all_gather(mesh, [p for _, p, _ in parts])
         e_all = all_gather(mesh, [e for _, _, e in parts])
@@ -175,7 +177,7 @@ def _sharded_search(mesh, q, centroids, arena_s, arena_sq_s, counts_s,
     n = mesh.size
     rerank = rerank_k > 0 and lo_s is not None
     keep = max(k, rerank_k) if rerank else k
-    with record_function("sharded.coarse_probe"):
+    with trace("sharded.coarse_probe"):
         qf = q.float()
         if metric == Metric.COSINE:
             qf = l2_normalize(qf)
@@ -184,7 +186,7 @@ def _sharded_search(mesh, q, centroids, arena_s, arena_sq_s, counts_s,
         probe = probe.int()
     parts = []
     for s, dev in enumerate(mesh.devices):
-        with record_function("sharded.scan"):
+        with trace("sharded.scan"):
             q_s = qf.to(dev)
             scale = None if scale_s is None else scale_s[s]
             anchors = None if anchors_s is None else anchors_s[s]
@@ -709,7 +711,7 @@ def _sharded_pq_search(mesh, q0, opq_R, centroids_s, codebooks_s, codes_s,
     the merged pool is the union of the shards' reranks: a superset of the
     single-device pool (recall ≥ the single device's)."""
     n = mesh.size
-    with record_function("sharded.coarse_probe"):
+    with trace("sharded.coarse_probe"):
         q0 = q0.float()                       # the original frame (rerank's)
         if metric == Metric.COSINE:
             q0 = l2_normalize(q0)
@@ -722,7 +724,7 @@ def _sharded_pq_search(mesh, q0, opq_R, centroids_s, codebooks_s, codes_s,
     keep = max(k, rerank_k)
     parts = []
     for s, dev in enumerate(mesh.devices):
-        with record_function("sharded.scan"):
+        with trace("sharded.scan"):
             d, pos = grouped_adc(
                 q.to(dev), codes_s[s], code_sq_s[s], counts_s[s],
                 centroids_s[s], codebooks_s[s], probe.to(dev), keep, metric,

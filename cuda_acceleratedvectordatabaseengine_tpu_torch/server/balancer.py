@@ -17,6 +17,10 @@ import itertools
 import threading
 import time
 
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
+    trace,
+)
+
 
 class CircuitState(enum.Enum):
     CLOSED = "closed"
@@ -206,6 +210,7 @@ class PriorityRequestQueue:
         window_s: float,
         weight_fn=None,
         max_weight: int | None = None,
+        record_stage=None,
     ) -> list:
         """Batch dequeue: block until at least one item arrives, then wait
         out the coalescing window (or until ``max_n`` items are queued) and
@@ -219,16 +224,29 @@ class PriorityRequestQueue:
         Without it, 512 drained requests of 16 queries each once built an
         8192-query device tensor, far past every warmed bucket: a cold XLA
         compile mid-SLA, and a deadline cascade under stream fan-in. The
-        first item is always taken, whatever its weight."""
+        first item is always taken, whatever its weight.
+
+        The two waits are the spans ``coalescer.wait_request`` (the queue
+        empty) and ``coalescer.window``; with ``record_stage(stage, ms)``
+        the window's is also the stage ``window_wait``, one sample a drain
+        (0.0 where ``max_n`` items were already queued)."""
         with self._cv:
-            while not self._heap:
-                self._cv.wait()
-            deadline = time.monotonic() + window_s
-            while len(self._heap) < max_n:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                self._cv.wait(timeout=remaining)
+            if not self._heap:
+                with trace("coalescer.wait_request"):
+                    while not self._heap:
+                        self._cv.wait()
+            if len(self._heap) >= max_n:
+                if record_stage is not None:
+                    record_stage("window_wait", 0.0)
+            else:
+                with trace("coalescer.window", stage="window_wait",
+                           record=record_stage):
+                    deadline = time.monotonic() + window_s
+                    while len(self._heap) < max_n:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        self._cv.wait(timeout=remaining)
             out = []
             weight = 0
             while self._heap and len(out) < max_n:

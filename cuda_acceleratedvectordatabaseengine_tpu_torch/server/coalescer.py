@@ -32,6 +32,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.server.balancer import (
     Priority,
     PriorityRequestQueue,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
+    trace,
+)
 
 
 @dataclasses.dataclass
@@ -73,6 +76,7 @@ class RequestCoalescer:
         max_queue: int | None = None,
         dispatch_fn: Callable[[list], Callable[[], list]] | None = None,
         weight_fn: Callable[[Any], int] | None = None,
+        record_stage: Callable[[str, float], None] | None = None,
     ):
         """``dispatch_fn(payloads) -> finalize_thunk`` enables the
         PIPELINED mode: a dedicated finalize thread forces batch N−1's
@@ -85,7 +89,12 @@ class RequestCoalescer:
         ``weight_fn(payload) -> int`` makes ``max_batch`` a bound on total
         WEIGHT (the serving path: queries per request) instead of item
         count — a drained batch then never exceeds the device batch width
-        the warmed executables cover."""
+        the warmed executables cover.
+
+        ``record_stage(stage, ms)`` (the engine's
+        ``MetricsCollector.record_stage``) takes the stages of the drain
+        thread's spans (``utils/profiling.trace``): the drain's
+        ``window_wait`` and the pipelined handoff's ``handoff_wait``."""
         if (batch_fn is None) == (dispatch_fn is None):
             raise ValueError("exactly one of batch_fn/dispatch_fn")
         self.batch_fn = batch_fn
@@ -95,6 +104,7 @@ class RequestCoalescer:
         self.max_batch_fn = max_batch_fn
         self.max_queue = max_queue
         self.weight_fn = weight_fn
+        self.record_stage = record_stage
         self._shed = 0
         self._queue = PriorityRequestQueue()
         self._lock = threading.Lock()
@@ -177,14 +187,16 @@ class RequestCoalescer:
     def _resolve(self, batch: list, thunk) -> None:
         """Force a dispatched batch's finalize thunk and scatter results
         (or the failure) onto its futures."""
-        try:
-            results = thunk()
-            for p, r in zip(batch, results):
-                p.future.set_result(r)
-        except Exception as e:  # noqa: BLE001 — fail the whole batch
-            for p in batch:
-                if not p.future.done():
-                    p.future.set_exception(e)
+        with trace("coalescer.resolve"):
+            try:
+                results = thunk()
+                with trace("coalescer.scatter"):
+                    for p, r in zip(batch, results):
+                        p.future.set_result(r)
+            except Exception as e:  # noqa: BLE001 — fail the whole batch
+                for p in batch:
+                    if not p.future.done():
+                        p.future.set_exception(e)
 
     def _finalize_loop(self) -> None:
         """Pipelined-mode fetch worker: forces each dispatched batch's
@@ -209,6 +221,7 @@ class RequestCoalescer:
                     self._current_max_batch()
                     if self.weight_fn is not None else None
                 ),
+                record_stage=self.record_stage,
             )
             # Transition each live item to RUNNING; cancelled futures
             # (caller deadline expired while queued) drop out here and
@@ -231,7 +244,10 @@ class RequestCoalescer:
                         thunk = self.dispatch_fn(
                             [p.payload for p in batch]
                         )
-                        self._inflight.put((batch, thunk))
+                        with trace("coalescer.handoff",
+                                   stage="handoff_wait",
+                                   record=self.record_stage):
+                            self._inflight.put((batch, thunk))
                     except Exception as e:  # noqa: BLE001
                         for p in batch:
                             if not p.future.done():

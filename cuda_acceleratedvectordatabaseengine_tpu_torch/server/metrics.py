@@ -7,8 +7,12 @@ own histogram, counter and gauge families and renders the Prometheus text
 format 0.0.4 itself, with the JAX collector's metric family names, label
 names and sample lines (``_bucket`` / ``_count`` / ``_sum``, ``_total``,
 ``_created``). The stage percentiles (``record_stage``:
-``decode``, ``queue_wait``, ``dispatch``, ``fetch``, ``encode``) are the
-serving layer's per-layer metrics.
+``decode``, ``queue_wait``, ``window_wait``, ``dispatch``,
+``handoff_wait``, ``fetch``, ``fetch_wait``, ``encode``) are the serving
+layer's per-layer metrics. Of these, ``window_wait`` is the coalescer's
+wait-out of its window on the drain thread, ``handoff_wait`` the drain
+thread's wait to hand a dispatched batch to the fetch thread, and
+``fetch_wait`` the fetch's wait for the card's work of a search.
 """
 
 from __future__ import annotations
@@ -231,8 +235,9 @@ class MetricsCollector:
         self.c_searches.inc(index=index)
 
     def record_stage(self, stage: str, ms: float) -> None:
-        """Per-stage serving span (decode / queue_wait / dispatch / fetch /
-        encode): the decomposition of server-side request latency."""
+        """Per-stage serving span (decode / queue_wait / window_wait /
+        dispatch / handoff_wait / fetch / fetch_wait / encode): the
+        decomposition of server-side request latency."""
         with self._lock:
             self._stages.setdefault(
                 stage, collections.deque(maxlen=self.MAX_SAMPLES)

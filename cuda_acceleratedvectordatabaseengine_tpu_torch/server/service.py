@@ -113,6 +113,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.logging import (
     get_logger,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
+    trace,
+)
 
 log = get_logger("vdb.server")
 
@@ -350,6 +353,7 @@ class VdbEngine:
             # Fail-fast backlog bound: shed at admission instead of
             # queueing work past its deadline.
             max_queue=self.config.max_queued_requests or None,
+            record_stage=self.metrics.record_stage,
         )
 
     def _load_epoch_into(self, st: IndexState, epoch_id: str) -> None:
@@ -781,22 +785,24 @@ class VdbEngine:
         request: breaker, rate limiter (one token per request, not per
         query), concurrency limiter, then ``coalescer.submit``. Returns the
         future; the concurrency slot stays held until
-        :meth:`finish_search`. Raises :class:`Rejected` when refused."""
-        if not self.breaker.allow():
-            raise Rejected("UNAVAILABLE", "circuit breaker open")
-        if not self.rate_limiter.try_acquire(1):
-            raise Rejected("RESOURCE_EXHAUSTED", "rate limit exceeded")
-        if not self.limiter.try_enter():
-            raise Rejected("RESOURCE_EXHAUSTED",
-                           "too many concurrent requests")
-        try:
-            return st.coalescer.submit(
-                (queries, params, time.monotonic()), priority=priority,
-            )
-        except QueueFullError as e:
-            self.limiter.exit()
-            self.breaker.record(True)  # shedding is not an engine failure
-            raise Rejected("RESOURCE_EXHAUSTED", str(e)) from None
+        :meth:`finish_search`. Raises :class:`Rejected` when refused. Runs
+        in the span ``engine.submit``."""
+        with trace("engine.submit"):
+            if not self.breaker.allow():
+                raise Rejected("UNAVAILABLE", "circuit breaker open")
+            if not self.rate_limiter.try_acquire(1):
+                raise Rejected("RESOURCE_EXHAUSTED", "rate limit exceeded")
+            if not self.limiter.try_enter():
+                raise Rejected("RESOURCE_EXHAUSTED",
+                               "too many concurrent requests")
+            try:
+                return st.coalescer.submit(
+                    (queries, params, time.monotonic()), priority=priority,
+                )
+            except QueueFullError as e:
+                self.limiter.exit()
+                self.breaker.record(True)  # shedding is not an engine failure
+                raise Rejected("RESOURCE_EXHAUSTED", str(e)) from None
 
     def finish_search(self, fut, index_name: str, t0: float,
                       n_queries: int, encode=None):
@@ -805,34 +811,47 @@ class VdbEngine:
         taken by :meth:`submit_search` and records the breaker outcome and
         the request's latency. A search past the adaptive deadline raises
         :class:`Rejected` (``DEADLINE_EXCEEDED``); a queued one is
-        cancelled before it reaches the device."""
-        ok = False
+        cancelled before it reaches the device. What follows the answer
+        (encode, slot, breaker, latency) runs in the span
+        ``engine.finish``; the wait for the answer is no span."""
         try:
+            d, ids = fut.result(timeout=self.adaptive.timeout_s())
+        except concurrent.futures.TimeoutError:
+            cancelled = fut.cancel()
+            # a client deadline must not trip the breaker
+            self._release(index_name, t0, n_queries, ok=True)
+            raise Rejected(
+                "DEADLINE_EXCEEDED",
+                "queue wait exceeded adaptive deadline ("
+                + ("cancelled while queued" if cancelled
+                   else "batch already running") + ")",
+            ) from None
+        except BaseException:
+            self._release(index_name, t0, n_queries, ok=False)
+            raise
+        with trace("engine.finish"):
+            ok = False
             try:
-                d, ids = fut.result(timeout=self.adaptive.timeout_s())
-            except concurrent.futures.TimeoutError:
-                cancelled = fut.cancel()
-                ok = True  # a client deadline must not trip the breaker
-                raise Rejected(
-                    "DEADLINE_EXCEEDED",
-                    "queue wait exceeded adaptive deadline ("
-                    + ("cancelled while queued" if cancelled
-                       else "batch already running") + ")",
-                ) from None
-            t_enc = time.monotonic()
-            out = encode(d, ids) if encode is not None else (d, ids)
-            self.metrics.record_stage(
-                "encode", (time.monotonic() - t_enc) * 1000
-            )
-            ok = True
-            return out
-        finally:
-            self.limiter.exit()
-            self.breaker.record(ok)
-            if ok:
-                self.metrics.record_search(
-                    index_name, (time.monotonic() - t0) * 1000, n_queries,
+                t_enc = time.monotonic()
+                out = encode(d, ids) if encode is not None else (d, ids)
+                self.metrics.record_stage(
+                    "encode", (time.monotonic() - t_enc) * 1000
                 )
+                ok = True
+                return out
+            finally:
+                self._release(index_name, t0, n_queries, ok)
+
+    def _release(self, index_name: str, t0: float, n_queries: int,
+                 ok: bool) -> None:
+        """The end of an admitted search: its concurrency slot freed, the
+        breaker's outcome and, where ``ok``, the request's latency."""
+        self.limiter.exit()
+        self.breaker.record(ok)
+        if ok:
+            self.metrics.record_search(
+                index_name, (time.monotonic() - t0) * 1000, n_queries,
+            )
 
     def _dispatch_batch(self, st: IndexState, items: list):
         """Dispatch stage of a drained coalescer batch: one ``search_async``
@@ -842,52 +861,58 @@ class VdbEngine:
 
         items: [(queries [m, D] np, SearchParams, t_submit)] → thunk() →
         per-item (dists, ids) slices. An index without a dispatch /
-        finalize split (the streaming tier) searches here, synchronously."""
-        index = st.index
-        t_start = time.monotonic()
-        groups: dict[tuple, list[int]] = {}
-        for i, (_, p, *_) in enumerate(items):
-            groups.setdefault(
-                (p.nprobe, p.k, p.use_exact_rerank), []
-            ).append(i)
-        for it in items:
-            if len(it) > 2:
-                self.metrics.record_stage(
-                    "queue_wait", (t_start - it[2]) * 1000
+        finalize split (the streaming tier) searches here, synchronously.
+        Runs in the span ``engine.dispatch``."""
+        with trace("engine.dispatch"):
+            index = st.index
+            t_start = time.monotonic()
+            groups: dict[tuple, list[int]] = {}
+            for i, (_, p, *_) in enumerate(items):
+                groups.setdefault(
+                    (p.nprobe, p.k, p.use_exact_rerank), []
+                ).append(i)
+            for it in items:
+                if len(it) > 2:
+                    self.metrics.record_stage(
+                        "queue_wait", (t_start - it[2]) * 1000
+                    )
+            thunks: list[tuple[list[int], object]] = []
+            for (nprobe, k, rerank), idxs in groups.items():
+                qs = np.concatenate([items[i][0] for i in idxs])
+                params = SearchParams(
+                    nprobe=nprobe, k=k, use_exact_rerank=rerank
                 )
-        thunks: list[tuple[list[int], object]] = []
-        for (nprobe, k, rerank), idxs in groups.items():
-            qs = np.concatenate([items[i][0] for i in idxs])
-            params = SearchParams(
-                nprobe=nprobe, k=k, use_exact_rerank=rerank
+                if hasattr(index, "search_async"):
+                    fin = index.search_async(qs, params)
+                else:
+                    d, out_ids = index.search(qs, params)
+                    fin = lambda d=d, ids=out_ids: (d, ids)  # noqa: E731
+                thunks.append((idxs, fin))
+            self.metrics.record_stage(
+                "dispatch", (time.monotonic() - t_start) * 1000
             )
-            if hasattr(index, "search_async"):
-                fin = index.search_async(qs, params)
-            else:
-                d, out_ids = index.search(qs, params)
-                fin = lambda d=d, out_ids=out_ids: (d, out_ids)  # noqa: E731
-            thunks.append((idxs, fin))
-        self.metrics.record_stage(
-            "dispatch", (time.monotonic() - t_start) * 1000
-        )
 
-        def finalize() -> list:
-            t_f = time.monotonic()
-            results: list = [None] * len(items)
-            for idxs, fin in thunks:
-                d, out_ids = fin()
-                off = 0
-                for i in idxs:
-                    m = items[i][0].shape[0]
-                    results[i] = (d[off:off + m], out_ids[off:off + m])
-                    off += m
-            now = time.monotonic()
-            self.metrics.record_stage("fetch", (now - t_f) * 1000)
-            # adaptive sizing sees the batch's dispatch→fetch wall time
-            self.adaptive.record_latency_ms((now - t_start) * 1000)
-            return results
+            def finalize() -> list:
+                t_f = time.monotonic()
+                results: list = [None] * len(items)
+                for idxs, fin in thunks:
+                    d, out_ids = fin()
+                    # the search's own waits for the card, where it times
+                    # them (IVFFlatIndex: ``fetch_wait``)
+                    for stage, ms in getattr(fin, "waits", {}).items():
+                        self.metrics.record_stage(stage, ms)
+                    off = 0
+                    for i in idxs:
+                        m = items[i][0].shape[0]
+                        results[i] = (d[off:off + m], out_ids[off:off + m])
+                        off += m
+                now = time.monotonic()
+                self.metrics.record_stage("fetch", (now - t_f) * 1000)
+                # adaptive sizing sees the batch's dispatch→fetch wall time
+                self.adaptive.record_latency_ms((now - t_start) * 1000)
+                return results
 
-        return finalize
+            return finalize
 
 
 # ---------------------------------------------------------------------- #

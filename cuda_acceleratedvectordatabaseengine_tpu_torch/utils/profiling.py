@@ -1,19 +1,26 @@
-"""Tracing and timing hooks (port of the JAX package's
-``utils/profiling.py``, on ``torch.profiler``).
+"""Tracing hooks (port of the JAX package's ``utils/profiling.py``, on
+``torch.profiler``).
 
 Two layers:
-  - ``start_trace_server`` / ``trace``: device traces. ``trace`` captures
-    the enclosed block; ``start_trace_server`` serves on-demand captures of
-    a running process over HTTP (``GET /trace?ms=N`` answers with the
-    Chrome-trace JSON of the next N ms), the counterpart of
-    ``jax.profiler.start_server``, which torch does not have. Both record
-    CPU ops and, where CUDA is present, every kernel on the card (CUPTI sees
-    the kernels the package launches through ctypes too), and open in
-    ``chrome://tracing`` or Perfetto. Each session attaches CUPTI anew
-    and waits for the card at its ends (:func:`profiler_session`), so a
-    window keeps the kernels of every thread; :func:`records_complete`
-    tells whether it did;
-  - ``Timer`` / ``timed``: wall-clock spans feeding the metrics layer.
+  - ``trace``: the named range of every span of the port (the search
+    module's stages, the serving engine's waits and handoffs). It opens a
+    ``record_function`` range only while a profiler runs, so the range
+    lies on the profiler's clock beside the card's kernels; otherwise it
+    costs one read of the profiler's module flag. A span can also record
+    its duration as a serving stage with the recorder it is given
+    (``MetricsCollector.record_stage``): the stage sample and the range
+    then come from one block. With a ``log_dir``, ``trace`` also profiles
+    the block and writes its Chrome trace;
+  - ``start_trace_server`` / :func:`profiler_session`: device traces.
+    ``start_trace_server`` serves on-demand captures of a running process
+    over HTTP (``GET /trace?ms=N`` answers with the Chrome-trace JSON of
+    the next N ms), the counterpart of ``jax.profiler.start_server``,
+    which torch does not have. Both record CPU ops and, where CUDA is
+    present, every kernel on the card (CUPTI sees the kernels the package
+    launches through ctypes too), and open in ``chrome://tracing`` or
+    Perfetto. Each session attaches CUPTI anew and waits for the card at
+    its ends (:func:`profiler_session`), so a window keeps the kernels of
+    every thread; :func:`records_complete` tells whether it did.
 """
 
 from __future__ import annotations
@@ -28,9 +35,9 @@ import tempfile
 import threading
 import time
 import urllib.parse
-from typing import Callable
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 MAX_TRACE_MS = 10_000   # longest capture one request may ask for
 CAPTURE_ATTEMPTS = 3    # windows per capture while the card's records miss
@@ -391,68 +398,58 @@ def start_trace_server(port: int = 9012) -> http.server.ThreadingHTTPServer:
     return server
 
 
-@contextlib.contextmanager
-def trace(name: str, log_dir: str | None = None):
-    """Run the enclosed block inside a ``record_function(name)`` range;
-    with ``log_dir``, also profile it (CPU + CUDA, in a
-    :func:`profiler_session`) and write the Chrome trace
+class _Span:
+    """The range-only path of :func:`trace`."""
+
+    __slots__ = ("name", "stage", "record", "_range", "_t0")
+
+    def __init__(self, name: str, stage: str | None = None, record=None):
+        self.name = name
+        self.stage = stage
+        self.record = record
+        self._range = None
+
+    def __enter__(self):
+        # The module flag, not ``torch._C._autograd._profiler_enabled()``:
+        # in a session that records every thread (``profile_all_threads``)
+        # the C flag reads False on every thread, the session's own too,
+        # while the ranges of every thread are recorded.
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        if self.record is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.record is not None:
+            self.record(self.stage, (time.perf_counter() - self._t0) * 1e3)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+def trace(name: str, log_dir: str | None = None, stage: str | None = None,
+          record=None):
+    """A context manager running the enclosed block as the span ``name``:
+    a ``record_function(name)`` range while a profiler runs (on any
+    thread, in a session of every thread), nothing else otherwise. With
+    ``record`` (a ``MetricsCollector.record_stage``), the block's duration
+    in ms is also recorded as ``record(stage, ms)``, a failing block's
+    too (the range, where open, encloses the timed part). With
+    ``log_dir``, the block is also profiled (CPU + CUDA, in a
+    :func:`profiler_session`) and its Chrome trace written to
     ``<log_dir>/<name>.<pid>.<ns>.json``."""
-    if not log_dir:
-        with torch.profiler.record_function(name):
-            yield
-        return
+    if log_dir:
+        return _profiled(name, log_dir)
+    return _Span(name, stage, record)
+
+
+@contextlib.contextmanager
+def _profiled(name: str, log_dir: str):
     os.makedirs(log_dir, exist_ok=True)
     with profiler_session() as (prof, _):
-        with torch.profiler.record_function(name):
+        with _Span(name):
             yield
     prof.export_chrome_trace(os.path.join(
         log_dir, f"{name}.{os.getpid()}.{time.time_ns()}.json"))
-
-
-class Timer:
-    """Accumulating wall-clock span timer."""
-
-    def __init__(self):
-        self.total_s = 0.0
-        self.count = 0
-
-    @contextlib.contextmanager
-    def span(self):
-        t0 = time.monotonic()
-        try:
-            yield
-        finally:
-            self.total_s += time.monotonic() - t0
-            self.count += 1
-
-    @property
-    def avg_ms(self) -> float:
-        return 1000.0 * self.total_s / self.count if self.count else 0.0
-
-
-def _cuda_devices(out) -> set:
-    """The CUDA devices of the tensors in ``out`` (nested tuples, lists and
-    dicts are walked)."""
-    found = set()
-    stack = [out]
-    while stack:
-        obj = stack.pop()
-        if isinstance(obj, torch.Tensor):
-            if obj.is_cuda:
-                found.add(obj.device)
-        elif isinstance(obj, (list, tuple)):
-            stack.extend(obj)
-        elif isinstance(obj, dict):
-            stack.extend(obj.values())
-    return found
-
-
-def timed(fn: Callable, *args, **kwargs):
-    """Run fn, returning (result, elapsed_ms); synchronises every CUDA
-    device its output lives on, so the time covers the device's work, not
-    only the launches."""
-    t0 = time.monotonic()
-    out = fn(*args, **kwargs)
-    for dev in _cuda_devices(out):
-        torch.cuda.synchronize(dev)
-    return out, (time.monotonic() - t0) * 1000.0

@@ -1,6 +1,7 @@
-"""PyTorch port, ``utils/profiling.py`` on ``torch.profiler``: the timers,
-a traced block written as a Chrome trace, the on-demand trace server, and
-``server.main --profile-port`` serving it (CPU)."""
+"""PyTorch port, ``utils/profiling.py`` on ``torch.profiler``: the guarded
+span helper and the stages it records, a traced block written as a Chrome
+trace, the on-demand trace server, and ``server.main --profile-port``
+serving it (CPU)."""
 
 import contextlib
 import json
@@ -23,36 +24,6 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import profiling
 REPO = Path(__file__).resolve().parents[1]
 
 
-def test_timer_accumulates_spans():
-    t = profiling.Timer()
-    assert t.avg_ms == 0.0
-    for _ in range(3):
-        with t.span():
-            time.sleep(0.002)
-    with pytest.raises(ValueError):
-        with t.span():
-            raise ValueError("a failing span still counts")
-    assert t.count == 4
-    assert t.total_s >= 0.006 and t.avg_ms == 1000 * t.total_s / 4
-
-
-def test_timed_returns_the_output_and_its_time(monkeypatch):
-    """On host tensors nothing is synchronised; the walk finds CUDA
-    tensors inside nested outputs (none here)."""
-    synced = []
-    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
-
-    def work(x, scale=1.0):
-        time.sleep(0.005)
-        return {"y": (x * scale, [x + 1])}
-
-    out, ms = profiling.timed(work, torch.ones(3), scale=2.0)
-    assert torch.equal(out["y"][0], torch.full((3,), 2.0))
-    assert ms >= 5.0 and synced == []
-    assert profiling._cuda_devices((torch.ones(1), [{"a": torch.ones(2)}],
-                                    3)) == set()
-
-
 def _names(trace: dict) -> set:
     return {e.get("name") for e in trace["traceEvents"]}
 
@@ -68,6 +39,92 @@ def test_trace_writes_a_chrome_trace_with_the_range(tmp_path):
     assert any(n and "mm" in n for n in _names(trace))
     with profiling.trace("vdb.untraced"):   # no log_dir: the range only
         torch.ones(2).sum()
+
+
+def _user_ranges(trace: dict, name: str) -> list:
+    return [e for e in trace["traceEvents"]
+            if e.get("cat") == "user_annotation" and e.get("name") == name]
+
+
+def test_a_span_on_another_thread_is_recorded_in_an_all_threads_session():
+    """A span opened on a thread that did not start the session is in the
+    trace of a session of every thread (where the C profiler flag reads
+    False on every thread: the guard reads the module flag)."""
+    go, done = threading.Event(), threading.Event()
+
+    def worker():
+        go.wait(10)
+        with profiling.trace("vdb.worker_span"):
+            time.sleep(0.005)
+        done.set()
+
+    t = threading.Thread(target=worker)
+    t.start()
+    with profiling.profiler_session(all_threads=True) as (prof, _):
+        go.set()
+        assert done.wait(10)
+    t.join()
+    (event,) = _user_ranges(profiling.chrome_trace(prof), "vdb.worker_span")
+    assert event["dur"] >= 5000
+
+
+def test_a_span_enters_no_record_function_without_a_profiler(monkeypatch):
+    entered = []
+    rf = torch.autograd.profiler.record_function
+    orig = rf.__enter__
+
+    def counting(self):
+        entered.append(self.name)
+        return orig(self)
+
+    monkeypatch.setattr(rf, "__enter__", counting)
+    with profiling.trace("vdb.off", stage="off"):
+        pass
+    assert entered == []
+    with profiling.profiler_session():
+        with profiling.trace("vdb.on"):
+            pass
+    assert "vdb.on" in entered and "vdb.off" not in entered
+
+
+def test_a_stage_and_its_range_come_from_one_block():
+    """The stage a span records and its range in the trace measure the
+    same block: they agree within 5%."""
+    got = []
+    with profiling.profiler_session() as (prof, _):
+        with profiling.trace("vdb.timed", stage="timed",
+                             record=lambda stage, ms: got.append((stage, ms))):
+            time.sleep(0.05)
+    (event,) = _user_ranges(profiling.chrome_trace(prof), "vdb.timed")
+    ((stage, ms),) = got
+    assert stage == "timed" and ms >= 50.0
+    assert abs(ms - event["dur"] / 1e3) <= 0.05 * event["dur"] / 1e3
+
+
+def test_a_span_records_its_stage_with_the_recorder_it_is_given():
+    """A span's stage goes to the recorder the span was given, on
+    whichever thread it runs; a span given none records nothing, a
+    failing block still records its time."""
+    mine, other = [], []
+
+    def elsewhere():
+        with profiling.trace("vdb.there", stage="there",
+                             record=lambda s, ms: other.append(s)):
+            pass
+
+    with profiling.trace("vdb.unrecorded", stage="unrecorded"):
+        pass
+    t = threading.Thread(target=elsewhere)
+    t.start()
+    t.join()
+    with pytest.raises(ValueError):
+        with profiling.trace("vdb.fails", stage="fails",
+                             record=lambda s, ms: mine.append((s, ms))):
+            time.sleep(0.002)
+            raise ValueError("a failing block still counts")
+    assert other == ["there"]
+    ((stage, ms),) = mine
+    assert stage == "fails" and ms >= 2.0
 
 
 def test_trace_server_serves_captures():

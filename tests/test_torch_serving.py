@@ -57,6 +57,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.testing import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
     logging as t_logging,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils import (
+    profiling as t_profiling,
+)
 
 torch.set_num_threads(1)
 
@@ -795,6 +798,193 @@ def test_engine_dispatch_groups_mixed_params(tmp_path, rng):
         assert st.coalescer.stats()["batches"] < len(reqs)
     finally:
         eng.close()
+
+
+# --------------------------------------------------------------------------- #
+# the serving engine's spans and stages
+# --------------------------------------------------------------------------- #
+
+# the spans every coalesced batch of a resident IVF-Flat index on the CPU
+# opens (the queue's empty wait may or may not come; there is no wait for
+# the card)
+SERVED_SPANS = {
+    "engine.submit", "engine.dispatch", "engine.finish", "coalescer.window",
+    "coalescer.handoff", "coalescer.resolve", "coalescer.scatter",
+    "ivf_flat.upload", "ivf_flat.coarse_probe", "ivf_flat.finalize",
+    "ivf_flat.copy", "ivf_flat.id_map",
+}
+NEW_STAGES = ("window_wait", "handoff_wait", "fetch_wait")
+
+
+def _live_engine(tmp_path, rng):
+    x, _ids, src = _source(tmp_path, rng)
+    eng = t_service.VdbEngine(_config(tmp_path), device="cpu")
+    eng.create_index("docs", DIM, "L2", 8, 0, 0)
+    _build_and_activate(eng, "docs", src)
+    return eng, x
+
+
+def _counting_record_function(monkeypatch) -> list:
+    """The names of the ``record_function`` ranges entered from now on,
+    whichever way they were opened."""
+    entered = []
+    rf = torch.autograd.profiler.record_function
+    orig = rf.__enter__
+
+    def counting(self):
+        entered.append(self.name)
+        return orig(self)
+
+    monkeypatch.setattr(rf, "__enter__", counting)
+    return entered
+
+
+def test_coalescer_records_one_window_wait_a_drain(monkeypatch):
+    """64-query requests through a coalescer whose cap counts queries
+    (``weight_fn``): each drain records one ``window_wait``, each pipelined
+    batch one ``handoff_wait``."""
+    m = t_metrics.MetricsCollector()
+    drains = []
+    orig = t_balancer.PriorityRequestQueue.drain
+
+    def drain(self, *a, **kw):
+        out = orig(self, *a, **kw)
+        drains.append(len(out))
+        return out
+
+    monkeypatch.setattr(t_balancer.PriorityRequestQueue, "drain", drain)
+    co = t_coalescer.RequestCoalescer(
+        dispatch_fn=lambda items: (lambda: [len(q) for q in items]),
+        window_s=0.002, max_batch=64, weight_fn=len,
+        record_stage=m.record_stage)
+    for _ in range(5):
+        assert co.submit(np.zeros((64, DIM))).result(timeout=10) == 64
+    co.stop()
+    stages = m.get_stage_percentiles()
+    assert stages["window_wait"]["count"] == len(drains) >= 6
+    assert stages["window_wait"]["p50"] >= 0.0
+    assert stages["handoff_wait"]["count"] == co.stats()["batches"] == 5
+
+
+def test_a_drain_with_max_n_queued_records_a_zero_window_wait():
+    """A drain that finds ``max_n`` items queued waits out no window: it
+    records ``window_wait`` 0.0 and opens no window span."""
+    got = []
+    q = t_balancer.PriorityRequestQueue()
+    for i in range(3):
+        q.put(i)
+    with t_profiling.profiler_session() as (prof, _):
+        assert q.drain(3, 30.0, record_stage=lambda stage, ms:
+                       got.append((stage, ms))) == [0, 1, 2]
+    assert got == [("window_wait", 0.0)]
+    names = {e.get("name") for e in
+             t_profiling.chrome_trace(prof)["traceEvents"]}
+    assert not {"coalescer.window", "coalescer.wait_request"} & names
+
+
+def test_engine_spans_and_stages_of_a_cpu_batch(tmp_path, rng):
+    """Coalesced searches of a CPU index in a session of every thread:
+    each batch records ``fetch_wait`` 0.0 (no card to wait for) and opens
+    the engine's, the coalescer's and the search module's spans, the id
+    map inside the finalize on the finalize thread."""
+    eng, x = _live_engine(tmp_path, rng)
+    try:
+        st = eng.get_state("docs")
+        b0 = st.coalescer.stats()["batches"]
+        eng.metrics.reset_windows()
+        with t_profiling.profiler_session(all_threads=True) as (prof, _):
+            _serve(eng, "docs", x[:16], SearchParams(nprobe=8, k=5),
+                   threads=2)
+        batches = st.coalescer.stats()["batches"] - b0
+        stages = eng.metrics.get_stage_percentiles()
+    finally:
+        eng.close()
+    assert stages["fetch_wait"]["count"] == batches > 0
+    assert stages["fetch_wait"]["max"] == 0.0
+    assert stages["handoff_wait"]["count"] == batches
+    assert stages["window_wait"]["count"] >= batches
+    events = [e for e in t_profiling.chrome_trace(prof)["traceEvents"]
+              if e.get("cat") == "user_annotation"]
+    names = {e["name"] for e in events}
+    assert SERVED_SPANS <= names and "ivf_flat.fetch_wait" not in names
+    finals = [e for e in events if e["name"] == "ivf_flat.finalize"]
+    resolves = [e for e in events if e["name"] == "coalescer.resolve"]
+
+    def inside(e, outer):
+        return any(o["tid"] == e["tid"] and o["ts"] <= e["ts"]
+                   and e["ts"] + e["dur"] <= o["ts"] + o["dur"]
+                   for o in outer)
+
+    id_maps = [e for e in events if e["name"] == "ivf_flat.id_map"]
+    assert len(id_maps) == batches
+    assert all(inside(e, finals) for e in id_maps)
+    assert all(inside(e, resolves) for e in finals)
+
+
+def test_engine_records_the_waits_a_search_exposes(tmp_path, rng,
+                                                   monkeypatch):
+    """The engine records ``fetch_wait`` from the ``waits`` a search's
+    thunk exposes; a thunk without them (a wrapper, another index) serves
+    the same answers and records none."""
+    eng, x = _live_engine(tmp_path, rng)
+    p = SearchParams(nprobe=8, k=5)
+    try:
+        st = eng.get_state("docs")
+        assert st.index.search_async(x[:2], p).waits == {"fetch_wait": 0.0}
+        want = _serve(eng, "docs", x[:8], p)
+        assert eng.metrics.get_stage_percentiles()["fetch_wait"]["count"] > 0
+        orig = IVFFlatIndex.search_async
+
+        def bare(self, queries, params=None):
+            fin = orig(self, queries, params)
+            return lambda: fin()
+
+        monkeypatch.setattr(IVFFlatIndex, "search_async", bare)
+        eng.metrics.reset_windows()
+        got = _serve(eng, "docs", x[:8], p)
+        stages = eng.metrics.get_stage_percentiles()
+    finally:
+        eng.close()
+    np.testing.assert_array_equal(got[1], want[1])
+    assert "fetch_wait" not in stages and stages["dispatch"]["count"] > 0
+
+
+def test_engine_serves_without_entering_record_function(tmp_path, rng,
+                                                        monkeypatch):
+    """No profiler running: the served path enters no ``record_function``
+    range; in a session of every thread it enters each served span."""
+    eng, x = _live_engine(tmp_path, rng)
+    entered = _counting_record_function(monkeypatch)
+    p = SearchParams(nprobe=8, k=5)
+    try:
+        _serve(eng, "docs", x[:8], p)
+        assert entered == []
+        with t_profiling.profiler_session(all_threads=True):
+            _serve(eng, "docs", x[:8], p)
+    finally:
+        eng.close()
+    assert SERVED_SPANS <= set(entered)
+
+
+def test_engine_prometheus_text_lists_the_new_stages(tmp_path, rng):
+    """The new stages are samples of ``vdb_stage_milliseconds``; the text
+    holds the same metric families as before them."""
+    from prometheus_client.parser import text_string_to_metric_families
+
+    eng, x = _live_engine(tmp_path, rng)
+    try:
+        _serve(eng, "docs", x[:8], SearchParams(nprobe=8, k=5))
+        text = eng.metrics.prometheus_text().decode()
+    finally:
+        eng.close()
+    before = _record(t_metrics.MetricsCollector()).prometheus_text().decode()
+    assert ({f.name for f in text_string_to_metric_families(text)}
+            == {f.name for f in text_string_to_metric_families(before)})
+    for stage in NEW_STAGES:
+        for stat in ("p50", "p95", "p99", "max", "mean"):
+            assert (f'vdb_stage_milliseconds{{stage="{stage}",'
+                    f'stat="{stat}"}}') in text
+        assert f'vdb_stage_samples{{stage="{stage}"}}' in text
 
 
 def test_engine_admission_refusals(tmp_path, rng):
