@@ -89,12 +89,16 @@ class RequestCoalescer:
         ``weight_fn(payload) -> int`` makes ``max_batch`` a bound on total
         WEIGHT (the serving path: queries per request) instead of item
         count — a drained batch then never exceeds the device batch width
-        the warmed executables cover.
+        the warmed executables cover — and ends the window as soon as the
+        queued weight reaches it, since no later request could join the
+        batch (weight-1 requests end it at ``max_batch`` requests, as
+        without ``weight_fn``).
 
         ``record_stage(stage, ms)`` (the engine's
         ``MetricsCollector.record_stage``) takes the stages of the drain
         thread's spans (``utils/profiling.trace``): the drain's
-        ``window_wait`` and the pipelined handoff's ``handoff_wait``."""
+        ``window_wait`` and how its window ended (``window_deadline`` or
+        ``window_cap``), and the pipelined handoff's ``handoff_wait``."""
         if (batch_fn is None) == (dispatch_fn is None):
             raise ValueError("exactly one of batch_fn/dispatch_fn")
         self.batch_fn = batch_fn

@@ -7,10 +7,12 @@ own histogram, counter and gauge families and renders the Prometheus text
 format 0.0.4 itself, with the JAX collector's metric family names, label
 names and sample lines (``_bucket`` / ``_count`` / ``_sum``, ``_total``,
 ``_created``). The stage percentiles (``record_stage``:
-``decode``, ``queue_wait``, ``window_wait``, ``dispatch``,
-``handoff_wait``, ``fetch``, ``fetch_wait``, ``encode``) are the serving
-layer's per-layer metrics. Of these, ``window_wait`` is the coalescer's
-wait-out of its window on the drain thread, ``handoff_wait`` the drain
+``decode``, ``queue_wait``, ``window_wait``, ``window_deadline``,
+``window_cap``, ``dispatch``, ``handoff_wait``, ``fetch``, ``fetch_wait``,
+``encode``) are the serving layer's per-layer metrics. Of these,
+``window_wait`` is the coalescer's wait in its window on the drain thread
+(``window_deadline`` or ``window_cap`` beside it says whether the deadline
+or the batch's cap ended it), ``handoff_wait`` the drain
 thread's wait to hand a dispatched batch to the fetch thread, and
 ``fetch_wait`` the fetch's wait for the card's work of a search.
 """
@@ -237,7 +239,10 @@ class MetricsCollector:
     def record_stage(self, stage: str, ms: float) -> None:
         """Per-stage serving span (decode / queue_wait / window_wait /
         dispatch / handoff_wait / fetch / fetch_wait / encode): the
-        decomposition of server-side request latency."""
+        decomposition of server-side request latency. Beside each
+        ``window_wait`` the drain records how its window ended:
+        ``window_deadline`` (waited out) or ``window_cap`` (closed, or never
+        opened, because the batch's cap was queued)."""
         with self._lock:
             self._stages.setdefault(
                 stage, collections.deque(maxlen=self.MAX_SAMPLES)

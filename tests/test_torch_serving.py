@@ -876,10 +876,87 @@ def test_a_drain_with_max_n_queued_records_a_zero_window_wait():
     with t_profiling.profiler_session() as (prof, _):
         assert q.drain(3, 30.0, record_stage=lambda stage, ms:
                        got.append((stage, ms))) == [0, 1, 2]
-    assert got == [("window_wait", 0.0)]
+    assert got == [("window_wait", 0.0), ("window_cap", 0.0)]
     names = {e.get("name") for e in
              t_profiling.chrome_trace(prof)["traceEvents"]}
     assert not {"coalescer.window", "coalescer.wait_request"} & names
+
+
+def _timed_drain(queued, put_later, window_s, **kw):
+    """``drain(3 items or kw's cap, window_s)`` over ``queued``, with
+    ``put_later`` put by another thread 0.1 s into the window, in a
+    profiler session: (batch, [(stage, ms)], seconds, range names)."""
+    got = []
+    q = t_balancer.PriorityRequestQueue()
+    for item in queued:
+        q.put(item)
+
+    def later():
+        time.sleep(0.1)
+        for item in put_later:
+            q.put(item)
+
+    putter = threading.Thread(target=later)
+    with t_profiling.profiler_session() as (prof, _):
+        putter.start()
+        t0 = time.monotonic()
+        out = q.drain(kw.pop("max_n", 3), window_s, **kw,
+                      record_stage=lambda stage, ms: got.append((stage, ms)))
+        took = time.monotonic() - t0
+    putter.join(timeout=5)
+    assert not putter.is_alive()
+    names = {e.get("name") for e in
+             t_profiling.chrome_trace(prof)["traceEvents"]}
+    return out, got, took, names
+
+
+@pytest.mark.parametrize("queued, put_later, window_s, ended", [
+    ((40, 24), (), 30.0, None),                # the cap queued already
+    ((32,), (32,), 30.0, "window_cap"),        # a put fills it
+    ((10,), (), 0.2, "window_deadline"),       # below the cap
+])
+def test_a_weight_capped_drain_ends_its_window_at_the_cap(
+        queued, put_later, window_s, ended):
+    """A drain whose cap counts weight (64) opens no window where the
+    queued weight already reaches the cap, ends its window once another
+    thread's put brings the weight there, and waits the window out below
+    it; each drain records one ``window_wait`` and how its window ended."""
+    out, got, took, names = _timed_drain(
+        queued, put_later, window_s, max_n=64, weight_fn=lambda w: w,
+        max_weight=64)
+    assert out == list(queued + put_later)
+    stages = dict(got)
+    assert len(got) == len(stages) == 2
+    if ended is None:
+        assert got == [("window_wait", 0.0), ("window_cap", 0.0)]
+        assert took < 5.0 and "coalescer.window" not in names
+        return
+    assert "coalescer.window" in names and set(stages) == {
+        "window_wait", ended}
+    assert stages[ended] <= took * 1e3
+    if ended == "window_cap":
+        assert 0.1 <= took < 5.0
+    else:
+        assert stages["window_deadline"] >= window_s * 1e3
+
+
+@pytest.mark.parametrize("queued, put_later, window_s", [
+    ((0, 1, 2), (), 30.0),      # max_n queued already
+    ((0,), (1, 2), 30.0),       # a put brings max_n
+    ((0,), (), 0.2),            # short of max_n: waited out
+])
+def test_weight_one_items_drain_as_the_item_rule(queued, put_later,
+                                                 window_s):
+    """Items of weight 1 under a weight cap of ``max_n`` drain the same
+    batch and end the window the same way as the item rule alone."""
+    by_weight = _timed_drain(queued, put_later, window_s,
+                             weight_fn=lambda _: 1, max_weight=3)
+    by_items = _timed_drain(queued, put_later, window_s)
+    for out, got, took, names in (by_weight, by_items):
+        assert out == list(queued + put_later)
+    shape = [[(stage, ms == 0.0) for stage, ms in got]
+             for _out, got, _took, _names in (by_weight, by_items)]
+    assert shape[0] == shape[1]
 
 
 def test_engine_spans_and_stages_of_a_cpu_batch(tmp_path, rng):
