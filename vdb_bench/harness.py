@@ -9,10 +9,10 @@ first request):
 2. a ``VdbEngine`` from the configuration's engine file (the port's
    ``configs/production.yaml``), ``data_path`` in a temporary directory,
    the configuration's ``engine_overrides`` applied, and the index created
-   through ``create_index``;
-3. the index built by the port's own build calls,
-   ``IVFFlatIndex.train_from_device`` then ``build_from_device``, on the
-   whole corpus, with the engine's arena dtype;
+   through ``create_index`` with the arguments of the configuration's index
+   kind (``index.kind``: ``kinds/<kind>.py``, ``create_args``);
+3. the index built on the whole corpus by the kind's ``build``, through
+   the port's own build calls;
 4. the corpus freed, then the index installed as ``_load_epoch_into``
    installs a loaded epoch: ``warmup_lists`` at the coalescer's batch sizes
    and the cell's nprobe, the swap under the engine's lock, the coalescer;
@@ -32,6 +32,7 @@ reference (``reference/exact.py``) judges every answer of the window
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import os
 import sys
@@ -41,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from vdb_bench import check, readers, roofline, spec, trace, traffic
+from vdb_bench import check, readers, spec, trace, traffic
 from vdb_bench.corpus import Corpus, query_pool
 from vdb_bench.reference import exact
 
@@ -108,43 +109,25 @@ class Run:
         self.__dict__.update(kw)
 
 
-def build_engine(cfg: dict, data_path: str, device, extra: dict):
-    """The engine of ``cfg`` with its index created (not yet built)."""
+def build_engine(cell: spec.Cell, data_path: str, device, extra: dict):
+    """The engine of ``cell``'s configuration with its index created (not
+    yet built)."""
     from cuda_acceleratedvectordatabaseengine_tpu_torch.server.config import (
         ServerConfig,
     )
     from cuda_acceleratedvectordatabaseengine_tpu_torch.server.service \
         import VdbEngine
 
+    cfg = cell.config
     config = ServerConfig.from_yaml(
         str(spec.CHECKOUT / cfg["engine_config"])).apply_overrides(
             data_path=data_path, **cfg.get("engine_overrides", {}), **extra)
     engine = VdbEngine(config, device=device)
     ix = cfg["index"]
+    m, nbits, tier = cell.kind.create_args(cfg)
     engine.create_index(cfg["name"], ix["dim"], ix["metric"], ix["nlist"],
-                        0, 0)
+                        m, nbits, tier)
     return engine
-
-
-def build_index(engine, cfg: dict, x: torch.Tensor, dev) -> tuple:
-    """The IVF-Flat index of ``cfg`` trained and built on ``x`` by the
-    port's build calls, with the engine's arena dtype; ``(index, train_s,
-    build_s)``."""
-    from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat \
-        import IVFFlatConfig, IVFFlatIndex
-
-    st = engine.get_state(cfg["name"])
-    index = IVFFlatIndex(IVFFlatConfig(
-        dimension=st.config["dimension"], nlist=st.config["nlist"],
-        metric=st.config["metric"], dtype=st.config["dtype"]), device=dev)
-    _sync(dev)
-    t0 = time.perf_counter()
-    index.train_from_device(x)
-    _sync(dev)
-    t1 = time.perf_counter()
-    index.build_from_device(x, np.arange(x.shape[0], dtype=np.uint64))
-    _sync(dev)
-    return index, t1 - t0, time.perf_counter() - t1
 
 
 def install(engine, name: str, index, nprobe: int) -> None:
@@ -183,25 +166,9 @@ def serving_params(engine, name: str, k: int):
     return SearchParams(nprobe=int(nprobe), k=k)
 
 
-def batch_bounds(cols, pool_dev, centroids, counts, cap, cfg, elem_bytes,
-                 k, scaled, anchored) -> list[float]:
-    """K1's roofline bound (seconds) of each answered request of the
-    window, each request being one device batch; probes from the plain
-    coarse probe over the index's centroids."""
-    probes = exact.coarse_probe(pool_dev, centroids.to(pool_dev.device),
-                                cfg["index"]["nprobe"]).cpu()
-    out = []
-    for rows in cols["rows"][cols["status"] == traffic.OK]:
-        b = roofline.grouped_scan_bound(
-            probes[torch.from_numpy(rows)], counts, cap,
-            cfg["index"]["dim"], elem_bytes, k, scaled, anchored)
-        out.append(b["bound_s"])
-    return out
-
-
 class Live:
     """A built index serving in its engine, with what the judgement and
-    the readers need of its set-up."""
+    the readers need of its set-up (the index kind's ``facts`` among it)."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -217,7 +184,7 @@ def set_up(cell: spec.Cell, seed: int, dev, engine) -> Live:
     pool = query_pool(corpus, cfg["corpus"], seed).cpu().numpy()
     _sync(dev)
     gen_s = time.perf_counter() - t_fn
-    index, train_s, build_s = build_index(engine, cfg, x, dev)
+    index, train_s, build_s = cell.kind.build(engine, cfg, x, dev)
     del x
     _free(dev)
     k = int(cell.traffic["k"])
@@ -226,25 +193,19 @@ def set_up(cell: spec.Cell, seed: int, dev, engine) -> Live:
         raise ValueError(f"{name}: the engine serves nprobe {nprobe}, the "
                          f"configuration states {cfg['index']['nprobe']}")
     install(engine, name, index, nprobe)
-    params = serving_params(engine, name, k)
+    params = dataclasses.replace(serving_params(engine, name, k),
+                                 **cell.kind.search_fields(cfg))
     if params.nprobe != int(cfg["index"]["nprobe"]):
         raise ValueError(f"{name}: requests are served at nprobe "
                          f"{params.nprobe}, the configuration states "
                          f"{cfg['index']['nprobe']}")
-    arena = index.arena
-    log(f"[vdb_bench] built {name}: {index.ntotal} rows, arena "
-        f"{arena.arena.dtype}, capacity {arena.capacity}, nprobe "
-        f"{params.nprobe}, k {k}; corpus {gen_s:.2f} s, train "
-        f"{train_s:.2f} s, build {build_s:.2f} s")
+    facts = cell.kind.facts(index)
+    log(f"[vdb_bench] built {name}: {index.ntotal} rows, "
+        f"{facts.pop('summary')}, nprobe {params.nprobe}, k {k}; corpus "
+        f"{gen_s:.2f} s, train {train_s:.2f} s, build {build_s:.2f} s")
     return Live(
         name=name, engine=engine, index=index, corpus=corpus, pool=pool, params=params, k=k, gen_s=gen_s,
-        train_s=train_s, build_s=build_s,
-        centroids=index.centroids.detach().cpu(),
-        counts=arena.counts.detach().cpu(), capacity=arena.capacity,
-        elem_bytes=arena.arena.element_size(),
-        scaled=arena.arena_scale is not None,
-        anchored=arena.anchors is not None,
-        arena_bytes=index.memory_stats()["total_bytes"])
+        train_s=train_s, build_s=build_s, **facts)
 
 
 def serve(live: Live, mix: dict, seed: int, seconds: float, phase: int,
@@ -293,8 +254,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     serve the control runs of ``readings.py``."""
     dev = torch.device(device)
     with tempfile.TemporaryDirectory(prefix="vdb-bench-") as data_path:
-        engine = build_engine(cell.config, data_path, dev,
-                              extra_overrides or {})
+        engine = build_engine(cell, data_path, dev, extra_overrides or {})
         try:
             return _run(cell, seed, seconds, traced, dev, engine)
         finally:
@@ -343,12 +303,10 @@ def _run(cell, seed, seconds, traced, dev, engine) -> dict:
     del truth_i
     bounds = []
 
-    def k1_bounds():
+    def batch_bounds():
         if not bounds:
-            bounds.extend(batch_bounds(
-                cols, pool_dev, live.centroids, live.counts,
-                live.capacity, cell.config, live.elem_bytes, live.k,
-                live.scaled, live.anchored))
+            bounds.extend(cell.kind.bounds(cols, pool_dev, live, cell.config,
+                                           live.k))
         return bounds
     batches = co1["batches"] - co0["batches"]
     log(f"[vdb_bench] window {seconds} s: {len(cols['request'])} requests, "
@@ -375,7 +333,7 @@ def _run(cell, seed, seconds, traced, dev, engine) -> dict:
               cols=cols, verdict=verdict, setup_s=mark["setup_s"],
               train_s=live.train_s, build_s=live.build_s, gen_s=live.gen_s,
               arena_bytes=live.arena_bytes, window_peak=window_peak,
-              stages=stages, windows=windows, batch_bounds=k1_bounds,
+              stages=stages, windows=windows, batch_bounds=batch_bounds,
               batches=batches, on_card=on_card,
               log=lambda m: log(f"[vdb_bench] {m}"))
     metrics = {}

@@ -70,7 +70,7 @@ def k1_roofline(run) -> float | None:
     over K1's device time in the traced windows. Each search of a b64 cell
     is one request's batch; the trace cannot name a launch's request, so
     each traced search takes the mean bound of the window's answered
-    requests (``harness.batch_bounds``)."""
+    requests (``run.batch_bounds()``: the index kind's ``bounds``)."""
     k1_us = batches = k1_launches = 0
     for w in run.windows:
         for t0, t1, name, _cat in w["device"]:

@@ -53,7 +53,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     for seed in (int(v) for v in args.seeds.split(",")):
         with tempfile.TemporaryDirectory(prefix="vdb-bench-") as data_path:
-            engine = harness.build_engine(cell.config, data_path, dev, {})
+            engine = harness.build_engine(cell, data_path, dev, {})
             try:
                 live = harness.set_up(cell, seed, dev, engine)
                 harness.serve(live, cell.traffic, seed, harness.WARM_S, 0)

@@ -183,9 +183,13 @@ def test_a_new_configuration_traffic_and_metric_are_found_by_name(tmp_path):
     # reports the end-to-end metric they move)
     assert {"setup_s", "recall_at_10", "device_gb"} <= e2e
     assert "p50_ms" in e2e and "qps" not in e2e
-    assert {"batch_share.q1", "queue_wait_ms.q1", "train_s",
-            "arena_gb"} <= layer
-    assert not {"k1_roofline", "queue_wait_ms"} & layer
+    assert {"batch_share.q1", "queue_wait_ms.q1"} <= layer
+    # train_s and arena_gb list the accepted cells: a new cell reports
+    # them once it is listed there
+    assert not {"k1_roofline", "queue_wait_ms", "train_s",
+                "arena_gb"} & layer
+    # the configuration's index kind is loaded from under the same base
+    assert cell.kind.__file__ == str(base / "kinds" / "ivf_flat.py")
     read = spec.load_reader("batch_share.q1", base=base)
     assert read(Run(answer=42)) == 42
     assert spec.reader_path("queue_wait_ms.q1", base) == (
