@@ -1343,8 +1343,9 @@ STREAM_STAGES = ("streaming.coarse_probe", "streaming.stage",
                  "sorted_scan.topk", "streaming.merge")
 # ... and of one IVFPQIndex.search.
 PQ_SEARCH_STAGES = ("ivf_pq.upload", "ivf_pq.coarse_probe",
-                    "grouped_pq_scan.rows",
-                    "grouped_pq_scan.epilogue", "ivf_pq.rerank",
+                    "ivf_pq.shortlist", "grouped_pq_scan.rows",
+                    "grouped_pq_scan.epilogue", "grouped_pq_scan.select",
+                    "ivf_pq.rerank",
                     "ivf_pq.finalize")
 
 

@@ -371,15 +371,14 @@ class PackedListArena:
                 f"grow needs a larger capacity: {new_capacity} <= "
                 f"{self.capacity}"
             )
-        pad = new_capacity - self.capacity
-
         def _pad_slots(t):
+            # the new tensor, then the old rows copied in: at most the old
+            # and the new live at once (a concatenation also holds the pad)
             if t is None:
                 return None
-            shape = (t.shape[0], pad) + tuple(t.shape[2:])
-            return torch.cat(
-                [t, torch.zeros(shape, dtype=t.dtype, device=t.device)], dim=1
-            )
+            out = t.new_zeros((t.shape[0], new_capacity) + tuple(t.shape[2:]))
+            out[:, :self.capacity] = t
+            return out
 
         ids = np.full((self.nlist, new_capacity), INVALID_ID, np.uint64)
         ids[:, : self.capacity] = self.ids

@@ -11,6 +11,10 @@ batch runs on the index's device as:
   → optional exact fp32 rerank of the top ``rerank_k`` over the raw rows
   → the host maps positions to user ids.
 
+On CUDA, from the second search of a shape on, the device half is replayed
+from two captured CUDA graphs (``_SearchGraph``: the shortlist, then the
+rerank), one launch each where the eager search makes some forty.
+
 Two frames under OPQ: codes and centroids live in the rotated frame, raw
 rerank rows in the original one, so the rerank pairs the stored rows with
 the unrotated query (the JAX package's round-5 fix). Every rotation and the
@@ -52,16 +56,20 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
     FLT_MAX,
     ListHeat,
     SearchParams,
+    _balance_assignments,
+    _choose_capacity,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
     Metric,
     pairwise_distance,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import grouped_pq_scan
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_pq_scan import (
     scan_probed_codes_grouped,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.kmeans import (
     kmeans_assign,
+    kmeans_assign_topk,
     kmeans_fit,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.normalize import (
@@ -79,6 +87,10 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.pq import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
     topk_smallest,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.batching import (
+    BUCKETS,
+    bucket_size,
+)
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
     resolve_device,
 )
@@ -94,11 +106,21 @@ _SCAN_IMPLS = {
 }
 # Bound on the emit_full row transient of one probe chunk (bytes).
 _FULL_ROWS_BYTES = 2 << 30
+# Nearest lists ranked for each row of a bulk build (IVFFlatConfig's
+# assign_choices): a row past a full list falls to the next of them.
+BULK_ASSIGN_CHOICES = 4
+# Bound on the fp32 candidate-row transient of the exact rerank (bytes): a
+# deep shortlist goes through in query chunks ([B, R, D] fp32 is 805 MB at
+# B 64, R 4096, D 768).
+_RERANK_ROWS_BYTES = 256 << 20
 
 
 @dataclasses.dataclass
 class IVFPQConfig:
-    """The JAX package's ``IVFPQConfig``: same fields, same defaults."""
+    """The JAX package's ``IVFPQConfig``: same fields, same defaults, and
+    ``rerank_k``, the upstream ``IVFPQIndex``'s exact-rerank depth: the ADC
+    candidates per query that a ``use_exact_rerank`` search reranks from
+    the resident raw rows (:func:`rerank_depth`; 0: ``min(4k, 256)``)."""
 
     dimension: int = 768
     nlist: int = 1024
@@ -117,10 +139,13 @@ class IVFPQConfig:
     opq: bool = False           # learn an OPQ rotation (ops/pq.opq_fit)
     opq_iters: int = 6          # OPQ alternations (Procrustes + Lloyd)
     query_upload_dtype: str = "float32"  # only float32 is ported
+    rerank_k: int = 0           # resident exact-rerank depth; 0: min(4k, 256)
 
     def __post_init__(self):
         if isinstance(self.metric, str):
             self.metric = Metric.parse(self.metric)
+        if self.rerank_k < 0:
+            raise ValueError(f"rerank_k {self.rerank_k} < 0")
         if self.dimension % self.m:
             raise ValueError(f"dimension {self.dimension} % m {self.m} != 0")
         if self.nbits != 8:
@@ -138,6 +163,15 @@ class IVFPQConfig:
     @property
     def ks(self) -> int:
         return 1 << self.nbits
+
+
+def rerank_depth(rerank_k: int, k: int, candidates: int) -> int:
+    """ADC candidates per query that the resident exact rerank reads: the
+    index's ``rerank_k`` where set (at least ``k``), else ``min(4k, 256)``;
+    never more than ``candidates``, the slots the search's probed lists
+    offer (``nprobe`` · the scanned capacity)."""
+    depth = max(rerank_k, k) if rerank_k > 0 else min(max(4 * k, k), 256)
+    return max(min(depth, candidates), 1)
 
 
 def _gather_adc(q, centroids, codebooks, code_arena_t, counts, probe_ids,
@@ -212,35 +246,56 @@ def grouped_adc(q, code_arena_t, code_sq, counts, centroids, codebooks,
     ]
     if len(parts) == 1:
         return parts[0]
-    with trace("grouped_pq_scan.epilogue"):
+    with trace("grouped_pq_scan.select" if emit_full
+               else "grouped_pq_scan.epilogue"):
         return topk_smallest(
             torch.cat([p[0] for p in parts], 1), keep,
             idx=torch.cat([p[1] for p in parts], 1),
         )
 
 
-def _ivf_pq_search_device(
-    queries, centroids, codebooks, code_arena_t, code_sq, counts, raw_arena,
-    raw_sq, raw_scale, raw_anchors, nprobe, k, metric, rerank_k,
-    scan_impl="gather", opq_R=None, k_inner=0, scan_capacity=None,
-    heat=None,
-):
-    """The device half of a search: ``(dists [B, k], pos [B, k])``.
-    ``rerank_k`` 0 means no rerank; ``k_inner`` > 0 selects the kernel's
-    per-list shortlist mode; ``heat`` (a ``ListHeat``) counts the probes.
-    ``scan_impl`` takes every name of ``_SCAN_IMPLS`` (the JAX package's
-    ``"pallas"`` is K2, ``"auto"`` K2 on CUDA and the gather ADC
-    elsewhere) and raises on any other. Each stage runs in a named
-    ``torch.profiler`` range (``ivf_pq.coarse_probe``,
-    ``grouped_pq_scan.*`` or ``ivf_pq.gather_adc``, ``ivf_pq.rerank``)."""
-    if scan_impl not in _SCAN_IMPLS:
-        raise ValueError(f"scan_impl {scan_impl!r} is not available in this "
-                         f"package; expected one of {sorted(_SCAN_IMPLS)}")
-    scan_impl = _SCAN_IMPLS[scan_impl]
-    if scan_impl == "auto":
-        scan_impl = "grouped" if queries.is_cuda else "gather"
-    b, dim = queries.shape
-    nlist, _, cap = code_arena_t.shape
+def _exact_rerank(q0, q_sq, best_p, raw_arena, raw_sq, raw_scale,
+                  raw_anchors, k, metric):
+    """Exact fp32 distances of the shortlist ``best_p [B, R]`` (global
+    positions, -1 for none) against the raw rows, which live in the
+    ORIGINAL frame: paired with the unrotated ``q0``; the top-``k``. The
+    gathered rows go through in query chunks of at most
+    :data:`_RERANK_ROWS_BYTES` of fp32, each query's products as one."""
+    nlist, cap, dim = raw_arena.shape
+    b, keep = best_p.shape
+    rows = raw_arena.reshape(nlist * cap, dim)
+    safe_p = best_p.clamp_min(0).long()
+    step = max(1, _RERANK_ROWS_BYTES // max(keep * dim * 4, 1))
+    dots = []
+    for b0 in range(0, b, step):
+        p = safe_p[b0:b0 + step]
+        cand = rows[p].float()
+        if raw_scale is not None:
+            cand = cand * raw_scale.reshape(-1)[p][:, :, None]
+        if raw_anchors is not None:
+            cand = cand + raw_anchors[p // cap]
+        dots.append(torch.bmm(cand, q0[b0:b0 + step, :, None])[:, :, 0])
+        del cand
+    dots = dots[0] if len(dots) == 1 else torch.cat(dots)     # [B, R]
+    if metric == Metric.INNER_PRODUCT:
+        exact = -dots
+    elif metric == Metric.COSINE:
+        exact = 1.0 - dots
+    else:
+        exact = (q_sq[:, None] - 2.0 * dots
+                 + raw_sq.reshape(-1)[safe_p]).clamp_min(0.0)
+    exact = torch.where(best_p >= 0, exact, float("inf"))
+    return topk_smallest(exact, k, idx=best_p)
+
+
+def _ivf_pq_shortlist(queries, centroids, codebooks, code_arena_t, code_sq,
+                      counts, nprobe, keep, metric, scan_impl, opq_R=None,
+                      k_inner=0, scan_capacity=None):
+    """The shortlist half of a search: the coarse probe and the top-``keep``
+    ADC candidates of the probed lists; ``(q0, q_sq, probe_ids, best_d,
+    best_p)``, ``q0`` the query in the original frame (the rerank's) and
+    ``q_sq`` the squared norm of the query in the codes' frame.
+    ``scan_impl`` is ``"grouped"`` or ``"gather"``."""
     with trace("ivf_pq.coarse_probe"):
         q0 = queries.float()               # the ORIGINAL frame (rerank's)
         if metric == Metric.COSINE:
@@ -254,10 +309,6 @@ def _ivf_pq_search_device(
         coarse = pairwise_distance(q, centroids, coarse_metric)
         _, probe_ids = topk_smallest(coarse, nprobe)
         probe_ids = probe_ids.int()
-    if heat is not None:
-        heat.add_probes(probe_ids)
-
-    keep = max(k, rerank_k)
     if scan_impl == "grouped":
         best_d, best_p = grouped_adc(
             q, code_arena_t, code_sq, counts, centroids, codebooks,
@@ -268,38 +319,155 @@ def _ivf_pq_search_device(
             best_d, best_p = _gather_adc(q, centroids, codebooks,
                                          code_arena_t, counts, probe_ids,
                                          keep, metric)
+    return q0, q_sq, probe_ids, best_d, best_p
 
+
+def _ivf_pq_finish(short, raw_arena, raw_sq, raw_scale, raw_anchors, k,
+                   metric, rerank_k):
+    """The finish of a search from its :func:`_ivf_pq_shortlist`: the exact
+    rerank of the shortlist where ``rerank_k`` > 0 and raw rows are kept,
+    else its first ``k``; ``(dists [B, k], pos [B, k])``."""
+    q0, q_sq, _, best_d, best_p = short
     if rerank_k > 0 and raw_arena is not None:
-        with trace("ivf_pq.rerank"):
-            # Exact fp32 distances of the shortlist against the raw rows,
-            # which live in the ORIGINAL frame: paired with the unrotated q0.
-            if raw_arena.shape[1] != cap:
-                raise AssertionError(
-                    f"raw capacity {raw_arena.shape[1]} != code capacity "
-                    f"{cap}: positions would map to the wrong rows"
-                )
-            safe_p = best_p.clamp_min(0).long()
-            cand = raw_arena.reshape(nlist * cap, dim)[safe_p].float()
-            if raw_scale is not None:
-                cand = cand * raw_scale.reshape(-1)[safe_p][:, :, None]
-            if raw_anchors is not None:
-                cand = cand + raw_anchors[safe_p // cap]
-            dots = torch.bmm(cand, q0[:, :, None])[:, :, 0]     # [B, keep]
-            if metric == Metric.INNER_PRODUCT:
-                exact = -dots
-            elif metric == Metric.COSINE:
-                exact = 1.0 - dots
-            else:
-                exact = (q_sq[:, None] - 2.0 * dots
-                         + raw_sq.reshape(-1)[safe_p]).clamp_min(0.0)
-            exact = torch.where(best_p >= 0, exact, float("inf"))
-            return topk_smallest(exact, k, idx=best_p)
-
+        return _exact_rerank(q0, q_sq, best_p, raw_arena, raw_sq, raw_scale,
+                             raw_anchors, k, metric)
     best_d, best_p = best_d[:, :k], best_p[:, :k]
     if metric == Metric.COSINE:
         # ADC ran in L2 over unit vectors: ‖q − x‖² = 2(1 − cos) → halve
         best_d = torch.where(torch.isfinite(best_d), best_d * 0.5, best_d)
     return best_d, best_p
+
+
+def _resolve_scan_impl(scan_impl, is_cuda):
+    if scan_impl not in _SCAN_IMPLS:
+        raise ValueError(f"scan_impl {scan_impl!r} is not available in this "
+                         f"package; expected one of {sorted(_SCAN_IMPLS)}")
+    scan_impl = _SCAN_IMPLS[scan_impl]
+    if scan_impl == "auto":
+        scan_impl = "grouped" if is_cuda else "gather"
+    return scan_impl
+
+
+def _check_raw_capacity(raw_arena, code_arena_t, rerank_k):
+    if rerank_k > 0 and raw_arena is not None and (
+            raw_arena.shape[1] != code_arena_t.shape[2]):
+        raise AssertionError(
+            f"raw capacity {raw_arena.shape[1]} != code capacity "
+            f"{code_arena_t.shape[2]}: positions would map to the wrong rows"
+        )
+
+
+def _rerank_marks(rerank_stats, best_p, reranks):
+    """Fill ``rerank_stats`` (where given and the rerank runs) with the
+    shortlist's real candidates summed over the queries (``rows``, a
+    device tensor) and, on CUDA, two timing events (``events``), returned
+    for the caller to record around the rerank."""
+    if rerank_stats is None or not reranks:
+        return None
+    rerank_stats["rows"] = (best_p >= 0).sum()
+    if not best_p.is_cuda:
+        return None
+    events = rerank_stats["events"] = (
+        torch.cuda.Event(enable_timing=True),
+        torch.cuda.Event(enable_timing=True))
+    return events
+
+
+def _ivf_pq_search_device(
+    queries, centroids, codebooks, code_arena_t, code_sq, counts, raw_arena,
+    raw_sq, raw_scale, raw_anchors, nprobe, k, metric, rerank_k,
+    scan_impl="gather", opq_R=None, k_inner=0, scan_capacity=None,
+    heat=None, rerank_stats=None,
+):
+    """The device half of a search: ``(dists [B, k], pos [B, k])``.
+    ``rerank_k`` 0 means no rerank, else the shortlist depth (at most the
+    probed slots: :func:`rerank_depth`); ``k_inner`` > 0 selects the
+    kernel's per-list shortlist mode; ``heat`` (a ``ListHeat``) counts the
+    probes. ``rerank_stats`` (a dict), where the rerank runs, receives
+    ``rows``, the device tensor of the shortlist's real candidates summed
+    over the queries, and on CUDA ``events``, two timing events recorded
+    on the current stream around the rerank. ``scan_impl`` takes every
+    name of ``_SCAN_IMPLS`` (the JAX package's ``"pallas"`` is K2,
+    ``"auto"`` K2 on CUDA and the gather ADC elsewhere) and raises on any
+    other. Each stage runs in a named ``torch.profiler`` range
+    (``ivf_pq.coarse_probe``, ``grouped_pq_scan.*`` or
+    ``ivf_pq.gather_adc``, ``ivf_pq.rerank``)."""
+    scan_impl = _resolve_scan_impl(scan_impl, queries.is_cuda)
+    _check_raw_capacity(raw_arena, code_arena_t, rerank_k)
+    short = _ivf_pq_shortlist(
+        queries, centroids, codebooks, code_arena_t, code_sq, counts, nprobe,
+        max(k, rerank_k), metric, scan_impl, opq_R, k_inner, scan_capacity)
+    if heat is not None:
+        heat.add_probes(short[2])
+    reranks = rerank_k > 0 and raw_arena is not None
+    if not reranks:
+        return _ivf_pq_finish(short, raw_arena, raw_sq, raw_scale,
+                              raw_anchors, k, metric, rerank_k)
+    events = _rerank_marks(rerank_stats, short[4], reranks)
+    with trace("ivf_pq.rerank"):
+        if events is not None:
+            events[0].record()
+        out = _ivf_pq_finish(short, raw_arena, raw_sq, raw_scale,
+                             raw_anchors, k, metric, rerank_k)
+        if events is not None:
+            events[1].record()
+        return out
+
+
+class _SearchGraph:
+    """The device half of one search shape as two CUDA graphs, captured
+    once and replayed on the current stream: the shortlist
+    (:func:`_ivf_pq_shortlist`: coarse probe, K2, top-R) and its finish
+    (:func:`_ivf_pq_finish`: the exact rerank), one launch each in place
+    of some forty launches and the host work between them. The queries
+    are copied into a static buffer of ``rows`` queries, a batch bucket
+    (``utils/batching.BUCKETS``): the rows past a batch hold earlier
+    queries, and their answers are dropped. The answers are copied out of
+    the static outputs, which the next replay overwrites in the stream's
+    order. Nothing in the captured work reads the host or waits for the
+    card."""
+
+    def __init__(self, rows, dim, device, shortlist, finish):
+        self.q = torch.zeros((rows, dim), dtype=torch.float32, device=device)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):  # first use outside the capture
+            finish(shortlist(self.q))
+        launches0 = grouped_pq_scan.LAUNCHES
+        self.shortlist = torch.cuda.CUDAGraph()
+        self.finish = torch.cuda.CUDAGraph()
+        # thread_local: the finalize thread copies earlier answers back
+        # while this thread captures
+        with torch.cuda.graph(self.shortlist, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.short = shortlist(self.q)
+        with torch.cuda.graph(self.finish, pool=self.shortlist.pool(),
+                              stream=stream,
+                              capture_error_mode="thread_local"):
+            self.out = finish(self.short)
+        # K2 launches a replay makes (grouped_pq_scan.LAUNCHES counts them)
+        self.launches = grouped_pq_scan.LAUNCHES - launches0
+
+    def run(self, q, heat, rerank_stats, reranks):
+        """Replay for the queries ``q [B, D]`` (B ≤ the buffer's rows):
+        ``(dists [B, k], pos [B, k])``, new tensors; ``heat`` and
+        ``rerank_stats`` as :func:`_ivf_pq_search_device` takes them."""
+        b = q.shape[0]
+        with trace("ivf_pq.shortlist"):
+            self.q[:b].copy_(q)
+            self.shortlist.replay()
+            grouped_pq_scan.LAUNCHES += self.launches
+            best_p = self.short[4][:b]
+            if heat is not None:
+                heat.add_probes(self.short[2][:b])
+        events = _rerank_marks(rerank_stats, best_p, reranks)
+        with trace("ivf_pq.rerank" if reranks else "ivf_pq.finish"):
+            if events is not None:
+                events[0].record()
+            self.finish.replay()
+            if events is not None:
+                events[1].record()
+            return self.out[0][:b].clone(), self.out[1][:b].clone()
 
 
 class IVFPQIndex:
@@ -310,6 +478,14 @@ class IVFPQIndex:
     # set by storage.load_ivf_pq_capacity: the serving engine routes adds
     # and removals of such an index to the next epoch build
     read_only = False
+    # rows build_from_device encodes and writes at a time (its fp32 slice
+    # and the encoder's transients: about 3 GB at D 768)
+    BUILD_SLICE_ROWS = 262_144
+    # A resident search on CUDA replays its device half from CUDA graphs
+    # (_SearchGraph), at most GRAPH_SHAPES shapes kept, the least recently
+    # used dropped first.
+    graph_searches = True
+    GRAPH_SHAPES = 8
 
     def __init__(self, config: IVFPQConfig,
                  device: torch.device | str | None = "cuda"):
@@ -344,6 +520,10 @@ class IVFPQIndex:
         self._heat = ListHeat(config.nlist, self.device)
         # (counts tensor, occupied-prefix hint): one max() per counts version
         self._scan_cap_cache = (None, None)
+        # search shapes captured as CUDA graphs (key → _SearchGraph, oldest
+        # use first) and those searched once, eagerly (see _device_search)
+        self._graphs: dict = {}
+        self._graph_seen: set = set()
         # Serializes mutations against each other and against the
         # snapshot a search takes (each plans slots from current counts).
         self._mutate_lock = threading.Lock()
@@ -535,6 +715,51 @@ class IVFPQIndex:
             return
         self._add_device(x_dev.to(self.device).float(), ids)
 
+    def build_from_device(
+        self, x_dev: torch.Tensor, ids: np.ndarray | None = None
+    ) -> None:
+        """One-shot bulk build of an empty trained index from a
+        device-resident corpus, placed as ``IVFFlatIndex.build_from_device``
+        places its rows: each row ranked against its
+        :data:`BULK_ASSIGN_CHOICES` nearest lists, the capacity clamped
+        near the p99 list size and at least 1.5× the mean
+        (``_choose_capacity``), a row past a full list placed in its next
+        nearest (``_balance_assignments``). The arenas are sized once, then
+        every :data:`BUILD_SLICE_ROWS` rows are encoded and written as one
+        add, so a bf16 corpus is never widened to fp32 whole (10M × 768
+        would be 31 GB)."""
+        if not self.trained:
+            raise RuntimeError("index must be trained before build")
+        if self.ntotal:
+            raise ValueError("build_from_device builds an empty index; "
+                             "add_from_device adds to a filled one")
+        self._guard_host_rerank_mutation()
+        n = x_dev.shape[0]
+        if n == 0:
+            return
+        ids = (np.arange(n, dtype=np.uint64) if ids is None
+               else np.asarray(ids))
+        step = self.BUILD_SLICE_ROWS
+
+        def rows(s0):
+            x = x_dev[s0:s0 + step].to(self.device).float()
+            return l2_normalize(x) if self.metric == Metric.COSINE else x
+
+        nlist = self.config.nlist
+        choices = torch.cat([
+            kmeans_assign_topk(self._rot(rows(s0)), self.centroids,
+                               BULK_ASSIGN_CHOICES, self._assign_metric())
+            for s0 in range(0, n, step)]).cpu().numpy()
+        cap = _choose_capacity(
+            np.bincount(choices[:, 0], minlength=nlist),
+            PackedListArena.SLOT_ALIGN)
+        assignments = _balance_assignments(choices, cap, nlist)
+        self.reserve(cap)
+        for s0 in range(0, n, step):
+            x = rows(s0)
+            self._ingest(self._rot(x), ids[s0:s0 + step],
+                         assignments[s0:s0 + step], vec_orig=x)
+
     def _add_device(self, x: torch.Tensor, ids) -> None:
         n = x.shape[0]
         if ids is None:
@@ -596,14 +821,13 @@ class IVFPQIndex:
     def _grow(self, new_cap: int) -> None:
         """New, larger code and raw arenas (same capacity for both, or
         positions would map to the wrong ids); old handles stay valid."""
-        pad = new_cap - self.capacity
-        t = self.code_arena_t
-        self.code_arena_t = torch.cat(
-            [t, torch.zeros(t.shape[:2] + (pad,), dtype=t.dtype,
-                            device=t.device)], dim=2)
-        self.code_sq = torch.cat(
-            [self.code_sq, torch.zeros((t.shape[0], pad), device=t.device)],
-            dim=1)
+        cap = self.capacity
+        codes = self.code_arena_t.new_zeros(
+            self.code_arena_t.shape[:2] + (new_cap,))
+        codes[:, :, :cap] = self.code_arena_t
+        code_sq = self.code_sq.new_zeros((self.code_sq.shape[0], new_cap))
+        code_sq[:, :cap] = self.code_sq
+        self.code_arena_t, self.code_sq = codes, code_sq
         if self.raw is None:
             ids = np.full((self.config.nlist, new_cap), INVALID_ID, np.uint64)
             ids[:, : self._ids.shape[1]] = self._ids
@@ -662,17 +886,31 @@ class IVFPQIndex:
     ) -> tuple[np.ndarray, np.ndarray]:
         """Batched ANN search: ``(distances [B, k] fp32, ids [B, k]
         uint64)`` ascending, FLT_MAX / UINT64_MAX for underfull rows.
-        ``use_exact_rerank`` reranks the top ``min(4k, 256)`` ADC
-        candidates exactly when raw rows are kept."""
+        ``use_exact_rerank`` reranks the top ``rerank_depth`` ADC
+        candidates exactly when raw rows are kept (``config.rerank_k``,
+        else ``min(4k, 256)``)."""
         return self._search_finalize(*self._search_dispatch(queries, params))
 
     def search_async(
         self, queries: np.ndarray, params: SearchParams | None = None
     ):
         """Enqueue the device search now; the returned thunk waits for it
-        and maps positions to ids on the host."""
+        and maps positions to ids on the host. Once it ran, the thunk's
+        ``waits`` holds the ms it waited for the card (``fetch_wait``) and,
+        where the resident exact rerank ran, the rerank's device ms
+        (``rerank``), both 0.0 on the CPU; its ``counts`` holds the
+        rerank's mean candidates a query (``rerank_rows``), for its caller
+        to record."""
         state = self._search_dispatch(queries, params)
-        return lambda: self._search_finalize(*state)
+        waits: dict = {}
+        counts: dict = {}
+
+        def finalize():
+            return self._search_finalize(*state, waits=waits, counts=counts)
+
+        finalize.waits = waits
+        finalize.counts = counts
+        return finalize
 
     def _search_dispatch(self, queries, params):
         params = params or SearchParams()
@@ -690,9 +928,6 @@ class IVFPQIndex:
         if nprobe <= 0:   # measured-coverage calibration, as in IVF-Flat
             nprobe = self.calibrated_nprobe or SearchParams().nprobe
         nprobe = min(nprobe, self.config.nlist)
-        rerank_k = 0
-        if params.use_exact_rerank and self.raw is not None:
-            rerank_k = min(max(4 * params.k, params.k), 256)
         # Without raw rows and with a host store attached, the exact rerank
         # runs on the host: the device returns a top-k_dev ADC shortlist.
         host_rr = (params.use_exact_rerank and self.raw is None
@@ -708,31 +943,118 @@ class IVFPQIndex:
         with self._mutate_lock:
             raw = self.raw
             ids_table = self.ids
-            d, pos = _ivf_pq_search_device(
-                q_dev, self.centroids, self.codebooks, self.code_arena_t,
-                self.code_sq, self.counts,
-                raw.arena if raw is not None else None,
-                raw.arena_sq if raw is not None else None,
-                raw.arena_scale if raw is not None else None,
-                raw.anchors if raw is not None else None,
-                nprobe, k_dev, self.metric, rerank_k, self.config.scan_impl,
-                opq_R=self.opq_R,
-                k_inner=(self.host_rerank_k_inner if host_rr else 0),
-                scan_capacity=self._scan_capacity_hint(), heat=self._heat,
-            )
-        return d, pos, ids_table, host_rr, queries, params
+            scan_cap = self._scan_capacity_hint()
+            rerank_k = 0
+            if params.use_exact_rerank and raw is not None:
+                rerank_k = rerank_depth(self.config.rerank_k, params.k,
+                                        nprobe * (scan_cap or self.capacity))
+            stats = {} if rerank_k else None
+            d, pos = self._device_search(
+                q_dev, raw, nprobe, k_dev, rerank_k,
+                self.host_rerank_k_inner if host_rr else 0, scan_cap, stats)
+            done = None
+            if d.is_cuda:   # after the search's last launch
+                if stats:
+                    # the row count comes back in the stream's order, so
+                    # the finalize reads it after its one wait
+                    rows = torch.empty((), dtype=torch.int64, pin_memory=True)
+                    stats["rows"] = rows.copy_(stats["rows"],
+                                               non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(d.device))
+        return d, pos, ids_table, host_rr, queries, params, done, stats
+
+    def _device_search(self, q, raw, nprobe, k, rerank_k, k_inner, scan_cap,
+                       stats):
+        """The device half of a search (:func:`_ivf_pq_search_device`),
+        replayed from a :class:`_SearchGraph` where :meth:`_search_graph`
+        gives one."""
+        raws = ((raw.arena, raw.arena_sq, raw.arena_scale, raw.anchors)
+                if raw is not None else (None,) * 4)
+        scan_impl = _resolve_scan_impl(self.config.scan_impl, q.is_cuda)
+        tensors = (self.centroids, self.codebooks, self.code_arena_t,
+                   self.code_sq, self.counts)
+        _check_raw_capacity(raws[0], self.code_arena_t, rerank_k)
+        graph = None
+        if self._graphable(q) and not k_inner:
+            graph = self._search_graph(q, tensors, raws, nprobe, k, rerank_k,
+                                       scan_impl, scan_cap)
+        if graph is None:
+            return _ivf_pq_search_device(
+                q, *tensors, *raws, nprobe, k, self.metric, rerank_k,
+                scan_impl, opq_R=self.opq_R, k_inner=k_inner,
+                scan_capacity=scan_cap, heat=self._heat, rerank_stats=stats)
+        return graph.run(q, self._heat, stats,
+                         rerank_k > 0 and raw is not None)
+
+    def _graphable(self, q) -> bool:
+        return (self.graph_searches and q.is_cuda
+                and q.shape[0] <= BUCKETS[-1])
+
+    def _search_graph(self, q, tensors, raws, nprobe, k, rerank_k, scan_impl,
+                      scan_cap):
+        """The :class:`_SearchGraph` of this search's shape (its batch
+        bucket, depths, scan width and the index's tensors, by address),
+        or None the first time the shape is searched, which runs eagerly;
+        the second captures it. A mutation that publishes new tensors
+        makes a new shape."""
+        rows = bucket_size(q.shape[0])
+        key = (rows, nprobe, k, rerank_k, scan_cap, scan_impl) + tuple(
+            None if t is None else (t.data_ptr(), tuple(t.shape), t.dtype)
+            for t in (*tensors, *raws, self.opq_R))
+        graph = self._graphs.pop(key, None)
+        if graph is None:
+            if key not in self._graph_seen:
+                if len(self._graph_seen) >= 8 * self.GRAPH_SHAPES:
+                    self._graph_seen.clear()
+                self._graph_seen.add(key)
+                return None
+            self._graph_seen.discard(key)
+            opq_R, metric = self.opq_R, self.metric
+            graph = _SearchGraph(
+                rows, q.shape[1], q.device,
+                lambda qs: _ivf_pq_shortlist(
+                    qs, *tensors, nprobe, max(k, rerank_k), metric,
+                    scan_impl, opq_R, 0, scan_cap),
+                lambda short: _ivf_pq_finish(short, *raws, k, metric,
+                                             rerank_k))
+            while len(self._graphs) >= self.GRAPH_SHAPES:
+                self._graphs.pop(next(iter(self._graphs)))
+        self._graphs[key] = graph          # the newest use last
+        return graph
 
     def _search_finalize(self, d, pos, ids_table, host_rr, queries,
-                         params):
+                         params, done=None, stats=None, waits=None,
+                         counts=None):
         """Wait for the device result, map positions to ids, and with a
-        host store attached run the exact rerank on the host."""
+        host store attached run the exact rerank on the host. ``waits``
+        and ``counts`` (dicts), where given, receive the wait for the card
+        (``fetch_wait``) and, where the resident rerank ran, its device ms
+        (``rerank``) and mean candidates a query (``rerank_rows``)."""
+        waits = {} if waits is None else waits
         with trace("ivf_pq.finalize"):
-            d = d.cpu().numpy().copy()
-            pos = pos.cpu().numpy()
-            flat_ids = ids_table.reshape(-1)
-            out_ids = flat_ids[np.clip(pos, 0, flat_ids.size - 1)]
-            out_ids[pos < 0] = INVALID_ID
-            d[pos < 0] = FLT_MAX
+            # the wait for this search's device work, apart from the copies
+            # after it, which queue behind whatever the stream took on since
+            waits["fetch_wait"] = 0.0
+            if done is not None:
+                with trace("ivf_pq.fetch_wait", stage="fetch_wait",
+                           record=waits.__setitem__):
+                    done.synchronize()
+            with trace("ivf_pq.copy"):
+                d = d.cpu().numpy().copy()
+                pos = pos.cpu().numpy()
+                if stats:
+                    # the rerank's work is done: its events and its row
+                    # count (on the host) read without a wait
+                    ev = stats.get("events")
+                    waits["rerank"] = ev[0].elapsed_time(ev[1]) if ev else 0.0
+                    if counts is not None:
+                        counts["rerank_rows"] = int(stats["rows"]) / d.shape[0]
+            with trace("ivf_pq.id_map"):
+                flat_ids = ids_table.reshape(-1)
+                out_ids = flat_ids[np.clip(pos, 0, flat_ids.size - 1)]
+                out_ids[pos < 0] = INVALID_ID
+                d[pos < 0] = FLT_MAX
         if not host_rr:
             return d, out_ids
         with trace("ivf_pq.host_rerank"):

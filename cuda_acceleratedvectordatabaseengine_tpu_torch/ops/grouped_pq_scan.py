@@ -38,7 +38,9 @@ one to :data:`LAUNCHES` per launch of the scan kernel;
 :func:`scan_probed_codes_grouped_reference` always takes the plain version.
 The row step and the epilogue run in the ``torch.profiler`` ranges
 ``grouped_pq_scan.rows`` (table kernel and scan kernel) and
-``grouped_pq_scan.epilogue``.
+``grouped_pq_scan.epilogue``; under ``emit_full`` the epilogue is the
+shortlist's selection (one top-k over the full rows, a rerank's whole
+shortlist) and runs in ``grouped_pq_scan.select``.
 """
 
 from __future__ import annotations
@@ -338,7 +340,8 @@ def _scan_codes_grouped(rows_fn, queries, codes_t, code_sq, counts,
             centroids.float().contiguous(), codebooks.float().contiguous(),
             probe, ki, metric, cap_s, emit_full=emit_full,
         )
-    with trace("grouped_pq_scan.epilogue"):
+    with trace("grouped_pq_scan.select" if emit_full
+               else "grouped_pq_scan.epilogue"):
         return _pair_epilogue(out_d, out_s, probe, k, nlist, global_cap,
                               slot_stride, slot_offset)
 

@@ -53,6 +53,7 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_pq import (
     grouped_adc,
+    rerank_depth,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
     Metric,
@@ -806,16 +807,19 @@ class ShardedIVFPQIndex(_ShardedServingSurface):
         nprobe = self._nprobe(params)
         q0 = _prep_queries(queries, self.mesh.leader, self.config.dimension)
         with self._publish_lock, self._base_lock():
+            scan_cap = _stripe_scan_capacity(
+                self._counts_max, self.global_cap, self.n_shards)
             rerank_k = 0
             if params.use_exact_rerank and self.has_raw:
-                rerank_k = min(max(4 * params.k, params.k), 256)
+                # each shard reranks its own shortlist from its stripe
+                rerank_k = rerank_depth(
+                    self.config.rerank_k, params.k,
+                    nprobe * (scan_cap or self.global_cap // self.n_shards))
             d_dev, pos_dev = _sharded_pq_search(
                 self.mesh, q0, self.opq_R, self.centroids, self.codebooks,
                 self.codes_t_s, self.code_sq_s, self.counts, self.raw_s,
                 self.raw_scale_s, self.raw_anchors_s, nprobe, params.k,
-                self.metric, self.global_cap, rerank_k,
-                _stripe_scan_capacity(self._counts_max, self.global_cap,
-                                      self.n_shards),
+                self.metric, self.global_cap, rerank_k, scan_cap,
             )
             ids_table = self._ids_table
         return d_dev, pos_dev, ids_table

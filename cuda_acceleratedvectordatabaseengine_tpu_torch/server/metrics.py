@@ -9,12 +9,16 @@ names and sample lines (``_bucket`` / ``_count`` / ``_sum``, ``_total``,
 ``_created``). The stage percentiles (``record_stage``:
 ``decode``, ``queue_wait``, ``window_wait``, ``window_deadline``,
 ``window_cap``, ``dispatch``, ``handoff_wait``, ``fetch``, ``fetch_wait``,
-``encode``) are the serving layer's per-layer metrics. Of these,
+``rerank``, ``encode``) are the serving layer's per-layer metrics. Of these,
 ``window_wait`` is the coalescer's wait in its window on the drain thread
 (``window_deadline`` or ``window_cap`` beside it says whether the deadline
 or the batch's cap ended it), ``handoff_wait`` the drain
-thread's wait to hand a dispatched batch to the fetch thread, and
-``fetch_wait`` the fetch's wait for the card's work of a search.
+thread's wait to hand a dispatched batch to the fetch thread,
+``fetch_wait`` the fetch's wait for the card's work of a search, and
+``rerank`` the device ms of an IVF-PQ search's exact rerank. Beside them
+sit counts a search reports (:data:`COUNT_STAGES`, one sample a search:
+``rerank_rows``, the rerank's candidates a query), kept in the same
+windows and exported as ``vdb_stage_count``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import time
 import numpy as np
 
 CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
+# stage windows that hold counts, not milliseconds
+COUNT_STAGES = ("rerank_rows",)
 
 
 def _fmt(value: float) -> str:
@@ -238,8 +244,9 @@ class MetricsCollector:
 
     def record_stage(self, stage: str, ms: float) -> None:
         """Per-stage serving span (decode / queue_wait / window_wait /
-        dispatch / handoff_wait / fetch / fetch_wait / encode): the
-        decomposition of server-side request latency. Beside each
+        dispatch / handoff_wait / fetch / fetch_wait / rerank / encode):
+        the decomposition of server-side request latency; or, for a name
+        of :data:`COUNT_STAGES`, a count one search reported. Beside each
         ``window_wait`` the drain records how its window ended:
         ``window_deadline`` (waited out) or ``window_cap`` (closed, or never
         opened, because the batch's cap was queued)."""
@@ -326,21 +333,24 @@ class MetricsCollector:
         for fam in self._families:
             lines += fam.render()
         stages = self.get_stage_percentiles()
-        if stages:
-            lines += [
-                "# TYPE vdb_stage_milliseconds gauge",
-                "# HELP vdb_stage_milliseconds Serving stage latency "
-                "decomposition",
-            ]
-        for stage, q in sorted(stages.items()):
-            for stat in ("p50", "p95", "p99", "max", "mean"):
+        for family, help_, counts in (
+                ("vdb_stage_milliseconds",
+                 "Serving stage latency decomposition", False),
+                ("vdb_stage_count", "Counts a search reports", True)):
+            chosen = sorted((k, q) for k, q in stages.items()
+                            if (k in COUNT_STAGES) == counts)
+            if chosen:
+                lines += [f"# TYPE {family} gauge",
+                          f"# HELP {family} {help_}"]
+            for stage, q in chosen:
+                for stat in ("p50", "p95", "p99", "max", "mean"):
+                    lines.append(
+                        f'{family}{{stage="{stage}",'
+                        f'stat="{stat}"}} {q[stat]:.4f}'
+                    )
                 lines.append(
-                    f'vdb_stage_milliseconds{{stage="{stage}",'
-                    f'stat="{stat}"}} {q[stat]:.4f}'
+                    f'vdb_stage_samples{{stage="{stage}"}} {q["count"]}'
                 )
-            lines.append(
-                f'vdb_stage_samples{{stage="{stage}"}} {q["count"]}'
-            )
         return ("\n".join(lines) + "\n").encode()
 
     def start_exposition(self, port: int, health_fn=None) -> int:

@@ -302,7 +302,14 @@ class VdbEngine:
     # ------------------------------------------------------------------ #
 
     def create_index(self, name, dimension, metric, nlist, m, nbits,
-                     tier: str = "") -> None:
+                     tier: str = "", rerank_k: int = 0) -> None:
+        """Register an index and write its creation parameters.
+        ``rerank_k`` (IVF-PQ only) is the exact-rerank depth of an index
+        the engine builds itself (``IVFPQConfig.rerank_k``); 0 keeps the
+        default depth and writes nothing."""
+        if rerank_k < 0 or (rerank_k and not m):
+            raise ValueError(f"rerank_k {rerank_k}: a depth >= 0, and an "
+                             f"IVF-PQ parameter (m > 0)")
         with self.lock:
             if name in self.indices:
                 raise KeyError(f"index {name!r} already exists")
@@ -315,6 +322,8 @@ class VdbEngine:
                 "dtype": self.config.arena_dtype,
                 "tier": tier or "resident",
             }
+            if rerank_k:
+                cfg["rerank_k"] = int(rerank_k)
             d = os.path.join(self.indices_dir, name)
             os.makedirs(d, exist_ok=True)
             with open(os.path.join(d, "config.json"), "w") as f:
@@ -330,6 +339,7 @@ class VdbEngine:
                 # Capacity tier: only codes live on the device (~m bytes a
                 # row); the exact rerank reads the epoch's host row store.
                 keep_raw=cfg.get("tier") != "pq_capacity",
+                rerank_k=int(cfg.get("rerank_k", 0)),
             ), device=self.device)
         return IVFFlatIndex(IVFFlatConfig(
             dimension=cfg["dimension"], nlist=cfg["nlist"],
@@ -897,10 +907,12 @@ class VdbEngine:
                 results: list = [None] * len(items)
                 for idxs, fin in thunks:
                     d, out_ids = fin()
-                    # the search's own waits for the card, where it times
-                    # them (IVFFlatIndex: ``fetch_wait``)
-                    for stage, ms in getattr(fin, "waits", {}).items():
-                        self.metrics.record_stage(stage, ms)
+                    # the search's own waits for the card and device
+                    # times, where it takes them (``fetch_wait``; IVF-PQ's
+                    # ``rerank``), and its counts (``rerank_rows``)
+                    for stage, v in {**getattr(fin, "waits", {}),
+                                     **getattr(fin, "counts", {})}.items():
+                        self.metrics.record_stage(stage, v)
                     off = 0
                     for i in idxs:
                         m = items[i][0].shape[0]

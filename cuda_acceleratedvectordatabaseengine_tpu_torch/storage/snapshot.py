@@ -29,6 +29,9 @@ Port-only repairs, as manifest ``extra`` keys the JAX loader ignores:
   rerank-frame change but no marker; an unmarked snapshot therefore loads
   as original frame. OPQ ``keep_raw`` snapshots written before that change
   hold rotated rows and cannot be told apart; any other marker is refused.
+- ``"rerank_k": R``: an IVF-PQ index's exact-rerank depth
+  (``IVFPQConfig.rerank_k``), written where it is set; a snapshot without
+  the key loads with 0, the default depth.
 """
 
 from __future__ import annotations
@@ -298,6 +301,8 @@ def save_ivf_pq(path: str, index: IVFPQIndex, host_rows=None,
         extra["raw_frame"] = "original"
     if index.calibrated_nprobe:
         extra["calibrated_nprobe"] = int(index.calibrated_nprobe)
+    if cfg.rerank_k:
+        extra["rerank_k"] = int(cfg.rerank_k)
     IndexManifest(
         kind="ivf_pq",
         dimension=cfg.dimension,
@@ -329,6 +334,7 @@ def load_ivf_pq(path: str,
         dimension=man.dimension, nlist=man.nlist, m=man.pq_m,
         nbits=man.pq_nbits, metric=man.metric, keep_raw=keep_raw,
         raw_dtype=man.dtype, opq=os.path.isfile(rot_path),
+        rerank_k=int(man.extra.get("rerank_k", 0)),
     )
     idx = IVFPQIndex(cfg, device=device)
     dev = idx.device
