@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import torch
@@ -61,6 +62,10 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
     trace,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.transfer import (
+    HostCopy,
+    upload,
 )
 
 FLT_MAX = np.float32(np.finfo(np.float32).max)
@@ -612,9 +617,14 @@ class IVFFlatIndex:
         self, queries: np.ndarray, params: SearchParams | None = None
     ):
         """Enqueue the device search now and return a thunk that waits for
-        it and post-processes the result on the host. Once it ran, the
-        thunk's ``waits`` holds the ms it waited for the card, by stage
-        (``fetch_wait``; 0.0 on the CPU), for its caller to record."""
+        it and post-processes the result on the host. Nothing here waits
+        for the card: the queries go up through pinned memory, the pack
+        reads nothing back, and the answer's copies are enqueued right
+        after the search (``utils/transfer``). The thunk's ``waits`` holds,
+        by stage, the host ms of this enqueue (``enqueue``) and, once the
+        thunk ran, the ms it waited for the card (``fetch_wait``; 0.0 on
+        the CPU), for its caller to record."""
+        t_enqueue = time.perf_counter()
         params = params or SearchParams()
         if not self.trained:
             raise RuntimeError("index must be trained before search()")
@@ -635,7 +645,7 @@ class IVFFlatIndex:
         k = params.k
         k_dev = 2 * k if self.config.multi_assign_eps > 0 else k
         with trace("ivf_flat.upload"):
-            q_dev = self._to_device(queries)
+            q_dev = upload(queries, self.device)
         # Snapshot AND enqueue under the mutation lock (see the class
         # docstring); the wait and the id map in finalize run outside it.
         with self._mutate_lock:
@@ -655,20 +665,20 @@ class IVFFlatIndex:
             if d_dev.is_cuda:   # after the search's last launch
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(d_dev.device))
-        waits = {"fetch_wait": 0.0}
+            host = HostCopy(d_dev, pos_dev)
+        waits = {"fetch_wait": 0.0,
+                 "enqueue": (time.perf_counter() - t_enqueue) * 1e3}
 
         def finalize():
             with trace("ivf_flat.finalize"):
                 # the wait for this search's device work, apart from the
-                # copies after it, which queue behind whatever the stream
-                # took on since
+                # copies enqueued after it
                 if done is not None:
                     with trace("ivf_flat.fetch_wait", stage="fetch_wait",
                                record=waits.__setitem__):
                         done.synchronize()
                 with trace("ivf_flat.copy"):
-                    d = d_dev.cpu().numpy().copy()
-                    pos = pos_dev.cpu().numpy()
+                    d, pos = host.numpy()
                 with trace("ivf_flat.id_map"):
                     ids = arena.positions_to_ids(pos)
                     d[pos < 0] = FLT_MAX

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import torch
@@ -96,6 +97,10 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
     trace,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.transfer import (
+    HostCopy,
+    upload,
 )
 
 # scan_impl names this package runs; "xla" and "pallas" are the JAX
@@ -895,14 +900,17 @@ class IVFPQIndex:
         self, queries: np.ndarray, params: SearchParams | None = None
     ):
         """Enqueue the device search now; the returned thunk waits for it
-        and maps positions to ids on the host. Once it ran, the thunk's
-        ``waits`` holds the ms it waited for the card (``fetch_wait``) and,
-        where the resident exact rerank ran, the rerank's device ms
-        (``rerank``), both 0.0 on the CPU; its ``counts`` holds the
-        rerank's mean candidates a query (``rerank_rows``), for its caller
-        to record."""
+        and maps positions to ids on the host. Nothing here waits for the
+        card (the copies of ``utils/transfer``), except the search that
+        captures a shape's graphs. The thunk's ``waits`` holds the
+        host ms of this enqueue (``enqueue``) and, once the thunk ran, the
+        ms it waited for the card (``fetch_wait``) and, where the resident
+        exact rerank ran, the rerank's device ms (``rerank``), both 0.0 on
+        the CPU; its ``counts`` holds the rerank's mean candidates a query
+        (``rerank_rows``), for its caller to record."""
+        t_enqueue = time.perf_counter()
         state = self._search_dispatch(queries, params)
-        waits: dict = {}
+        waits = {"enqueue": (time.perf_counter() - t_enqueue) * 1e3}
         counts: dict = {}
 
         def finalize():
@@ -937,7 +945,7 @@ class IVFPQIndex:
             k_dev = min(max(self.host_rerank_k, params.k),
                         self.capacity * nprobe)
         with trace("ivf_pq.upload"):
-            q_dev = self._to_device(queries)
+            q_dev = upload(queries, self.device)
         # One consistent snapshot, and the device work enqueued under the
         # lock (a removal moves rows in place; see the module docstring).
         with self._mutate_lock:
@@ -962,7 +970,8 @@ class IVFPQIndex:
                                                non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(d.device))
-        return d, pos, ids_table, host_rr, queries, params, done, stats
+            host = HostCopy(d, pos)
+        return host, ids_table, host_rr, queries, params, done, stats
 
     def _device_search(self, q, raw, nprobe, k, rerank_k, k_inner, scan_cap,
                        stats):
@@ -1023,26 +1032,26 @@ class IVFPQIndex:
         self._graphs[key] = graph          # the newest use last
         return graph
 
-    def _search_finalize(self, d, pos, ids_table, host_rr, queries,
+    def _search_finalize(self, host, ids_table, host_rr, queries,
                          params, done=None, stats=None, waits=None,
                          counts=None):
-        """Wait for the device result, map positions to ids, and with a
-        host store attached run the exact rerank on the host. ``waits``
+        """Wait for the device result (``host``, the ``HostCopy`` of its
+        distances and positions), map positions to ids, and with a host
+        store attached run the exact rerank on the host. ``waits``
         and ``counts`` (dicts), where given, receive the wait for the card
         (``fetch_wait``) and, where the resident rerank ran, its device ms
         (``rerank``) and mean candidates a query (``rerank_rows``)."""
         waits = {} if waits is None else waits
         with trace("ivf_pq.finalize"):
             # the wait for this search's device work, apart from the copies
-            # after it, which queue behind whatever the stream took on since
+            # enqueued after it
             waits["fetch_wait"] = 0.0
             if done is not None:
                 with trace("ivf_pq.fetch_wait", stage="fetch_wait",
                            record=waits.__setitem__):
                     done.synchronize()
             with trace("ivf_pq.copy"):
-                d = d.cpu().numpy().copy()
-                pos = pos.cpu().numpy()
+                d, pos = host.numpy()
                 if stats:
                     # the rerank's work is done: its events and its row
                     # count (on the host) read without a wait

@@ -96,10 +96,21 @@ def _n_rows_bound(n_pairs: int, nlist: int, m: int) -> int:
     return max(min(n_pairs // m + nlist + 1, n_pairs), 1)
 
 
+def _group_counts(key_sorted: torch.Tensor, n: int) -> torch.Tensor:
+    """Pairs of each key ``0..n-1``: ``torch.bincount(key_sorted,
+    minlength=n)`` for keys below ``n``, with no read-back (CUDA's
+    ``bincount`` reads the keys' min and max to the host to size its
+    output, a wait for the card)."""
+    return torch.zeros(n, dtype=torch.long, device=key_sorted.device
+                       ).index_add_(0, key_sorted,
+                                    torch.ones_like(key_sorted))
+
+
 def _pack_pairs_into_rows(probe_ids: torch.Tensor, nlist: int, m: int,
                           n_rows: int) -> Pack:
     """Sort (query, probe) pairs by list id and pack them into list-rows of
-    up to ``m`` same-list queries, on the probe ids' device."""
+    up to ``m`` same-list queries, on the probe ids' device, reading
+    nothing back to the host."""
     batch, nprobe = probe_ids.shape
     dev = probe_ids.device
     n_pairs = batch * nprobe
@@ -108,7 +119,7 @@ def _pack_pairs_into_rows(probe_ids: torch.Tensor, nlist: int, m: int,
     key = torch.where(flat >= 0, flat, nlist)
     order = torch.argsort(key, stable=True)
     key_sorted = key[order]
-    gcounts = torch.bincount(key_sorted, minlength=nlist + 1)
+    gcounts = _group_counts(key_sorted, nlist + 1)
     gstart = torch.cumsum(gcounts, 0) - gcounts
     r_in_list = torch.arange(n_pairs, device=dev) - gstart[key_sorted]
     rows_per_list = (gcounts + m - 1) // m

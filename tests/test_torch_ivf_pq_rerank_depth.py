@@ -218,10 +218,11 @@ def test_create_index_carries_rerank_k(tmp_path):
 
 
 def test_the_engine_records_the_rerank_stage_and_rows(tmp_path):
-    """A reranked search through the coalescer records ``fetch_wait``,
-    ``rerank`` (device ms; 0.0 on the CPU) and ``rerank_rows`` (the
-    shortlist's candidates a query) once a search; the metrics page
-    exports the count apart from the milliseconds."""
+    """A reranked search through the coalescer records ``fetch_wait``, its
+    enqueue's host ms (``enqueue``), ``rerank`` (device ms; 0.0 on the
+    CPU) and ``rerank_rows`` (the shortlist's candidates a query) once a
+    search; the metrics page exports the count apart from the
+    milliseconds."""
     idx = _index(64)
     _, q = _data()
     eng = _engine(tmp_path)
@@ -240,6 +241,7 @@ def test_the_engine_records_the_rerank_stage_and_rows(tmp_path):
             assert_topk_match(*got, *idx.search(rows, p))
         stages = eng.metrics.get_stage_percentiles()
         searches = stages["fetch"]["count"]
+        assert stages["enqueue"]["count"] == searches
         assert stages["rerank"]["count"] == searches
         assert stages["rerank"]["max"] == 0.0
         assert stages["rerank_rows"]["count"] == searches

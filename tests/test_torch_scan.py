@@ -21,6 +21,7 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops import grouped_scan
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import Metric
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.grouped_scan import (
     _grouped_rows_reference,
+    _n_rows_bound,
     _pack_pairs_into_rows,
     auto_m_budget,
     scan_probed_lists_grouped,
@@ -142,6 +143,34 @@ def test_hot_list_spans_several_rows(rng):
     got = _np(scan_probed_lists_grouped_reference(*targs, k, Metric.L2,
                                                   m_budget=8, **tkw))
     assert_topk_match(*got, *ref, rtol=1e-5, atol=_atol(s, "L2"))
+
+
+@pytest.mark.parametrize("nlist, m, batch, nprobe", [
+    (4, 8, 6, 2), (16, 8, 64, 4), (64, 32, 37, 8), (7, 64, 1, 3),
+    (256, 16, 64, 32),
+])
+def test_pack_counts_read_nothing_back(rng, monkeypatch, nlist, m, batch,
+                                       nprobe):
+    """The pack's list counts (``index_add_`` of ones: no read-back to
+    the host) equal ``bincount(minlength=nlist + 1)``, and the whole pack
+    equals the pack built on ``bincount``'s counts, with invalid probes
+    (-1, key ``nlist``) and a list that every query probes."""
+    probe = rng.integers(0, nlist, (batch, nprobe))
+    probe[rng.random(probe.shape) < 0.2] = -1
+    probe[:, 0] = nlist - 1                  # probed by every query
+    probe = torch.from_numpy(probe).int()
+    key = probe.reshape(-1).long()
+    key_sorted = torch.where(key >= 0, key, nlist).sort(stable=True)[0]
+    counts = grouped_scan._group_counts(key_sorted, nlist + 1)
+    want = torch.bincount(key_sorted, minlength=nlist + 1)
+    assert counts.dtype == want.dtype and torch.equal(counts, want)
+    n_rows = _n_rows_bound(batch * nprobe, nlist, m)
+    new = _pack_pairs_into_rows(probe, nlist, m, n_rows)
+    monkeypatch.setattr(grouped_scan, "_group_counts",
+                        lambda k, n: torch.bincount(k, minlength=n))
+    old = _pack_pairs_into_rows(probe, nlist, m, n_rows)
+    for a, b in zip(new, old):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_scan_capacity_prefix(rng):

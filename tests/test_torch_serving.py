@@ -813,7 +813,7 @@ SERVED_SPANS = {
     "ivf_flat.upload", "ivf_flat.coarse_probe", "ivf_flat.finalize",
     "ivf_flat.copy", "ivf_flat.id_map",
 }
-NEW_STAGES = ("window_wait", "handoff_wait", "fetch_wait")
+NEW_STAGES = ("window_wait", "handoff_wait", "fetch_wait", "enqueue")
 
 
 def _live_engine(tmp_path, rng):
@@ -961,9 +961,10 @@ def test_weight_one_items_drain_as_the_item_rule(queued, put_later,
 
 def test_engine_spans_and_stages_of_a_cpu_batch(tmp_path, rng):
     """Coalesced searches of a CPU index in a session of every thread:
-    each batch records ``fetch_wait`` 0.0 (no card to wait for) and opens
-    the engine's, the coalescer's and the search module's spans, the id
-    map inside the finalize on the finalize thread."""
+    each batch records ``fetch_wait`` 0.0 (no card to wait for) and its
+    enqueue's host ms (``enqueue``), and opens the engine's, the
+    coalescer's and the search module's spans, the id map inside the
+    finalize on the finalize thread."""
     eng, x = _live_engine(tmp_path, rng)
     try:
         st = eng.get_state("docs")
@@ -978,6 +979,8 @@ def test_engine_spans_and_stages_of_a_cpu_batch(tmp_path, rng):
         eng.close()
     assert stages["fetch_wait"]["count"] == batches > 0
     assert stages["fetch_wait"]["max"] == 0.0
+    assert stages["enqueue"]["count"] == batches
+    assert stages["enqueue"]["p50"] > 0.0
     assert stages["handoff_wait"]["count"] == batches
     assert stages["window_wait"]["count"] >= batches
     events = [e for e in t_profiling.chrome_trace(prof)["traceEvents"]
@@ -1000,16 +1003,19 @@ def test_engine_spans_and_stages_of_a_cpu_batch(tmp_path, rng):
 
 def test_engine_records_the_waits_a_search_exposes(tmp_path, rng,
                                                    monkeypatch):
-    """The engine records ``fetch_wait`` from the ``waits`` a search's
-    thunk exposes; a thunk without them (a wrapper, another index) serves
-    the same answers and records none."""
+    """The engine records ``fetch_wait`` and ``enqueue`` from the
+    ``waits`` a search's thunk exposes; a thunk without them (a wrapper,
+    another index) serves the same answers and records none."""
     eng, x = _live_engine(tmp_path, rng)
     p = SearchParams(nprobe=8, k=5)
     try:
         st = eng.get_state("docs")
-        assert st.index.search_async(x[:2], p).waits == {"fetch_wait": 0.0}
+        waits = st.index.search_async(x[:2], p).waits
+        assert set(waits) == {"fetch_wait", "enqueue"}
+        assert waits["fetch_wait"] == 0.0 and waits["enqueue"] > 0.0
         want = _serve(eng, "docs", x[:8], p)
-        assert eng.metrics.get_stage_percentiles()["fetch_wait"]["count"] > 0
+        stages = eng.metrics.get_stage_percentiles()
+        assert stages["fetch_wait"]["count"] == stages["enqueue"]["count"] > 0
         orig = IVFFlatIndex.search_async
 
         def bare(self, queries, params=None):
@@ -1023,7 +1029,8 @@ def test_engine_records_the_waits_a_search_exposes(tmp_path, rng,
     finally:
         eng.close()
     np.testing.assert_array_equal(got[1], want[1])
-    assert "fetch_wait" not in stages and stages["dispatch"]["count"] > 0
+    assert "fetch_wait" not in stages and "enqueue" not in stages
+    assert stages["dispatch"]["count"] > 0
 
 
 def test_engine_serves_without_entering_record_function(tmp_path, rng,
