@@ -51,6 +51,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
     IVFFlatIndex,
     SearchParams,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.search import (
+    PendingSearch,
+)
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
     Metric,
     pairwise_distance,
@@ -407,6 +410,13 @@ class StreamingIVFFlatIndex:
             max_lists = max(1, self.cache.n_slots // 2)
         max_lists = min(max_lists, self.cache.n_slots)
         return self.list_prefetcher.prefetch_hot_lists(max_lists)
+
+    def search_async(
+        self, queries: np.ndarray, params: SearchParams | None = None
+    ) -> PendingSearch:
+        """:meth:`search`, run now (the tier stages lists between its
+        scans): a :meth:`PendingSearch.ready`, which records no stage."""
+        return PendingSearch.ready(*self.search(queries, params))
 
     def search(
         self, queries: np.ndarray, params: SearchParams | None = None

@@ -178,6 +178,69 @@ def compute_append_slots(
     return slots
 
 
+def _choose_capacity(
+    counts: np.ndarray, align: int, max_factor: float = 8.0,
+    spill_budget: float = 0.01,
+) -> int:
+    """Per-list arena capacity for a bulk build: the smallest clamp that
+    keeps the spill fraction ≤ ``spill_budget``, clipped to
+    ``[1.5, max_factor] × mean`` (copied from the JAX package)."""
+    n = int(counts.sum())
+    if n == 0:
+        return align
+    mean = max(counts.mean(), 1.0)
+    lo, hi = 1, int(counts.max())
+    while lo < hi:                      # binary search on the clamp
+        mid = (lo + hi) // 2
+        spill = n - int(np.minimum(counts, mid).sum())
+        if spill <= spill_budget * n:
+            hi = mid
+        else:
+            lo = mid + 1
+    cap = int(np.clip(lo, mean * 1.5 + 1, mean * max_factor))
+    return max(-(-cap // align) * align, align)
+
+
+def _balance_assignments(
+    choices: np.ndarray, cap: int, nlist: int,
+    initial_counts: np.ndarray | None = None,
+) -> np.ndarray:
+    """Greedy capacity-respecting placement over ranked centroid choices
+    ``[n, t]``: rank-0 lists fill first; rows that would overflow a full
+    list fall to their next choice; anything still unplaced lands in the
+    least-full list with room (copied from the JAX package)."""
+    n, t = choices.shape
+    placed = np.full(n, -1, np.int64)
+    counts = (
+        initial_counts.astype(np.int64).copy()
+        if initial_counts is not None else np.zeros(nlist, np.int64)
+    )
+    for r in range(t):
+        todo = np.flatnonzero(placed < 0)
+        if todo.size == 0:
+            break
+        lists = choices[todo, r].astype(np.int64)
+        slots = compute_append_slots(counts, lists)
+        ok = slots < cap
+        placed[todo[ok]] = lists[ok]
+        counts = np.bincount(
+            placed[placed >= 0], minlength=nlist
+        ) + (initial_counts.astype(np.int64)
+             if initial_counts is not None else 0)
+    leftovers = np.flatnonzero(placed < 0)
+    for i in leftovers:
+        # only lists with free slots: the chunked build never reallocates
+        open_lists = np.flatnonzero(counts < cap)
+        if open_lists.size == 0:
+            raise ValueError(
+                f"arena full: {n} rows into nlist={nlist} × cap={cap}"
+            )
+        l = int(open_lists[np.argmin(counts[open_lists])])
+        placed[i] = l
+        counts[l] += 1
+    return placed.astype(np.int32)
+
+
 @dataclasses.dataclass
 class PackedListArena:
     """Device-resident packed inverted lists + host-side id table."""
@@ -415,12 +478,11 @@ class PackedListArena:
 
     def positions_to_ids(self, pos: np.ndarray) -> np.ndarray:
         """Map global positions (int32, -1 = empty) to user uint64 ids
-        (UINT64_MAX for empties)."""
-        flat = self.ids.reshape(-1)
-        safe = np.clip(pos, 0, flat.size - 1)
-        out = flat[safe]
-        out[pos < 0] = INVALID_ID
-        return out
+        (UINT64_MAX for empties): ``models/search.positions_to_ids``."""
+        from cuda_acceleratedvectordatabaseengine_tpu_torch.models.search \
+            import positions_to_ids
+
+        return positions_to_ids(pos, self.ids)
 
     # ------------------------------------------------------------------ #
     # (de)serialization

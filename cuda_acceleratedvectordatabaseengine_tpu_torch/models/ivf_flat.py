@@ -24,18 +24,27 @@ Lifecycle: ``remove_ids`` compacts lists in place (``models/arena.py``),
 from __future__ import annotations
 
 import dataclasses
-import threading
-import time
 
 import numpy as np
 import torch
 
+# _balance_assignments and _choose_capacity are also imported from here
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
     INVALID_ID,
     PackedListArena,
     _append_device,
-    compute_append_slots,
+    _balance_assignments,
+    _choose_capacity,
     torch_dtype,
+)
+# SearchParams, FLT_MAX and ListHeat are also imported from here
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.search import (
+    FLT_MAX,
+    IVFIndexBase,
+    ListHeat,
+    SearchParams,
+    SearchSpans,
+    flat_rerank_depth,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
     Metric,
@@ -57,18 +66,10 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.normalize import (
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.topk import (
     topk_smallest,
 )
-from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
-    resolve_device,
-)
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
     trace,
 )
-from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.transfer import (
-    HostCopy,
-    upload,
-)
 
-FLT_MAX = np.float32(np.finfo(np.float32).max)
 
 @dataclasses.dataclass
 class IVFFlatConfig:
@@ -113,80 +114,6 @@ class IVFFlatConfig:
             raise NotImplementedError(
                 "only query_upload_dtype='float32' is ported"
             )
-
-
-@dataclasses.dataclass
-class SearchParams:
-    """``nprobe=0`` resolves to the index's measured-coverage calibration
-    (:meth:`IVFFlatIndex.calibrate_nprobe`), else the default."""
-
-    nprobe: int = 10
-    k: int = 10
-    use_exact_rerank: bool = False  # fp32 rerank from the lo plane, where
-                                    # the index stores residuals
-
-
-def _choose_capacity(
-    counts: np.ndarray, align: int, max_factor: float = 8.0,
-    spill_budget: float = 0.01,
-) -> int:
-    """Per-list arena capacity for a bulk build: the smallest clamp that
-    keeps the spill fraction ≤ ``spill_budget``, clipped to
-    ``[1.5, max_factor] × mean`` (copied from the JAX package)."""
-    n = int(counts.sum())
-    if n == 0:
-        return align
-    mean = max(counts.mean(), 1.0)
-    lo, hi = 1, int(counts.max())
-    while lo < hi:                      # binary search on the clamp
-        mid = (lo + hi) // 2
-        spill = n - int(np.minimum(counts, mid).sum())
-        if spill <= spill_budget * n:
-            hi = mid
-        else:
-            lo = mid + 1
-    cap = int(np.clip(lo, mean * 1.5 + 1, mean * max_factor))
-    return max(-(-cap // align) * align, align)
-
-
-def _balance_assignments(
-    choices: np.ndarray, cap: int, nlist: int,
-    initial_counts: np.ndarray | None = None,
-) -> np.ndarray:
-    """Greedy capacity-respecting placement over ranked centroid choices
-    ``[n, t]``: rank-0 lists fill first; rows that would overflow a full
-    list fall to their next choice; anything still unplaced lands in the
-    least-full list with room (copied from the JAX package)."""
-    n, t = choices.shape
-    placed = np.full(n, -1, np.int64)
-    counts = (
-        initial_counts.astype(np.int64).copy()
-        if initial_counts is not None else np.zeros(nlist, np.int64)
-    )
-    for r in range(t):
-        todo = np.flatnonzero(placed < 0)
-        if todo.size == 0:
-            break
-        lists = choices[todo, r].astype(np.int64)
-        slots = compute_append_slots(counts, lists)
-        ok = slots < cap
-        placed[todo[ok]] = lists[ok]
-        counts = np.bincount(
-            placed[placed >= 0], minlength=nlist
-        ) + (initial_counts.astype(np.int64)
-             if initial_counts is not None else 0)
-    leftovers = np.flatnonzero(placed < 0)
-    for i in leftovers:
-        # only lists with free slots: the chunked build never reallocates
-        open_lists = np.flatnonzero(counts < cap)
-        if open_lists.size == 0:
-            raise ValueError(
-                f"arena full: {n} rows into nlist={nlist} × cap={cap}"
-            )
-        l = int(open_lists[np.argmin(counts[open_lists])])
-        placed[i] = l
-        counts[l] += 1
-    return placed.astype(np.int32)
 
 
 def dedup_topk(
@@ -237,41 +164,6 @@ def _bulk_pack_device(x, assignments, nlist: int, cap: int, dtype,
         _append_device(arena, arena_sq, scale, anchors, a[s0:s0 + step],
                        slots[s0:s0 + step], x[s0:s0 + step].float(), lo)
     return arena, arena_sq, counts.int(), slots, scale, lo
-
-
-class ListHeat:
-    """Per-list heat behind ``get_hot_lists``, one definition for both
-    index families: each search adds 1 to each list that each query
-    probed (probe -1 excluded), counted on the index's device
-    (``index_add_`` into an int64 tensor), so a search adds no host copy;
-    :meth:`to_numpy` fetches the counts. The JAX package counts a probed
-    list once per batch (IVF-Flat) or the lists of the returned positions
-    (IVF-PQ)."""
-
-    def __init__(self, nlist: int, device: torch.device):
-        self._counts = torch.zeros(nlist, dtype=torch.int64, device=device)
-        self._lock = threading.Lock()
-
-    def add_probes(self, probe_ids: torch.Tensor) -> None:
-        """Count one search's ``probe_ids [B, nprobe]`` (on the device)."""
-        flat = probe_ids.reshape(-1)
-        with self._lock:
-            self._counts.index_add_(0, flat.clamp_min(0).long(),
-                                    (flat >= 0).long())
-
-    def mark(self, list_ids) -> None:
-        """Count each named list once (a warm-up's ``list_ids``)."""
-        ids = torch.from_numpy(np.unique(np.asarray(list_ids, np.int64)))
-        with self._lock:
-            self._counts[ids.to(self._counts.device)] += 1
-
-    def reset(self, list_id: int) -> None:
-        with self._lock:
-            self._counts[int(list_id)] = 0
-
-    def to_numpy(self) -> np.ndarray:
-        """A copy of the counts (never a view of a CPU tensor)."""
-        return self._counts.cpu().numpy().copy()
 
 
 def _ivf_search_device(
@@ -339,54 +231,25 @@ def _exact_rerank(q, pos, arena, arena_lo, arena_scale, arena_anchors, k,
     return topk_smallest(exact, k, idx=pos)
 
 
-class IVFFlatIndex:
+class IVFFlatIndex(IVFIndexBase):
     """IVF-Flat ANN index on one device: ``"cuda"`` unless the caller names
-    another (``"cpu"``, ``"cuda:1"``, ...). A search snapshots the arena
-    handle and enqueues its device work under ``_mutate_lock``, the lock
-    every mutation holds, so device work runs in lock order on the one
-    stream and a search reads the rows its snapshot's id table describes,
-    even across a removal that moves rows in place (``models/arena.py``)."""
+    another (``"cpu"``, ``"cuda:1"``, ...). Its search cycle is
+    ``models/search.IVFIndexBase``'s (spans ``ivf_flat.*``)."""
+
+    SPANS = SearchSpans.of("ivf_flat")
 
     def __init__(self, config: IVFFlatConfig,
                  device: torch.device | str | None = "cuda"):
-        self.config = config
-        self.metric = config.metric
-        self.device = resolve_device(device)
+        super().__init__(config, device)
         self.arena = PackedListArena.create(
             config.nlist, config.dimension, dtype=torch_dtype(config.dtype),
             store_residuals=config.store_residuals, device=self.device,
         )
         self.centroids: torch.Tensor | None = None  # [nlist, dim] fp32
-        self.trained = False
-        # Measured-coverage nprobe; SearchParams(nprobe=0) resolves to it.
-        self.calibrated_nprobe: int | None = None
-        # Hotness stats behind warmup/evict decisions (ListHeat).
-        self._heat = ListHeat(config.nlist, self.device)
-        # Serializes mutations (each plans slots from the current counts)
-        # against each other and against the enqueue of a search.
-        self._mutate_lock = threading.Lock()
 
     # ------------------------------------------------------------------ #
     # build
     # ------------------------------------------------------------------ #
-
-    def _generator(self) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(
-            self.config.seed
-        )
-
-    def _to_device(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-            self.device
-        )
-
-    def _assign_metric(self) -> Metric:
-        # rows are assigned by L2 (cosine rows are pre-normalized) or by
-        # negated inner product
-        return (Metric.INNER_PRODUCT if self.metric == Metric.INNER_PRODUCT
-                else Metric.L2)
 
     def _quant_anchors(self) -> torch.Tensor | None:
         """Residual anchors for int8 encoding (the coarse centroids), or
@@ -438,21 +301,7 @@ class IVFFlatIndex:
     def train_from_device(self, x_dev: torch.Tensor) -> None:
         """Train from a device-resident corpus (subsampled before the fp32
         cast, so a bf16 corpus is never copied whole to fp32)."""
-        cfg = self.config
-        x_dev = x_dev.to(self.device)
-        n = x_dev.shape[0]
-        if n < cfg.nlist:
-            raise ValueError(f"need ≥ nlist={cfg.nlist} training vectors")
-        gen = self._generator()
-        cap = cfg.train_sample_per_list * cfg.nlist
-        if n > cap:
-            idx = torch.randperm(n, generator=gen, device=self.device)[:cap]
-            sample = x_dev[idx].float()
-        else:
-            sample = x_dev.float()
-        if self.metric == Metric.COSINE:
-            sample = l2_normalize(sample)
-        self._fit(sample, gen)
+        self._fit(*self._device_sample(x_dev))
 
     def add(self, vectors: np.ndarray, ids: np.ndarray | None = None) -> None:
         """Assign each row to its nearest list and append it (the arena
@@ -605,95 +454,24 @@ class IVFFlatIndex:
     def ntotal(self) -> int:
         return self.arena.total_vectors
 
-    def search(
-        self, queries: np.ndarray, params: SearchParams | None = None
-    ) -> tuple[np.ndarray, np.ndarray]:
-        """Batched ANN search. Returns ``(distances [B, k] fp32, ids [B, k]
-        uint64)`` ascending, with FLT_MAX/UINT64_MAX sentinels for
-        underfull rows."""
-        return self.search_async(queries, params)()
-
-    def search_async(
-        self, queries: np.ndarray, params: SearchParams | None = None
-    ):
-        """Enqueue the device search now and return a thunk that waits for
-        it and post-processes the result on the host. Nothing here waits
-        for the card: the queries go up through pinned memory, the pack
-        reads nothing back, and the answer's copies are enqueued right
-        after the search (``utils/transfer``). The thunk's ``waits`` holds,
-        by stage, the host ms of this enqueue (``enqueue``) and, once the
-        thunk ran, the ms it waited for the card (``fetch_wait``; 0.0 on
-        the CPU), for its caller to record."""
-        t_enqueue = time.perf_counter()
-        params = params or SearchParams()
-        if not self.trained:
-            raise RuntimeError("index must be trained before search()")
-        queries = np.ascontiguousarray(queries, np.float32)
-        if queries.ndim == 1:
-            queries = queries[None]
-        if queries.shape[1] != self.config.dimension:
-            raise ValueError(
-                f"query dim {queries.shape[1]} != index dim "
-                f"{self.config.dimension}"
-            )
-        nprobe = params.nprobe
-        if nprobe <= 0:
-            nprobe = self.calibrated_nprobe or SearchParams().nprobe
-        nprobe = min(nprobe, self.config.nlist)
+    def _enqueue(self, q_dev, queries, params, nprobe):
         # Multi-assignment indices scan a doubled shortlist, so the host
         # dedup can still hand back k unique ids.
         k = params.k
         k_dev = 2 * k if self.config.multi_assign_eps > 0 else k
-        with trace("ivf_flat.upload"):
-            q_dev = upload(queries, self.device)
-        # Snapshot AND enqueue under the mutation lock (see the class
-        # docstring); the wait and the id map in finalize run outside it.
-        with self._mutate_lock:
-            arena = self.arena
-            rerank_k = 0
-            if params.use_exact_rerank and arena.arena_lo is not None:
-                rerank_k = min(max(4 * k, k_dev), 256)
-            d_dev, pos_dev, probes_dev = _ivf_search_device(
-                q_dev, self.centroids, arena.arena,
-                arena.arena_sq, arena.counts, nprobe, k_dev, self.metric,
-                self.config.scan_impl, arena.arena_scale, arena.anchors,
-                self.config.m_budget, arena.scan_capacity_hint(),
-                rerank_k, arena.arena_lo,
-            )
-            self._heat.add_probes(probes_dev)
-            done = None
-            if d_dev.is_cuda:   # after the search's last launch
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(d_dev.device))
-            host = HostCopy(d_dev, pos_dev)
-        waits = {"fetch_wait": 0.0,
-                 "enqueue": (time.perf_counter() - t_enqueue) * 1e3}
-
-        def finalize():
-            with trace("ivf_flat.finalize"):
-                # the wait for this search's device work, apart from the
-                # copies enqueued after it
-                if done is not None:
-                    with trace("ivf_flat.fetch_wait", stage="fetch_wait",
-                               record=waits.__setitem__):
-                        done.synchronize()
-                with trace("ivf_flat.copy"):
-                    d, pos = host.numpy()
-                with trace("ivf_flat.id_map"):
-                    ids = arena.positions_to_ids(pos)
-                    d[pos < 0] = FLT_MAX
-                    if k_dev != k:
-                        return dedup_topk(d, ids, k)
-                    return d, ids
-
-        finalize.waits = waits
-        return finalize
-
-    def search_batch(
-        self, queries: np.ndarray, params: SearchParams | None = None
-    ) -> tuple[np.ndarray, np.ndarray]:
-        """Alias of :meth:`search` with the batched signature."""
-        return self.search(queries, params)
+        arena = self.arena
+        d_dev, pos_dev, probes_dev = _ivf_search_device(
+            q_dev, self.centroids, arena.arena,
+            arena.arena_sq, arena.counts, nprobe, k_dev, self.metric,
+            self.config.scan_impl, arena.arena_scale, arena.anchors,
+            self.config.m_budget, arena.scan_capacity_hint(),
+            flat_rerank_depth(params, arena.arena_lo is not None, k_dev),
+            arena.arena_lo,
+        )
+        self._heat.add_probes(probes_dev)
+        post = None if k_dev == k else (
+            lambda d, ids, waits, counts: dedup_topk(d, ids, k))
+        return d_dev, pos_dev, arena.ids, post
 
     def calibrate_nprobe(
         self,
@@ -730,42 +508,6 @@ class IVFFlatIndex:
         )
         self.calibrated_nprobe = result["nprobe"]
         return result
-
-    # ------------------------------------------------------------------ #
-    # residency management
-    # ------------------------------------------------------------------ #
-
-    def warmup_lists(self, list_ids=None, batch_sizes=(1, 8, 64),
-                     nprobes=None) -> None:
-        """Run one search per batch size × nprobe, so first-use costs (the
-        kernel library build on CUDA, allocator growth) are paid before
-        serving; optionally mark ``list_ids`` as accessed."""
-        if not self.trained:
-            return
-        if nprobes is None:
-            nprobes = (SearchParams().nprobe,)
-        dummy = np.zeros((1, self.config.dimension), np.float32)
-        for np_ in nprobes:
-            params = SearchParams(nprobe=int(np_))
-            for bs in batch_sizes:
-                self.search(np.repeat(dummy, bs, axis=0), params)
-        if list_ids is not None:
-            self._heat.mark(list_ids)
-
-    def evict_list(self, list_id: int) -> None:
-        """The arena is device-resident with nothing to evict; reset the
-        list's hotness, the accounting effect of an eviction."""
-        self._heat.reset(list_id)
-
-    @property
-    def list_access_count(self) -> np.ndarray:
-        """Per-list heat (:class:`ListHeat`): searches' queries that probed
-        each list, fetched from the device."""
-        return self._heat.to_numpy()
-
-    def get_hot_lists(self, n: int) -> np.ndarray:
-        """Most-accessed lists."""
-        return np.argsort(-self.list_access_count, kind="stable")[:n]
 
     # ------------------------------------------------------------------ #
     # state

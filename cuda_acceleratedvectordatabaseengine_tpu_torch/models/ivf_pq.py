@@ -38,8 +38,7 @@ the capacity tier, loaded by ``storage.load_ivf_pq_capacity``.
 from __future__ import annotations
 
 import dataclasses
-import threading
-import time
+import functools
 
 import numpy as np
 import torch
@@ -47,18 +46,18 @@ import torch
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
     INVALID_ID,
     PackedListArena,
+    _balance_assignments,
+    _choose_capacity,
     _remove_device,
     apply_removal_to_ids,
     compute_append_slots,
     plan_removals,
     torch_dtype,
 )
-from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
-    FLT_MAX,
-    ListHeat,
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.search import (
+    IVFIndexBase,
     SearchParams,
-    _balance_assignments,
-    _choose_capacity,
+    SearchSpans,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
     Metric,
@@ -92,15 +91,8 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.batching import (
     BUCKETS,
     bucket_size,
 )
-from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.device import (
-    resolve_device,
-)
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.profiling import (
     trace,
-)
-from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.transfer import (
-    HostCopy,
-    upload,
 )
 
 # scan_impl names this package runs; "xla" and "pallas" are the JAX
@@ -378,6 +370,16 @@ def _rerank_marks(rerank_stats, best_p, reranks):
     return events
 
 
+def _rerank_readings(stats, d, ids, waits, counts):
+    """The post-step of a resident rerank, after the search's wait: its
+    device ms (``rerank``, from :func:`_rerank_marks`' events; 0.0 on the
+    CPU) and its mean candidates a query (``rerank_rows``)."""
+    ev = stats.get("events")
+    waits["rerank"] = ev[0].elapsed_time(ev[1]) if ev else 0.0
+    counts["rerank_rows"] = int(stats["rows"]) / d.shape[0]
+    return d, ids
+
+
 def _ivf_pq_search_device(
     queries, centroids, codebooks, code_arena_t, code_sq, counts, raw_arena,
     raw_sq, raw_scale, raw_anchors, nprobe, k, metric, rerank_k,
@@ -475,10 +477,13 @@ class _SearchGraph:
             return self.out[0][:b].clone(), self.out[1][:b].clone()
 
 
-class IVFPQIndex:
+class IVFPQIndex(IVFIndexBase):
     """IVF index with 8-bit product-quantized residual codes on one
     device: ``"cuda"`` unless the caller names another (``"cpu"``,
-    ``"cuda:1"``, ...)."""
+    ``"cuda:1"``, ...). Its search cycle is ``models/search.IVFIndexBase``'s
+    (spans ``ivf_pq.*``)."""
+
+    SPANS = SearchSpans.of("ivf_pq")
 
     # set by storage.load_ivf_pq_capacity: the serving engine routes adds
     # and removals of such an index to the next epoch build
@@ -494,9 +499,7 @@ class IVFPQIndex:
 
     def __init__(self, config: IVFPQConfig,
                  device: torch.device | str | None = "cuda"):
-        self.config = config
-        self.metric = config.metric
-        self.device = resolve_device(device)
+        super().__init__(config, device)
         self.centroids: torch.Tensor | None = None   # [nlist, D] fp32
         self.codebooks: torch.Tensor | None = None   # [m, ks, dsub] fp32
         self.opq_R: torch.Tensor | None = None       # [D, D] or None
@@ -520,18 +523,12 @@ class IVFPQIndex:
         self._counts = torch.zeros((config.nlist,), dtype=torch.int32,
                                    device=self.device)
         self._ids = np.full((config.nlist, cap), INVALID_ID, np.uint64)
-        self.trained = False
-        self.calibrated_nprobe: int | None = None
-        self._heat = ListHeat(config.nlist, self.device)
         # (counts tensor, occupied-prefix hint): one max() per counts version
         self._scan_cap_cache = (None, None)
         # search shapes captured as CUDA graphs (key → _SearchGraph, oldest
         # use first) and those searched once, eagerly (see _device_search)
         self._graphs: dict = {}
         self._graph_seen: set = set()
-        # Serializes mutations against each other and against the
-        # snapshot a search takes (each plans slots from current counts).
-        self._mutate_lock = threading.Lock()
         # Host-store exact rerank (keep_raw=False, the capacity tier): see
         # attach_host_rerank. The device keeps only codes.
         self._host_rr = None
@@ -607,22 +604,6 @@ class IVFPQIndex:
     # build
     # ------------------------------------------------------------------ #
 
-    def _generator(self) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(
-            self.config.seed
-        )
-
-    def _to_device(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-            self.device
-        )
-
-    def _assign_metric(self) -> Metric:
-        return (Metric.INNER_PRODUCT if self.metric == Metric.INNER_PRODUCT
-                else Metric.L2)
-
     def train(self, vectors: np.ndarray) -> None:
         """Coarse k-means on a host subsample of ``train_sample_per_list ·
         nlist`` rows, then residual PQ codebooks (and with ``config.opq``
@@ -655,19 +636,7 @@ class IVFPQIndex:
         """Train from a device-resident corpus (subsampled on the device
         before the fp32 cast, so a bf16 corpus is never copied whole)."""
         cfg = self.config
-        x_dev = x_dev.to(self.device)
-        n = x_dev.shape[0]
-        if n < cfg.nlist:
-            raise ValueError(f"need ≥ nlist={cfg.nlist} training vectors")
-        gen = self._generator()
-        cap = cfg.train_sample_per_list * cfg.nlist
-        if n > cap:
-            idx = torch.randperm(n, generator=gen, device=self.device)[:cap]
-            sample = x_dev[idx].float()
-        else:
-            sample = x_dev.float()
-        if self.metric == Metric.COSINE:
-            sample = l2_normalize(sample)
+        sample, gen = self._device_sample(x_dev)
         self.centroids, assign = kmeans_fit(
             sample, cfg.nlist, iters=cfg.train_iters, generator=gen
         )
@@ -886,92 +855,39 @@ class IVFPQIndex:
     # search
     # ------------------------------------------------------------------ #
 
-    def search(
-        self, queries: np.ndarray, params: SearchParams | None = None
-    ) -> tuple[np.ndarray, np.ndarray]:
-        """Batched ANN search: ``(distances [B, k] fp32, ids [B, k]
-        uint64)`` ascending, FLT_MAX / UINT64_MAX for underfull rows.
-        ``use_exact_rerank`` reranks the top ``rerank_depth`` ADC
-        candidates exactly when raw rows are kept (``config.rerank_k``,
-        else ``min(4k, 256)``)."""
-        return self._search_finalize(*self._search_dispatch(queries, params))
-
-    def search_async(
-        self, queries: np.ndarray, params: SearchParams | None = None
-    ):
-        """Enqueue the device search now; the returned thunk waits for it
-        and maps positions to ids on the host. Nothing here waits for the
-        card (the copies of ``utils/transfer``), except the search that
-        captures a shape's graphs. The thunk's ``waits`` holds the
-        host ms of this enqueue (``enqueue``) and, once the thunk ran, the
-        ms it waited for the card (``fetch_wait``) and, where the resident
-        exact rerank ran, the rerank's device ms (``rerank``), both 0.0 on
-        the CPU; its ``counts`` holds the rerank's mean candidates a query
-        (``rerank_rows``), for its caller to record."""
-        t_enqueue = time.perf_counter()
-        state = self._search_dispatch(queries, params)
-        waits = {"enqueue": (time.perf_counter() - t_enqueue) * 1e3}
-        counts: dict = {}
-
-        def finalize():
-            return self._search_finalize(*state, waits=waits, counts=counts)
-
-        finalize.waits = waits
-        finalize.counts = counts
-        return finalize
-
-    def _search_dispatch(self, queries, params):
-        params = params or SearchParams()
-        if not self.trained:
-            raise RuntimeError("index must be trained before search()")
-        queries = np.ascontiguousarray(queries, np.float32)
-        if queries.ndim == 1:
-            queries = queries[None]
-        if queries.shape[1] != self.config.dimension:
-            raise ValueError(
-                f"query dim {queries.shape[1]} != index dim "
-                f"{self.config.dimension}"
-            )
-        nprobe = params.nprobe
-        if nprobe <= 0:   # measured-coverage calibration, as in IVF-Flat
-            nprobe = self.calibrated_nprobe or SearchParams().nprobe
-        nprobe = min(nprobe, self.config.nlist)
-        # Without raw rows and with a host store attached, the exact rerank
-        # runs on the host: the device returns a top-k_dev ADC shortlist.
+    def _enqueue(self, q_dev, queries, params, nprobe):
+        """The device half of a search and its snapshot; ``use_exact_rerank``
+        reranks the top :func:`rerank_depth` ADC candidates exactly where
+        raw rows are kept, and on the host from an attached store where
+        they are not (the device then returns a top-``host_rerank_k`` ADC
+        shortlist)."""
         host_rr = (params.use_exact_rerank and self.raw is None
                    and self._host_rr is not None)
         k_dev = params.k
         if host_rr:
             k_dev = min(max(self.host_rerank_k, params.k),
                         self.capacity * nprobe)
-        with trace("ivf_pq.upload"):
-            q_dev = upload(queries, self.device)
-        # One consistent snapshot, and the device work enqueued under the
-        # lock (a removal moves rows in place; see the module docstring).
-        with self._mutate_lock:
-            raw = self.raw
-            ids_table = self.ids
-            scan_cap = self._scan_capacity_hint()
-            rerank_k = 0
-            if params.use_exact_rerank and raw is not None:
-                rerank_k = rerank_depth(self.config.rerank_k, params.k,
-                                        nprobe * (scan_cap or self.capacity))
-            stats = {} if rerank_k else None
-            d, pos = self._device_search(
-                q_dev, raw, nprobe, k_dev, rerank_k,
-                self.host_rerank_k_inner if host_rr else 0, scan_cap, stats)
-            done = None
-            if d.is_cuda:   # after the search's last launch
-                if stats:
-                    # the row count comes back in the stream's order, so
-                    # the finalize reads it after its one wait
-                    rows = torch.empty((), dtype=torch.int64, pin_memory=True)
-                    stats["rows"] = rows.copy_(stats["rows"],
-                                               non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(d.device))
-            host = HostCopy(d, pos)
-        return host, ids_table, host_rr, queries, params, done, stats
+        raw = self.raw
+        scan_cap = self._scan_capacity_hint()
+        rerank_k = 0
+        if params.use_exact_rerank and raw is not None:
+            rerank_k = rerank_depth(self.config.rerank_k, params.k,
+                                    nprobe * (scan_cap or self.capacity))
+        stats = {} if rerank_k else None
+        d, pos = self._device_search(
+            q_dev, raw, nprobe, k_dev, rerank_k,
+            self.host_rerank_k_inner if host_rr else 0, scan_cap, stats)
+        post = None
+        if stats:
+            if d.is_cuda:
+                # the row count comes back in the stream's order, so the
+                # post-step reads it after the search's one wait
+                rows = torch.empty((), dtype=torch.int64, pin_memory=True)
+                stats["rows"] = rows.copy_(stats["rows"], non_blocking=True)
+            post = functools.partial(_rerank_readings, stats)
+        elif host_rr:
+            post = functools.partial(self._host_rerank, queries, params)
+        return d, pos, self.ids, post
 
     def _device_search(self, q, raw, nprobe, k, rerank_k, k_inner, scan_cap,
                        stats):
@@ -1032,40 +948,9 @@ class IVFPQIndex:
         self._graphs[key] = graph          # the newest use last
         return graph
 
-    def _search_finalize(self, host, ids_table, host_rr, queries,
-                         params, done=None, stats=None, waits=None,
-                         counts=None):
-        """Wait for the device result (``host``, the ``HostCopy`` of its
-        distances and positions), map positions to ids, and with a host
-        store attached run the exact rerank on the host. ``waits``
-        and ``counts`` (dicts), where given, receive the wait for the card
-        (``fetch_wait``) and, where the resident rerank ran, its device ms
-        (``rerank``) and mean candidates a query (``rerank_rows``)."""
-        waits = {} if waits is None else waits
-        with trace("ivf_pq.finalize"):
-            # the wait for this search's device work, apart from the copies
-            # enqueued after it
-            waits["fetch_wait"] = 0.0
-            if done is not None:
-                with trace("ivf_pq.fetch_wait", stage="fetch_wait",
-                           record=waits.__setitem__):
-                    done.synchronize()
-            with trace("ivf_pq.copy"):
-                d, pos = host.numpy()
-                if stats:
-                    # the rerank's work is done: its events and its row
-                    # count (on the host) read without a wait
-                    ev = stats.get("events")
-                    waits["rerank"] = ev[0].elapsed_time(ev[1]) if ev else 0.0
-                    if counts is not None:
-                        counts["rerank_rows"] = int(stats["rows"]) / d.shape[0]
-            with trace("ivf_pq.id_map"):
-                flat_ids = ids_table.reshape(-1)
-                out_ids = flat_ids[np.clip(pos, 0, flat_ids.size - 1)]
-                out_ids[pos < 0] = INVALID_ID
-                d[pos < 0] = FLT_MAX
-        if not host_rr:
-            return d, out_ids
+    def _host_rerank(self, queries, params, d, ids, waits, counts):
+        """The post-step of a search reranked from the attached host
+        store: the exact top-k of the ADC shortlist ``(d, ids)``."""
         with trace("ivf_pq.host_rerank"):
             q_rr = queries
             if self.metric == Metric.COSINE:
@@ -1079,9 +964,8 @@ class IVFPQIndex:
                 dk = d[:, params.k - 1: params.k]
                 keep = d <= dk + self.host_rerank_margin * np.abs(dk)
                 self.last_rerank_kept = float(keep.sum(1).mean())
-                out_ids = np.where(keep, out_ids, INVALID_ID)
-            return self._host_rr.rerank(q_rr, out_ids, self.metric,
-                                        params.k)
+                ids = np.where(keep, ids, INVALID_ID)
+            return self._host_rr.rerank(q_rr, ids, self.metric, params.k)
 
     def search_batches_pipelined(
         self, batches, params: SearchParams | None = None
@@ -1091,44 +975,23 @@ class IVFPQIndex:
         ``(dists, ids)`` per input batch, in order."""
         pending = None
         for q in batches:
-            nxt = self._search_dispatch(q, params)
+            nxt = self.search_async(q, params)
             if pending is not None:
-                yield self._search_finalize(*pending)
+                yield pending()
             pending = nxt
         if pending is not None:
-            yield self._search_finalize(*pending)
-
-    def search_batch(self, queries, params=None):
-        """Alias of :meth:`search` with the batched signature."""
-        return self.search(queries, params)
+            yield pending()
 
     # ------------------------------------------------------------------ #
     # residency surface (parity with IVFFlatIndex)
     # ------------------------------------------------------------------ #
 
-    def warmup_lists(self, list_ids=None, batch_sizes=(1, 8, 64),
-                     nprobes=None) -> None:
-        """One search per batch size × nprobe (and with the exact rerank
-        when raw rows are kept), so first-use costs are paid before
-        serving; optionally mark ``list_ids`` as accessed."""
-        if not self.trained:
-            return
-        if nprobes is None:
-            nprobes = (SearchParams().nprobe,)
-        dummy = np.zeros((1, self.config.dimension), np.float32)
+    def _warmup_params(self) -> tuple:
         # the exact rerank is another device call (a deeper shortlist):
         # warm it too where there is one (raw rows or a host store)
-        reranks = (False, True) if (
-            self.raw is not None or self._host_rr is not None
-        ) else (False,)
-        for np_ in nprobes:
-            for bs in batch_sizes:
-                for rr in reranks:
-                    self.search(np.repeat(dummy, bs, axis=0),
-                                SearchParams(nprobe=int(np_),
-                                             use_exact_rerank=rr))
-        if list_ids is not None:
-            self._heat.mark(list_ids)
+        if self.raw is None and self._host_rr is None:
+            return (SearchParams(),)
+        return (SearchParams(), SearchParams(use_exact_rerank=True))
 
     def _guard_host_rerank_mutation(self) -> None:
         """Rows the host store lacks would be dropped by the exact rerank
@@ -1167,20 +1030,6 @@ class IVFPQIndex:
         self.host_rerank_k = int(rerank_k)
         self.host_rerank_k_inner = int(k_inner)
         self.host_rerank_margin = float(margin)
-
-    def evict_list(self, list_id: int) -> None:
-        """Nothing to evict (device-resident); reset the list's heat."""
-        self._heat.reset(list_id)
-
-    @property
-    def list_access_count(self) -> np.ndarray:
-        """Per-list heat (``ListHeat``, as IVF-Flat counts it): searches'
-        queries that probed each list, fetched from the device."""
-        return self._heat.to_numpy()
-
-    def get_hot_lists(self, n: int) -> np.ndarray:
-        """Most-accessed lists."""
-        return np.argsort(-self.list_access_count, kind="stable")[:n]
 
     # ------------------------------------------------------------------ #
     # state

@@ -34,8 +34,8 @@ id table.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import threading
+import time
 
 import numpy as np
 import torch
@@ -47,13 +47,19 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.arena import (
     torch_dtype,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_flat import (
-    FLT_MAX,
     IVFFlatIndex,
-    SearchParams,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_pq import (
     grouped_adc,
     rerank_depth,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.search import (
+    PendingSearch,
+    SearchParams,
+    SearchSpans,
+    flat_rerank_depth,
+    resolve_nprobe,
+    warm_up,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.ops.distance import (
     Metric,
@@ -157,13 +163,6 @@ def _storage_key(t: torch.Tensor):
     return t.device, t.untyped_storage().data_ptr()
 
 
-def _positions_to_ids(pos: np.ndarray, ids_table: np.ndarray) -> np.ndarray:
-    flat = ids_table.reshape(-1)
-    out = flat[np.clip(pos, 0, flat.size - 1)]
-    out[pos < 0] = INVALID_ID
-    return out
-
-
 def _sharded_search(mesh, q, centroids, arena_s, arena_sq_s, counts_s,
                     scale_s, anchors_s, nprobe, k, metric, global_cap,
                     scan_impl="auto", m_budget=None, scan_capacity=None,
@@ -251,6 +250,7 @@ class _ShardedServingSurface:
     docstring for what the lock also covers)."""
 
     base = None
+    SPANS = SearchSpans.of("sharded")   # the finalize's ranges
 
     def _setup(self, base, config, mesh: Mesh) -> None:
         self.base = base
@@ -317,36 +317,38 @@ class _ShardedServingSurface:
             return contextlib.nullcontext()
         return self.base._mutate_lock
 
-    def _nprobe(self, params: SearchParams) -> int:
-        nprobe = params.nprobe
-        if nprobe <= 0:
-            # auto: the base's measured-coverage calibration
-            nprobe = self.calibrated_nprobe or SearchParams().nprobe
-        return min(nprobe, self.config.nlist)
-
     def search(
         self, queries, params: SearchParams | None = None
     ) -> tuple[np.ndarray, np.ndarray]:
         return self.search_async(queries, params)()
 
-    def search_async(self, queries, params: SearchParams | None = None):
-        """Enqueue the sharded search now and return a thunk that waits for
-        it and maps positions through the snapshotted id table."""
-        d_dev, pos_dev, ids_table = self._dispatch(
-            queries, params or SearchParams())
+    def search_async(self, queries,
+                     params: SearchParams | None = None) -> PendingSearch:
+        """Snapshot one publication, enqueue the sharded search under the
+        publish lock and the base's (:meth:`_base_lock`), and return its
+        :class:`PendingSearch` (spans ``sharded.finalize`` ⊃
+        ``.fetch_wait``, ``.copy``, ``.id_map``; ``waits`` as a resident
+        index's)."""
+        t_enqueue = time.perf_counter()
+        pending = self._enqueue(
+            queries, params, lambda *out: PendingSearch(self.SPANS, *out))
+        pending.waits["enqueue"] = (time.perf_counter() - t_enqueue) * 1e3
+        return pending
 
-        def finalize():
-            d = d_dev.cpu().numpy().copy()
-            pos = pos_dev.cpu().numpy()
-            ids = _positions_to_ids(pos, ids_table)
-            d[pos < 0] = FLT_MAX
-            return d, ids
+    def _enqueue(self, queries, params, finish):
+        """``finish(d_dev, pos_dev, ids_table)`` of the sharded search of
+        ``queries``, dispatched (and ``finish`` run) under the locks."""
+        params = params or SearchParams()
+        nprobe = resolve_nprobe(params, self.calibrated_nprobe,
+                                self.config.nlist)
+        q = _prep_queries(queries, self.mesh.leader, self.config.dimension)
+        with self._publish_lock, self._base_lock():
+            return finish(*self._dispatch(q, params, nprobe))
 
-        return finalize
-
-    def _dispatch(self, queries, params: SearchParams):
-        """Snapshot one publication and enqueue the sharded search; returns
-        ``(d_dev, pos_dev, ids_table)``."""
+    def _dispatch(self, q, params: SearchParams, nprobe: int):
+        """Enqueue the sharded search of the leader's queries ``q`` over
+        the current publication (its locks held); returns ``(d_dev,
+        pos_dev, ids_table)``."""
         raise NotImplementedError
 
     def _warmup_params(self):
@@ -355,20 +357,12 @@ class _ShardedServingSurface:
     def warmup_lists(self, list_ids=None, batch_sizes=(1, 8, 64),
                      nprobes=None) -> None:
         """Run one search per batch size × nprobe (× rerank variant on
-        PQ), so first-use costs (the kernel build, allocator growth) are
-        paid before serving. ``list_ids`` is accepted for signature parity:
-        the stripes are device-resident, there is no per-list residency."""
-        if not self.trained:
-            return
-        if nprobes is None:
-            nprobes = (SearchParams().nprobe,)
-        dummy = np.zeros((1, self.config.dimension), np.float32)
-        for np_ in nprobes:
-            for bs in batch_sizes:
-                q = np.repeat(dummy, bs, axis=0)
-                for base_params in self._warmup_params():
-                    self.search(
-                        q, dataclasses.replace(base_params, nprobe=int(np_)))
+        PQ; ``models/search.warm_up``), so first-use costs (the kernel
+        build, allocator growth) are paid before serving. ``list_ids`` is
+        accepted for signature parity: the stripes are device-resident,
+        there is no per-list residency."""
+        if self.trained:
+            warm_up(self, batch_sizes, nprobes, self._warmup_params())
 
     def _device_arrays(self) -> dict:
         raise NotImplementedError
@@ -631,28 +625,20 @@ class ShardedIVFFlatIndex(_ShardedServingSurface):
         """Dispatch the sharded search and return the device result tensors
         ``(distances, logical positions)`` on the leader: no host copy, no
         id mapping (the device-throughput hook)."""
-        d_dev, pos_dev, _ids = self._dispatch(queries,
-                                              params or SearchParams())
-        return d_dev, pos_dev
+        return self._enqueue(queries, params, lambda d, pos, _ids: (d, pos))
 
-    def _dispatch(self, queries, params):
-        nprobe = self._nprobe(params)
-        q = _prep_queries(queries, self.mesh.leader, self.config.dimension)
-        with self._publish_lock, self._base_lock():
-            rerank_k = 0
-            if params.use_exact_rerank and self.arena_lo_s is not None:
-                rerank_k = min(max(4 * params.k, params.k), 256)
-            d_dev, pos_dev = _sharded_search(
-                self.mesh, q, self.centroids, self.arena_s, self.arena_sq_s,
-                self.counts, self.arena_scale, self.arena_anchors, nprobe,
-                params.k, self.metric, self.global_cap, self.scan_impl,
-                self.config.m_budget,
-                _stripe_scan_capacity(self._counts_max, self.global_cap,
-                                      self.n_shards),
-                self.arena_lo_s, rerank_k,
-            )
-            ids_table = self._ids_table
-        return d_dev, pos_dev, ids_table
+    def _dispatch(self, q, params, nprobe):
+        d_dev, pos_dev = _sharded_search(
+            self.mesh, q, self.centroids, self.arena_s, self.arena_sq_s,
+            self.counts, self.arena_scale, self.arena_anchors, nprobe,
+            params.k, self.metric, self.global_cap, self.scan_impl,
+            self.config.m_budget,
+            _stripe_scan_capacity(self._counts_max, self.global_cap,
+                                  self.n_shards),
+            self.arena_lo_s,
+            flat_rerank_depth(params, self.arena_lo_s is not None, params.k),
+        )
+        return d_dev, pos_dev, self._ids_table
 
     def _base_tensors(self) -> tuple:
         arena = self.base.arena
@@ -803,26 +789,22 @@ class ShardedIVFPQIndex(_ShardedServingSurface):
                 setattr(self, name, value)
             self._published = True
 
-    def _dispatch(self, queries, params):
-        nprobe = self._nprobe(params)
-        q0 = _prep_queries(queries, self.mesh.leader, self.config.dimension)
-        with self._publish_lock, self._base_lock():
-            scan_cap = _stripe_scan_capacity(
-                self._counts_max, self.global_cap, self.n_shards)
-            rerank_k = 0
-            if params.use_exact_rerank and self.has_raw:
-                # each shard reranks its own shortlist from its stripe
-                rerank_k = rerank_depth(
-                    self.config.rerank_k, params.k,
-                    nprobe * (scan_cap or self.global_cap // self.n_shards))
-            d_dev, pos_dev = _sharded_pq_search(
-                self.mesh, q0, self.opq_R, self.centroids, self.codebooks,
-                self.codes_t_s, self.code_sq_s, self.counts, self.raw_s,
-                self.raw_scale_s, self.raw_anchors_s, nprobe, params.k,
-                self.metric, self.global_cap, rerank_k, scan_cap,
-            )
-            ids_table = self._ids_table
-        return d_dev, pos_dev, ids_table
+    def _dispatch(self, q0, params, nprobe):
+        scan_cap = _stripe_scan_capacity(
+            self._counts_max, self.global_cap, self.n_shards)
+        rerank_k = 0
+        if params.use_exact_rerank and self.has_raw:
+            # each shard reranks its own shortlist from its stripe
+            rerank_k = rerank_depth(
+                self.config.rerank_k, params.k,
+                nprobe * (scan_cap or self.global_cap // self.n_shards))
+        d_dev, pos_dev = _sharded_pq_search(
+            self.mesh, q0, self.opq_R, self.centroids, self.codebooks,
+            self.codes_t_s, self.code_sq_s, self.counts, self.raw_s,
+            self.raw_scale_s, self.raw_anchors_s, nprobe, params.k,
+            self.metric, self.global_cap, rerank_k, scan_cap,
+        )
+        return d_dev, pos_dev, self._ids_table
 
     def _warmup_params(self):
         if self.has_raw:

@@ -62,6 +62,9 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch.models.ivf_pq import (
     IVFPQConfig,
     IVFPQIndex,
 )
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.search import (
+    PendingSearch,
+)
 from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel import (
     ShardedIVFFlatIndex,
     ShardedIVFPQIndex,
@@ -870,9 +873,12 @@ class VdbEngine:
         overlaps batch N−1's result fetch).
 
         items: [(queries [m, D] np, SearchParams, t_submit)] → thunk() →
-        per-item (dists, ids) slices. An index without a dispatch /
-        finalize split (the streaming tier) searches here, synchronously.
-        Runs in the span ``engine.dispatch``."""
+        per-item (dists, ids) slices. Every index family's ``search_async``
+        returns a ``models/search.PendingSearch`` (the streaming tier's
+        runs its search here, synchronously), whose readings are recorded; a
+        plain callable in its place (a wrapper that injects a fault)
+        serves its answer and records none. Runs in the span
+        ``engine.dispatch``."""
         with trace("engine.dispatch"):
             index = st.index
             t_start = time.monotonic()
@@ -886,18 +892,13 @@ class VdbEngine:
                     self.metrics.record_stage(
                         "queue_wait", (t_start - it[2]) * 1000
                     )
-            thunks: list[tuple[list[int], object]] = []
+            pendings: list[tuple[list[int], object]] = []
             for (nprobe, k, rerank), idxs in groups.items():
                 qs = np.concatenate([items[i][0] for i in idxs])
                 params = SearchParams(
                     nprobe=nprobe, k=k, use_exact_rerank=rerank
                 )
-                if hasattr(index, "search_async"):
-                    fin = index.search_async(qs, params)
-                else:
-                    d, out_ids = index.search(qs, params)
-                    fin = lambda d=d, ids=out_ids: (d, ids)  # noqa: E731
-                thunks.append((idxs, fin))
+                pendings.append((idxs, index.search_async(qs, params)))
             self.metrics.record_stage(
                 "dispatch", (time.monotonic() - t_start) * 1000
             )
@@ -905,14 +906,15 @@ class VdbEngine:
             def finalize() -> list:
                 t_f = time.monotonic()
                 results: list = [None] * len(items)
-                for idxs, fin in thunks:
-                    d, out_ids = fin()
-                    # the search's own waits for the card and device
-                    # times, where it takes them (``fetch_wait``; IVF-PQ's
-                    # ``rerank``), and its counts (``rerank_rows``)
-                    for stage, v in {**getattr(fin, "waits", {}),
-                                     **getattr(fin, "counts", {})}.items():
-                        self.metrics.record_stage(stage, v)
+                for idxs, pending in pendings:
+                    d, out_ids = pending()
+                    # the search's own host and device times (``enqueue``,
+                    # ``fetch_wait``; IVF-PQ's ``rerank``) and its counts
+                    # (``rerank_rows``); none for the streaming tier
+                    if isinstance(pending, PendingSearch):
+                        for stage, v in {**pending.waits,
+                                         **pending.counts}.items():
+                            self.metrics.record_stage(stage, v)
                     off = 0
                     for i in idxs:
                         m = items[i][0].shape[0]

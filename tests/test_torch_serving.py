@@ -1001,21 +1001,33 @@ def test_engine_spans_and_stages_of_a_cpu_batch(tmp_path, rng):
     assert all(inside(e, resolves) for e in finals)
 
 
+# each family the engine serves: create_index's m and tier, the engine's
+# settings (a two-shard CPU mesh for the sharded views) and the index class
+SERVED_FAMILIES = {
+    "ivf_flat": (0, "", {}, "IVFFlatIndex"),
+    "ivf_pq": (4, "", {}, "IVFPQIndex"),
+    "sharded_ivf_flat": (0, "", dict(shard_serving="on", mesh_shards=2),
+                         "ShardedIVFFlatIndex"),
+    "sharded_ivf_pq": (4, "", dict(shard_serving="on", mesh_shards=2),
+                       "ShardedIVFPQIndex"),
+    "streaming": (0, "streaming", {}, "StreamingIVFFlatIndex"),
+    # IVF-Flat behind a wrapper that hands the engine a plain callable, as
+    # the benchmark's fault injection does
+    "wrapped_ivf_flat": (0, "", {}, "IVFFlatIndex"),
+}
+
+
+@pytest.mark.parametrize("family", list(SERVED_FAMILIES))
 def test_engine_records_the_waits_a_search_exposes(tmp_path, rng,
-                                                   monkeypatch):
-    """The engine records ``fetch_wait`` and ``enqueue`` from the
-    ``waits`` a search's thunk exposes; a thunk without them (a wrapper,
-    another index) serves the same answers and records none."""
-    eng, x = _live_engine(tmp_path, rng)
-    p = SearchParams(nprobe=8, k=5)
-    try:
-        st = eng.get_state("docs")
-        waits = st.index.search_async(x[:2], p).waits
-        assert set(waits) == {"fetch_wait", "enqueue"}
-        assert waits["fetch_wait"] == 0.0 and waits["enqueue"] > 0.0
-        want = _serve(eng, "docs", x[:8], p)
-        stages = eng.metrics.get_stage_percentiles()
-        assert stages["fetch_wait"]["count"] == stages["enqueue"]["count"] > 0
+                                                   monkeypatch, family):
+    """Every family's ``search_async`` returns a ``PendingSearch`` that
+    answers as ``search`` does, bit for bit, with ``waits`` and ``counts``
+    dicts; the engine records ``fetch_wait`` and ``enqueue`` from them for
+    the families that enqueue, and none for the streaming tier, which
+    searches synchronously, or for a plain callable, whose answers it
+    serves all the same."""
+    m, tier, engine_kw, cls_name = SERVED_FAMILIES[family]
+    if family == "wrapped_ivf_flat":
         orig = IVFFlatIndex.search_async
 
         def bare(self, queries, params=None):
@@ -1023,13 +1035,34 @@ def test_engine_records_the_waits_a_search_exposes(tmp_path, rng,
             return lambda: fin()
 
         monkeypatch.setattr(IVFFlatIndex, "search_async", bare)
-        eng.metrics.reset_windows()
-        got = _serve(eng, "docs", x[:8], p)
+    x, _ids, src = _source(tmp_path, rng)
+    eng = t_service.VdbEngine(_config(tmp_path, **engine_kw), device="cpu")
+    p = SearchParams(nprobe=8, k=5)
+    try:
+        eng.create_index("docs", DIM, "L2", 8, m, 8 if m else 0, tier)
+        _build_and_activate(eng, "docs", src)
+        index = eng.get_state("docs").index
+        pending = index.search_async(x[:6], p)
+        got = pending()
+        want = index.search(x[:6], p)
+        _serve(eng, "docs", x[:8], p)
         stages = eng.metrics.get_stage_percentiles()
     finally:
         eng.close()
+    assert type(index).__name__ == cls_name
+    np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
-    assert "fetch_wait" not in stages and "enqueue" not in stages
+    enqueues = family not in ("streaming", "wrapped_ivf_flat")
+    if family != "wrapped_ivf_flat":
+        assert type(pending.waits) is dict and pending.counts == {}
+        assert set(pending.waits) == (
+            {"fetch_wait", "enqueue"} if enqueues else set())
+    if enqueues:
+        assert pending.waits["fetch_wait"] == 0.0
+        assert pending.waits["enqueue"] > 0.0
+        assert stages["fetch_wait"]["count"] == stages["enqueue"]["count"] > 0
+    else:
+        assert "fetch_wait" not in stages and "enqueue" not in stages
     assert stages["dispatch"]["count"] > 0
 
 

@@ -8,7 +8,9 @@ graphs, enqueues under ``torch.cuda.set_sync_debug_mode("error")``, where
 any synchronising call raises; 200 back-to-back searches with distinct
 queries, enqueued from one host buffer overwritten after each enqueue and
 finalized after all of them, answer bit for bit as the same searches run
-one at a time, at B 64, 37 and 1.
+one at a time, at B 64, 37 and 1. The sharded views over two shards on
+the one card answer through the same finalize, pinned and fenced by the
+search's event, bit for bit as through pageable ``.cpu()`` copies.
 
 This module imports no JAX. On the card:
 
@@ -25,6 +27,17 @@ from cuda_acceleratedvectordatabaseengine_tpu_torch import (
     IVFPQConfig,
     IVFPQIndex,
     SearchParams,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.models.search import (
+    FLT_MAX,
+    positions_to_ids,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel.mesh import (
+    make_mesh,
+)
+from cuda_acceleratedvectordatabaseengine_tpu_torch.parallel.sharded import (
+    ShardedIVFFlatIndex,
+    ShardedIVFPQIndex,
 )
 from cuda_acceleratedvectordatabaseengine_tpu_torch.utils.transfer import (
     HostCopy,
@@ -83,6 +96,17 @@ def _index(kind, x):
     return idx, p
 
 
+def _queries(corpus):
+    """``queries(b)``: b corpus rows with noise, a new draw each call."""
+    rng = np.random.default_rng(11)
+
+    def queries(b):
+        rows = torch.from_numpy(rng.integers(0, N, b)).to(corpus.device)
+        return (corpus[rows].cpu().numpy()
+                + 0.5 * rng.standard_normal((b, DIM))).astype(np.float32)
+    return queries
+
+
 class _NoSync:
     """Every synchronising call of PyTorch raises inside the block."""
 
@@ -99,12 +123,7 @@ class _NoSync:
 @pytest.mark.parametrize("kind", ["ivf_flat", "ivf_pq", "ivf_pq_graphs"])
 def test_a_search_enqueues_with_no_sync_and_pipelines_exactly(corpus, kind):
     idx, p = _index(kind, corpus)
-    rng = np.random.default_rng(11)
-
-    def queries(b):
-        rows = torch.from_numpy(rng.integers(0, N, b)).to(corpus.device)
-        return (corpus[rows].cpu().numpy()
-                + 0.5 * rng.standard_normal((b, DIM))).astype(np.float32)
+    queries = _queries(corpus)
 
     for b in (64, 37, 1):
         for _ in range(3):      # the kernels' build, the graphs' capture
@@ -121,5 +140,33 @@ def test_a_search_enqueues_with_no_sync_and_pipelines_exactly(corpus, kind):
         assert all(fin.waits["enqueue"] > 0.0 for fin in thunks)
         for q, (d, i) in zip(qs, got):
             d0, i0 = idx.search(q, p)
+            np.testing.assert_array_equal(i, i0)
+            np.testing.assert_array_equal(d, d0)
+
+
+def _pageable(d_dev, pos_dev, ids_table):
+    """The sharded views' finalize before the shared one: pageable copies
+    back, then the id map and the sentinels."""
+    d = d_dev.cpu().numpy().copy()
+    pos = pos_dev.cpu().numpy()
+    d[pos < 0] = FLT_MAX
+    return d, positions_to_ids(pos, ids_table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ivf_flat", "ivf_pq"])
+def test_a_sharded_search_answers_as_through_pageable_copies(corpus, kind):
+    idx, p = _index(kind, corpus)
+    view = (ShardedIVFFlatIndex if kind == "ivf_flat" else ShardedIVFPQIndex)(
+        idx, make_mesh(devices=[corpus.device] * 2))
+    queries = _queries(corpus)
+    for b in (64, 37, 1):
+        qs = [queries(b) for _ in range(SEARCHES // 10)]
+        pendings = [view.search_async(q, p) for q in qs]
+        got = [pending() for pending in pendings]
+        assert all(set(pending.waits) == {"enqueue", "fetch_wait"}
+                   for pending in pendings)
+        for q, (d, i) in zip(qs, got):
+            d0, i0 = view._enqueue(q, p, _pageable)
             np.testing.assert_array_equal(i, i0)
             np.testing.assert_array_equal(d, d0)
